@@ -1,0 +1,372 @@
+"""ElasticTrainer: the elastic data-parallel training step, in PyTorch.
+
+The port of the data-parallel branch of ``adaptdl_tpu.trainer``. One
+optimizer step at a given (atomic_bsz, accum_steps):
+
+- every microbatch runs forward and backward into its own local
+  gradients, and its per-group squared norm -- preconditioned by
+  ``sqrt(max(nu, 0)) + 1e-8`` of Adam's second moments read *before*
+  this step's update when ``precondition="adam"`` -- is taken before the
+  gradients are summed;
+- one all-reduce point then carries the mean gradient together with the
+  squared-norm scalars and the loss (the identity with one replica);
+- the gradient-noise statistics update, the scaling rule turns them
+  into per-group LR factors, the optimizer applies them, and progress
+  advances by the statistical gain.
+
+This is deliberately not DDP: DDP averages gradients inside backward,
+before the noise statistics can see each replica's own gradient.
+Everything stays on the device; ``run_step`` reads the statistics back
+to the host only every ``metrics_every`` steps.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from adaptdl_tpu_torch import checkpoint, collective, env, gns, metrics
+from adaptdl_tpu_torch.device import resolve_device
+from adaptdl_tpu_torch.optim import AdamW
+from adaptdl_tpu_torch.scaling_rules import RuleContext, ScalingRule
+
+# Profiler ranges of the step's three phases (examples/profile_step.py
+# reads them); a range costs a few microseconds when no profiler runs.
+RANGE_MICROBATCHES = "adaptdl.microbatches"
+RANGE_STATISTICS = "adaptdl.statistics"
+RANGE_OPTIMIZER = "adaptdl.optimizer"
+
+
+@dataclass(frozen=True)
+class TrainState:
+    """The trainer's own state beside the model and optimizer it steps
+    (which update in place)."""
+
+    model: torch.nn.Module
+    optimizer: AdamW
+    gns: gns.GNSState
+    progress: torch.Tensor  # scale-invariant steps (advanced by gain)
+    step: torch.Tensor  # raw optimizer steps taken
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ElasticTrainer:
+    """Runs elastic data-parallel training steps.
+
+    Args:
+      loss_fn: ``loss_fn(model, batch) -> scalar`` mean loss over the
+        batch (a dict of tensors with a common leading dim).
+      model: the ``nn.Module`` to train, already on ``device``.
+      optimizer: an :class:`adaptdl_tpu_torch.optim.AdamW` over
+        ``model.parameters()``, in the model's parameter order.
+      init_batch_size: the batch size the LR was tuned for.
+      scaling_rule: LR rule; default applies no scaling.
+      precondition: None or "adam" (precondition the noise statistics
+        by Adam's second moments).
+      smoothing: GNS EMA retention per unit scale.
+      device: where the step runs; "cuda" (default) raises without CUDA.
+
+    ``zero1``, ``zero3``, ``zero3_blocks`` and a ``mesh`` belong to
+    parallel modes not ported yet and raise, as do sharded axes in the
+    environment. All parameters form one group for the noise statistics
+    and the LR factor (the JAX trainer's ``param_group_fn`` is not
+    ported yet).
+    """
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        model: torch.nn.Module,
+        optimizer: AdamW,
+        init_batch_size: int,
+        scaling_rule: ScalingRule | None = None,
+        precondition: str | None = None,
+        smoothing: float = 0.999,
+        device="cuda",
+        zero1: bool = False,
+        zero3: bool = False,
+        zero3_blocks: str | None = None,
+        mesh=None,
+    ):
+        if zero1 or zero3 or zero3_blocks is not None or mesh is not None:
+            raise NotImplementedError(
+                "zero1/zero3/zero3_blocks and device meshes are not "
+                "ported yet; the port runs the data-parallel step only"
+            )
+        sharded = {
+            "ADAPTDL_SEQ_SHARDS": env.seq_shards(),
+            "ADAPTDL_MODEL_SHARDS": env.model_shards(),
+            "ADAPTDL_STAGE_SHARDS": env.stage_shards(),
+            "ADAPTDL_EXPERT_SHARDS": env.expert_shards(),
+        }
+        if any(v > 1 for v in sharded.values()):
+            raise NotImplementedError(
+                f"sharded axes are not ported yet: {sharded}"
+            )
+        if env.num_replicas() > 1:
+            raise NotImplementedError(
+                "multi-replica data parallelism is not ported yet "
+                f"(ADAPTDL_NUM_REPLICAS={env.num_replicas()})"
+            )
+        if precondition not in (None, "adam"):
+            raise ValueError(f"unknown precondition: {precondition!r}")
+        self.device = resolve_device(device)
+        named = list(model.named_parameters())
+        self._params = [p for _, p in named]
+        off_device = [n for n, p in named if p.device.type != self.device.type]
+        if off_device:
+            raise ValueError(
+                f"model parameters {off_device[:3]} are not on {self.device}"
+            )
+        if [id(p) for p in optimizer.params()] != [id(p) for p in self._params]:
+            raise ValueError(
+                "the optimizer must hold model.parameters(), in order"
+            )
+        self.num_param_groups = 1
+        self._group_ids = [0] * len(named)
+        self.loss_fn = loss_fn
+        self.model = model
+        self.optimizer = optimizer
+        self.init_batch_size = init_batch_size
+        self.scaling_rule = scaling_rule or ScalingRule()
+        self.precondition = precondition
+        self.smoothing = smoothing
+        self.num_replicas = 1
+        metrics.set_active_topology()
+        self._calibrated: set[int] = set()
+        # One warm-up run plus this many timed runs per calibration.
+        self.calibrate_repeats = 3
+        # How often run_step reads the statistics back to the host.
+        self.metrics_every = 10
+        self._steps_since_pull = self.metrics_every - 1  # pull early once
+
+    def init_state(self) -> TrainState:
+        zero = torch.zeros((), device=self.device)
+        return TrainState(
+            model=self.model,
+            optimizer=self.optimizer,
+            gns=gns.init(self._params, self.num_param_groups),
+            progress=zero.clone(),
+            step=zero.to(torch.int64),
+        )
+
+    def to_device(self, batch: dict) -> dict:
+        """Host (numpy) batch -> tensors on the trainer's device."""
+        return {
+            k: torch.as_tensor(np.asarray(v)).to(self.device)
+            for k, v in batch.items()
+        }
+
+    def _precond(self):
+        if self.precondition != "adam":
+            return None
+        return [
+            torch.sqrt(torch.clamp(nu, min=0.0)) + 1e-8
+            for nu in self.optimizer.second_moments()
+        ]
+
+    def train_step(self, atomic_bsz: int, accum_steps: int = 0) -> Callable:
+        """``(state, batch) -> (state, metrics)`` for batches (on the
+        device) of ``num_replicas * (accum_steps + 1) * atomic_bsz``
+        rows."""
+
+        def step(state: TrainState, batch: dict):
+            return self._step(state, batch, atomic_bsz, accum_steps)
+
+        return step
+
+    def _step(self, state: TrainState, batch: dict, atomic_bsz: int,
+              accum_steps: int):
+        num_micro = accum_steps + 1
+        count = self.num_replicas * num_micro
+        accum_scale = self.num_replicas * atomic_bsz / self.init_batch_size
+        scale = accum_scale * num_micro
+        batch_size = self.num_replicas * num_micro * atomic_bsz
+        precond = self._precond()
+        grad_sum = None
+        lsqr_sum = torch.zeros(self.num_param_groups, device=self.device)
+        loss_sum = torch.zeros((), device=self.device)
+        with record_function(RANGE_MICROBATCHES):
+            for i in range(num_micro):
+                micro = {
+                    k: v[i * atomic_bsz : (i + 1) * atomic_bsz]
+                    for k, v in batch.items()
+                }
+                loss = self.loss_fn(self.model, micro)
+                grads = [
+                    g.float()
+                    for g in torch.autograd.grad(loss, self._params)
+                ]
+                lsqr_sum = lsqr_sum + gns.group_normsqr(
+                    grads, self._group_ids, self.num_param_groups, precond
+                )
+                loss_sum = loss_sum + loss.detach().float()
+                if grad_sum is None:
+                    grad_sum = grads
+                else:
+                    for acc, g in zip(grad_sum, grads):
+                        acc.add_(g)
+        with record_function(RANGE_STATISTICS):
+            grads = [g.div_(num_micro) for g in grad_sum]
+            local_sqr_mean = lsqr_sum / num_micro
+            loss = loss_sum / num_micro
+            # The one all-reduce point: gradients, with the two noise
+            # scalars and the loss riding along.
+            collective.allreduce_mean(grads + [local_sqr_mean, loss])
+            new_gns = gns.update(
+                state.gns,
+                grads,
+                local_sqr_mean,
+                count=count,
+                accum_scale=accum_scale,
+                num_microbatches=num_micro,
+                smoothing=self.smoothing,
+                precond=precond,
+                group_ids=self._group_ids,
+                num_groups=self.num_param_groups,
+            )
+            step_gain = gns.gain(new_gns, scale)
+            ctx = RuleContext(
+                scale=scale,
+                batch_size=batch_size,
+                init_batch_size=self.init_batch_size,
+                gns_state=new_gns,
+                progress=state.progress,
+            )
+            lr_factor = self.scaling_rule.lr_factor(ctx)
+            group_factors = self.scaling_rule.lr_factor_groups(ctx)
+        with record_function(RANGE_OPTIMIZER):
+            for p, g in zip(self._params, grads):
+                p.grad = g
+            self.optimizer.step(
+                [group_factors[gid] for gid in self._group_ids]
+            )
+            for p in self._params:
+                p.grad = None
+        new_state = replace(
+            state,
+            gns=new_gns,
+            progress=state.progress + step_gain,
+            step=state.step + 1,
+        )
+        return new_state, {
+            "loss": loss,
+            "gain": step_gain,
+            "lr_factor": lr_factor,
+            "grad_sqr": gns.sqr_avg(new_gns),
+            "grad_var": gns.var_avg(new_gns),
+            "progress": new_state.progress,
+            "scale": torch.tensor(scale, device=self.device),
+        }
+
+    def calibrate_accum_time(self, host_batch: Any, atomic_bsz: int) -> float:
+        """Time one microbatch forward and backward with no gradient
+        sync (the best of ``calibrate_repeats`` runs after a warm-up)
+        and record it for the performance model."""
+        micro = self.to_device({k: v[:atomic_bsz] for k, v in host_batch.items()})
+
+        def run():
+            loss = self.loss_fn(self.model, micro)
+            grads = torch.autograd.grad(loss, self._params)
+            return gns.normsqr(grads) + loss.detach()
+
+        run()
+        _sync(self.device)
+        best = float("inf")
+        for _ in range(self.calibrate_repeats):
+            start = time.perf_counter()
+            run()
+            _sync(self.device)
+            best = min(best, time.perf_counter() - start)
+        metrics.profile_accum_time(atomic_bsz, best)
+        return best
+
+    def run_step(self, state: TrainState, host_batch: Any, dataloader):
+        """One elastic step wired to the dataloader's current config:
+        calibrates new batch sizes, runs the step, and feeds the noise
+        statistics and progress back to the metrics engine every
+        ``metrics_every`` steps."""
+        if env.num_replicas() != self.num_replicas:
+            raise RuntimeError(
+                f"ADAPTDL_NUM_REPLICAS={env.num_replicas()} but the "
+                f"trainer runs {self.num_replicas} replica(s)"
+            )
+        atomic_bsz = dataloader.current_atomic_bsz
+        accum_steps = dataloader.current_accum_steps
+        if atomic_bsz not in self._calibrated:
+            self.calibrate_accum_time(host_batch, atomic_bsz)
+            self._calibrated.add(atomic_bsz)
+        state, out = self.train_step(atomic_bsz, accum_steps)(
+            state, self.to_device(host_batch)
+        )
+        self._steps_since_pull += 1
+        if self._steps_since_pull >= self.metrics_every:
+            self._steps_since_pull = 0
+            metrics.update_grad_params(
+                float(out["grad_sqr"]), float(out["grad_var"])
+            )
+            metrics.update_progress(float(out["progress"]))
+        return state, out
+
+    def make_checkpoint_state(
+        self,
+        get_state: Callable[[], TrainState],
+        set_state: Callable[[TrainState], None],
+        name: str = "elastic_trainer",
+    ) -> "TrainerCheckpoint":
+        return TrainerCheckpoint(name, self, get_state, set_state)
+
+
+class TrainerCheckpoint(checkpoint.State):
+    """Persists a TrainState device-agnostically: ``torch.save`` writes
+    every tensor bit for bit, and a restore lands on the current
+    trainer's device."""
+
+    def __init__(self, name, trainer: ElasticTrainer, get_state, set_state):
+        super().__init__(name)
+        self._trainer = trainer
+        self._get_state = get_state
+        self._set_state = set_state
+
+    def save(self, fileobj):
+        state = self._get_state()
+        fields = state.gns.tensors()
+        torch.save(
+            {
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "prev_grad": fields.pop("prev_grad"),
+                "gns": fields,
+                "progress": state.progress,
+                "step": state.step,
+            },
+            fileobj,
+        )
+
+    def load(self, fileobj):
+        payload = torch.load(fileobj, map_location="cpu", weights_only=True)
+        device = self._trainer.device
+        state = self._get_state()
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        restored = gns.GNSState(
+            **{k: v.to(device) for k, v in payload["gns"].items()},
+            prev_grad=[t.to(device) for t in payload["prev_grad"]],
+        )
+        self._set_state(
+            replace(
+                state,
+                gns=restored,
+                progress=payload["progress"].to(device),
+                step=payload["step"].to(device),
+            )
+        )

@@ -1,0 +1,94 @@
+"""The port stands alone: importing ``adaptdl_tpu_torch`` (every module)
+and ``chip_smoke.py`` loads neither JAX nor the JAX package, no source
+of either imports them, and the entry points refuse to run anywhere but
+where they were asked to (CUDA by default)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "adaptdl_tpu"}
+
+
+def _port_sources():
+    return sorted((REPO / "adaptdl_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"
+    ]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import adaptdl_tpu_torch\n"
+        "for m in pkgutil.walk_packages(adaptdl_tpu_torch.__path__, "
+        "'adaptdl_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: str(p.relative_to(REPO))
+)
+def test_no_source_imports_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch.examples import transformer_lm
+    from adaptdl_tpu_torch.models import TransformerConfig, init_transformer
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        adaptdl_tpu_torch.initialize_job()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer_lm.main(["--epochs", "1"])
+    tiny = TransformerConfig(vocab_size=16, num_layers=1, num_heads=1,
+                             d_model=8, d_ff=16, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_transformer(tiny)
+    model = init_transformer(tiny, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ElasticTrainer(lambda m, b: 0, model, AdamW(model.parameters(), lr=1.0), 4)
+
+
+def test_unported_job_settings_raise(monkeypatch):
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch.examples import transformer_lm
+
+    monkeypatch.setenv("ADAPTDL_SUPERVISOR_URL", "http://localhost:1")
+    with pytest.raises(NotImplementedError, match="supervisor"):
+        adaptdl_tpu_torch.initialize_job(device="cpu")
+    monkeypatch.delenv("ADAPTDL_SUPERVISOR_URL")
+    monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "2")
+    with pytest.raises(NotImplementedError, match="multi-replica"):
+        adaptdl_tpu_torch.initialize_job(device="cpu")
+    with pytest.raises(NotImplementedError, match="--zero1"):
+        transformer_lm.main(["--cpu", "--zero1"])
