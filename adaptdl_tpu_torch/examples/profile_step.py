@@ -5,8 +5,9 @@ attention on), runs warm-up steps, times steps with CUDA events, then
 traces a few more with ``torch.profiler`` and prints one JSON line:
 step time and tokens/s, the device's busy and idle share over the
 traced window, kernel time by phase of the step (the trainer's
-``adaptdl.*`` ranges), the flash forward kernel's and the flash
-backward's kernel time, and the kernels that take the most time.
+``adaptdl.*`` ranges), the flash forward kernels' (either of the two)
+and the flash backward's kernel time, and the kernels that take the
+most time.
 
 Run on the card:  python -m adaptdl_tpu_torch.examples.profile_step
 Option: --accum-steps A (0 or more; atomic batch 32 / (A + 1)).
@@ -20,6 +21,11 @@ import json
 import subprocess
 
 import torch
+
+
+# Device names of the flash forward kernels (csrc/flash_attention_fwd.cu
+# and csrc/flash_attention_fwd_sm90.cu).
+FLASH_FORWARD_KERNELS = ("flash_fwd_kernel", "flash_fwd_sm90_kernel")
 
 
 def _timeline(prof, phases, nested):
@@ -161,7 +167,8 @@ def main(argv=None):
             name: us * per_step for name, us in by_phase.items()
         },
         "flash_forward_kernel_ms_per_step": sum(
-            us for name, (us, _) in by_name.items() if "flash_fwd_kernel" in name
+            us for name, (us, _) in by_name.items()
+            if any(k in name for k in FLASH_FORWARD_KERNELS)
         ) * per_step,
         "flash_backward_kernel_ms_per_step": flash_bwd_us * per_step,
         "top_kernels_ms_per_step": [

@@ -1,19 +1,27 @@
-"""Flash attention: a hand-written Hopper kernel for the attention hot loop.
+"""Flash attention: hand-written Hopper kernels for the attention hot loop.
 
-The forward is ``csrc/flash_attention_fwd.cu``, the port of the Pallas
-TPU kernel ``adaptdl_tpu/ops/flash_attention.py::_fwd_kernel``: exact
-blockwise attention with an online softmax in f32, so the ``[seq,
-seq]`` score matrix never reaches device memory, plus the per-row
-log-sum-exp the backward reads. The kernel's note says what bounds it
-on the H100 and how its layout answers that.
+The forward ports the Pallas TPU kernel
+``adaptdl_tpu/ops/flash_attention.py::_fwd_kernel``: exact blockwise
+attention with an online softmax in f32, so the ``[seq, seq]`` score
+matrix never reaches device memory, plus the per-row log-sum-exp the
+backward reads. Two CUDA kernels compute it; :func:`forward_kernel`
+picks one from the dtype and head_dim before the launch:
 
-Beside the kernel, in this module:
+- ``csrc/flash_attention_fwd_sm90.cu`` for bfloat16 with head_dim 64 or
+  128: bf16 ``wgmma`` on the tensor cores, K/V staged by TMA.
+- ``csrc/flash_attention_fwd.cu`` for float32 and the other head dims
+  (multiples of 8 up to 128): f32 on the CUDA cores.
+
+Each kernel's note says what bounds it on the H100 and how its design
+answers that.
+
+Beside the kernels, in this module:
 
 - :func:`flash_attention_reference`, the plain PyTorch version of the
-  same function: a blockwise online-softmax loop with the kernel's
+  same function: a blockwise online-softmax loop with the kernels'
   ``block_q``/``block_k`` contract (seq must divide by both). The
   wrapper takes it for CPU tensors only; for a CUDA tensor it launches
-  the kernel or raises.
+  a kernel or raises.
 - :func:`flash_attention_backward`, the blockwise recompute backward of
   ``_flash_vjp_bwd`` (plain JAX there, plain PyTorch here): P is rebuilt
   from the saved log-sum-exp, ``delta = rowsum(dO * O)``, and
@@ -35,7 +43,9 @@ from torch.profiler import record_function
 from adaptdl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-KERNEL = "flash_attention_fwd"
+KERNEL = "flash_attention_fwd"  # f32 and bf16, head_dim 8..128 by 8
+KERNEL_SM90 = "flash_attention_fwd_sm90"  # bf16 wgmma, head_dim 64/128
+SM90_HEAD_DIMS = (64, 128)
 RANGE_BACKWARD = "adaptdl.flash_backward"  # profiler range of the backward
 MAX_HEAD_DIM = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,27 +106,70 @@ def flash_attention_reference(
     return out, lse
 
 
-def _kernel_library() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    fn = lib.adaptdl_flash_attention_fwd
+def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """Name of the CUDA kernel that computes the forward for inputs of
+    ``dtype`` and ``head_dim`` (its key in ``_build.LAUNCHES``)."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return KERNEL_SM90
+    return KERNEL
+
+
+def _kernel_entry(name: str):
+    """The C entry point of kernel ``name``, its library built and
+    loaded on first use. Both take (q, k, v, o, lse, bh, seq, head_dim,
+    [dtype code,] causal, scale, stream); only ``flash_attention_fwd.cu``
+    takes the dtype code."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"adaptdl_{name}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ints = 4 if name == KERNEL_SM90 else 5
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    return lib
+    return lib, fn
+
+
+def _launch(name, q, k, v, causal, scale):
+    """Launch kernel ``name`` on CUDA tensors and count the launch.
+    :func:`flash_attention_fwd` reaches it through :func:`forward_kernel`;
+    the card's checks call it directly to time either kernel on the same
+    inputs."""
+    bh, seq, head_dim = q.shape
+    if name == KERNEL_SM90 and (
+        q.dtype != torch.bfloat16 or head_dim not in SM90_HEAD_DIMS
+    ):
+        raise ValueError(
+            f"{KERNEL_SM90} takes bfloat16 with head_dim in "
+            f"{SM90_HEAD_DIMS}, not {q.dtype} with head_dim {head_dim}"
+        )
+    lib, fn = _kernel_entry(name)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, seq), dtype=torch.float32, device=q.device)
+    dtype_code = () if name == KERNEL_SM90 else (_KERNEL_DTYPES[q.dtype],)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), bh, seq, head_dim, *dtype_code, int(causal),
+            _resolve_scale(head_dim, scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, name)
+    _build.LAUNCHES[name] += 1
+    return out, lse
 
 
 def flash_attention_fwd(
     q, k, v, causal: bool = True, scale: float | None = None,
     block_q: int = 128, block_k: int = 128,
 ):
-    """``(out, lse)`` for ``[bh, seq, d]`` inputs: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors.
+    """``(out, lse)`` for ``[bh, seq, d]`` inputs: a CUDA kernel for
+    CUDA tensors (:func:`forward_kernel` says which), the plain version
+    for CPU tensors.
 
-    The kernel tiles by its own 64-row blocks; ``block_q``/``block_k``
-    keep the TPU kernel's contract (seq divides by both) on every
-    device so a configuration valid here is valid everywhere.
+    The kernels tile by their own blocks; ``block_q``/``block_k`` keep
+    the TPU kernel's contract (seq divides by both) on every device so a
+    configuration valid here is valid everywhere.
     """
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
@@ -149,19 +202,7 @@ def flash_attention_fwd(
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    lib = _kernel_library()
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, seq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.adaptdl_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, seq, head_dim, _KERNEL_DTYPES[q.dtype],
-            int(causal), _resolve_scale(head_dim, scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, err, KERNEL)
-    _build.LAUNCHES[KERNEL] += 1
-    return out, lse
+    return _launch(forward_kernel(q.dtype, head_dim), q, k, v, causal, scale)
 
 
 def flash_attention_backward(

@@ -6,27 +6,38 @@ Phases (any failure exits non-zero before the result line):
 
 1. device: versions, the card's name and power limit; CUDA required.
 2. build: every kernel under adaptdl_tpu_torch/csrc, compiled in
-   parallel (adaptdl_tpu_torch/ops/_build.py); ptxas registers and spills.
-3. kernels vs plain: each kernel's wrapper against its plain PyTorch
-   version on the card, at the main path's shapes and one small shape,
-   with stated tolerances; the flash gradient (autograd Function)
-   against dense autograd; times of the kernel, the plain version and
+   parallel (adaptdl_tpu_torch/ops/_build.py); ptxas registers, spills
+   and each sm90 instance's shared memory.
+3. kernels vs plain: both flash forward kernels against their plain
+   PyTorch version on the card -- the sm90 kernel (bf16, head_dim 64
+   and 128) at the main path's shape, head_dim 128 and a ragged seq;
+   the f32 kernel at f32 and head_dim 40 -- with stated tolerances (a
+   per-element bound for the sm90 kernel, see sm90_bound) and a check of
+   which kernel each input reached; the flash gradient
+   (autograd Function) against dense autograd in f32 and bf16; times of
+   both kernels on the main path's bf16 input, the plain version and
    one PyTorch library call computing the same function.
 4. main path: the full-width transformer LM (12 x 768, 12 heads, seq
    512, vocab 32000, bf16) through initialize_job ->
    AdaptiveDataLoader -> ElasticTrainer.run_step, 10 steps at
    accum_steps 0 and 4 at accum_steps 1; launch counts reset just
    before and read just after, and held to the expected count per
-   step; loss falls, statistics finite; the flash model agrees with the
-   dense-attention model on a small input; a checkpoint restores bit
-   for bit into a fresh trainer.
-5. result: the kernels line, the card line, then the device line.
+   step (the sm90 kernel; the f32 kernel must not move); loss falls,
+   statistics finite; the flash model agrees with the dense-attention
+   model on 2 x 512 tokens in bf16 (sm90 kernel) and in f32 (f32
+   kernel); a checkpoint restores bit for bit into a fresh trainer.
+5. result: the kernels line, the card line, then the device line. Each
+   kernel row's "launches" is its count in the main path's steps (0 for
+   the f32 kernel, which the bf16 path does not run); "check_launches"
+   is its count in the flash-vs-dense model check.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -80,40 +91,88 @@ def phase_device():
     return smi
 
 
+def ptxas_report(log):
+    """Registers and spill-store bytes of each kernel instance (by its
+    mangled entry name) in a ptxas -v report."""
+    entry, report = None, {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            report[entry] = {"registers": None, "spill_bytes": 0}
+        elif entry is None:
+            continue
+        elif "spill stores" in line:
+            found = re.search(r"(\d+) bytes spill stores", line)
+            report[entry]["spill_bytes"] = int(found.group(1))
+        elif "Used" in line and "registers" in line:
+            report[entry]["registers"] = int(line.split("Used")[1].split()[0])
+    return report
+
+
 def phase_build():
     from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
 
     start = time.perf_counter()
     built = _build.build_all()
     print(f"build: {sorted(built)} in {time.perf_counter() - start:.1f} s")
-    for name in built:
-        # ptxas reports per kernel instance: its entry name, then its
-        # spills and registers.
-        entry, registers, spilling = None, {}, set()
-        for line in _build.build_log(name).splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif entry is None:
-                continue
-            elif "spill stores" in line and not line.strip().startswith("0 bytes"):
-                spilling.add(entry)
-            elif "Used" in line and "registers" in line:
-                registers[entry] = int(line.split("Used")[1].split()[0])
-        main = [n for n in registers if "13__nv_bfloat16Li64E" in n]
+    check({KERNEL, KERNEL_SM90} <= set(built), "a flash library did not build")
+    report = ptxas_report(_build.build_log(KERNEL))
+    registers = {n: r["registers"] for n, r in report.items()}
+    main = [r for n, r in registers.items() if "13__nv_bfloat16Li64E" in n]
+    print(
+        f"build: {KERNEL}: {len(report)} kernel instances, "
+        f"{sum(r['spill_bytes'] > 0 for r in report.values())} spill; "
+        f"registers per thread {min(registers.values())}-"
+        f"{max(registers.values())}, bf16 head_dim 64: {main}"
+    )
+    lib = _build.load(KERNEL_SM90)
+    smem = lib.adaptdl_flash_attention_fwd_sm90_smem_bytes
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_int
+    for name, r in sorted(ptxas_report(_build.build_log(KERNEL_SM90)).items()):
+        head_dim = int(re.search(r"ILi(\d+)E", name).group(1))
         print(
-            f"build: {name}: {len(registers)} kernel instances, "
-            f"{len(spilling)} spill; registers per thread "
-            f"{min(registers.values())}-{max(registers.values())}, "
-            f"bf16 head_dim 64: {[registers[n] for n in main]}"
+            f"build: {KERNEL_SM90} head_dim {head_dim}: {r['registers']} "
+            f"registers per thread, {r['spill_bytes']} bytes spilled, "
+            f"{smem(head_dim)} bytes shared memory"
         )
 
 
+def sm90_bound(q, k, v, causal, ref, ref_lse):
+    """Per-element bound on |sm90 kernel - plain version| (bf16 inputs).
+
+    Scores agree up to f32 summation order (bf16 products are exact in
+    f32). The kernel then rounds P to bf16 before P V: each p_ij moves by
+    at most 2^-9 p_ij, so o_id moves by at most 2^-9 w_id with w_id =
+    sum_j p_ij |v_jd| (p normalised, rebuilt here from the plain
+    version's lse). Both outputs are then rounded to bf16, together at
+    most one bf16 ulp at |ref_id| + 2^-9 w_id. The bound takes the P term
+    twice, for f32 summation order: 2^-8 w + ulp(|ref| + 2^-8 w)."""
+    from adaptdl_tpu_torch.ops.flash_attention import NEG_INF
+
+    seq, head_dim = q.shape[1:]
+    s = (q.float() * head_dim**-0.5) @ k.float().transpose(1, 2)
+    if causal:
+        above = torch.ones(seq, seq, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, NEG_INF)
+    w = torch.exp(s - ref_lse[..., None]) @ v.float().abs()
+    magnitude = ref.float().abs() + 2.0**-8 * w
+    ulp = torch.exp2(torch.floor(torch.log2(magnitude.clamp_min(2.0**-126))) - 7)
+    return 2.0**-8 * w + ulp
+
+
 def phase_flash():
-    """Flash forward kernel vs its plain version, gradients, times."""
+    """Both flash forward kernels vs their plain version, gradients,
+    times. Returns the kernel rows of the result line."""
     import torch.nn.functional as F
 
     from adaptdl_tpu_torch.models.transformer import causal_attention
+    from adaptdl_tpu_torch.ops import _build
     from adaptdl_tpu_torch.ops.flash_attention import (
+        KERNEL,
+        KERNEL_SM90,
+        _launch,
         flash_attention,
         flash_attention_fwd,
         flash_attention_reference,
@@ -127,72 +186,135 @@ def phase_flash():
             for _ in range(3)
         ]
 
-    main_shape = (32 * 12, 512, 64)  # B*H, S, D of the main path
-    small_shape = (8, 128, 64)
-    main_err = None
-    for shape, block in ((main_shape, 128), (small_shape, 64)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (True, False):
-                q, k, v = qkv(shape, dtype)
-                out, lse = flash_attention_fwd(q, k, v, causal, None, block, block)
-                torch.cuda.synchronize()
-                ref, ref_lse = flash_attention_reference(
-                    q, k, v, causal, None, block, block
-                )
-                err = (out.float() - ref.float()).abs().max().item()
-                lse_err = (lse - ref_lse).abs().max().item()
-                # f32: summation order only. bf16: both round one f32
-                # result to bf16, so they differ by at most one ulp at
-                # the output's scale.
-                tol = (
-                    2e-5 if dtype == torch.float32
-                    else bf16_ulp(ref.float().abs().max().item())
-                )
-                print(
-                    f"flash fwd {tuple(shape)} {str(dtype)[6:]} "
-                    f"causal={causal}: max|out-plain|={err:.3g} "
-                    f"(tol {tol:.3g}), max|lse-plain|={lse_err:.3g} (tol 1e-4)"
-                )
-                check(err <= tol and lse_err <= 1e-4, "flash forward disagrees")
-                if shape == main_shape and dtype == torch.bfloat16 and causal:
-                    main_err = err
+    def compare(kernel, label, q, k, v, causal, block, out, lse):
+        ref, ref_lse = flash_attention_reference(
+            q, k, v, causal, None, block, block
+        )
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        if kernel == KERNEL_SM90:
+            bound = sm90_bound(q, k, v, causal, ref, ref_lse)
+            ratio = (diff / bound).max().item()
+            rule = (
+                f"per-element bound, median {bound.median().item():.3g}, "
+                f"max err/bound {ratio:.3g}"
+            )
+            ok = ratio <= 1
+        else:
+            # f32: summation order only. bf16: both round an f32 result
+            # to bf16, one bf16 ulp at the output's scale.
+            tol = (
+                2e-5 if q.dtype == torch.float32
+                else bf16_ulp(ref.float().abs().max().item())
+            )
+            rule = f"tol {tol:.3g}"
+            ok = err <= tol
+        print(
+            f"{label} {tuple(q.shape)} {str(q.dtype)[6:]} causal={causal}: "
+            f"max|out-plain|={err:.3g} ({rule}), "
+            f"max|lse-plain|={lse_err:.3g} (tol 1e-4)"
+        )
+        check(ok and lse_err <= 1e-4, f"{label} disagrees")
+        return err
 
-    # Gradient through the autograd Function vs dense autograd, f32.
-    for shape, block, atol, rtol in (
-        ((2, 4, 128, 64), 64, 5e-5, 5e-4),
+    def through_wrapper(shape, dtype, causal, block, want):
+        """flash_attention_fwd on fresh inputs; checks that exactly the
+        kernel ``want`` launched, once, and agrees with the plain version."""
+        q, k, v = qkv(shape, dtype)
+        before = dict(_build.LAUNCHES)
+        out, lse = flash_attention_fwd(q, k, v, causal, None, block, block)
+        torch.cuda.synchronize()
+        moved = {
+            n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+            if c != before.get(n, 0)
+        }
+        check(moved == {want: 1}, f"{shape} {dtype} launched {moved}")
+        compare(want, want, q, k, v, causal, block, out, lse)
+
+    main_shape = (32 * 12, 512, 64)  # B*H, S, D of the main path
+    errs = {}
+    # sm90 kernel: the main shape, head_dim 128, a ragged seq with a
+    # small bh.
+    for shape, block in (
+        (main_shape, 128), ((8, 256, 128), 128), ((3, 100, 64), 100),
+        ((2, 100, 128), 100),
+    ):
+        for causal in (True, False):
+            through_wrapper(shape, torch.bfloat16, causal, block, KERNEL_SM90)
+    # f32 kernel: f32 at the main and a small shape, bf16 head_dim 40.
+    for shape, dtype, block in (
+        (main_shape, torch.float32, 128), ((8, 128, 64), torch.float32, 64),
+        ((3, 100, 40), torch.bfloat16, 100),
+    ):
+        for causal in (True, False):
+            through_wrapper(shape, dtype, causal, block, KERNEL)
+    # Both kernels on one bf16 main-shape input.
+    q, k, v = qkv(main_shape, torch.bfloat16)
+    for name in (KERNEL_SM90, KERNEL):
+        out, lse = _launch(name, q, k, v, True, None)
+        torch.cuda.synchronize()
+        errs[name] = compare(name, name, q, k, v, True, 128, out, lse)
+
+    # Gradient through the autograd Function vs dense autograd.
+    for shape, dtype, block, atol, rtol in (
+        ((2, 4, 128, 64), torch.float32, 64, 5e-5, 5e-4),
         # 512-term sums instead of 128: a looser bound.
-        ((32, 12, 512, 64), 128, 1e-4, 1e-3),
+        ((32, 12, 512, 64), torch.float32, 128, 1e-4, 1e-3),
+        # bf16 (the sm90 kernel's out and lse) against dense autograd in
+        # f32 on the same bf16 values: out, its gradient and dq/dk/dv are
+        # each rounded to 8 significant bits, and the backward's row term
+        # sums 64 products of rounded values, so errors reach a few units
+        # of 2^-8 of the gradient's scale; 2^-5 max|grad| bounds that.
+        ((2, 4, 128, 64), torch.bfloat16, 64, None, None),
     ):
         q, k, v = (
             t.reshape(shape).requires_grad_()
-            for t in qkv((shape[0] * shape[1],) + shape[2:], torch.float32)
+            for t in qkv((shape[0] * shape[1],) + shape[2:], dtype)
         )
+        before = dict(_build.LAUNCHES)
         flash_out = flash_attention(q, k, v, True, None, block, block)
         got = torch.autograd.grad(
-            (flash_out * torch.cos(flash_out)).sum(), (q, k, v)
+            (flash_out.float() * torch.cos(flash_out.float())).sum(),
+            (q, k, v),
         )
-        dense_out = causal_attention(q, k, v, causal=True)
+        want_kernel = KERNEL_SM90 if dtype == torch.bfloat16 else KERNEL
+        check(
+            _build.LAUNCHES[want_kernel] == before.get(want_kernel, 0) + 1,
+            f"flash grad {shape} {dtype} did not run {want_kernel}",
+        )
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        dense_out = causal_attention(*ref, causal=True)
         want = torch.autograd.grad(
-            (dense_out * torch.cos(dense_out)).sum(), (q, k, v)
+            (dense_out * torch.cos(dense_out)).sum(), ref
         )
         for g, w, name in zip(got, want, "qkv"):
-            bad = (g - w).abs() > atol + rtol * w.abs()
+            g = g.float()
+            if atol is None:
+                bound = 2.0**-5 * w.abs().max().item()
+                bad = (g - w).abs() > bound
+                rule = f"tol 2^-5 max|grad| = {bound:.3g}"
+            else:
+                bad = (g - w).abs() > atol + rtol * w.abs()
+                rule = f"atol {atol}, rtol {rtol}"
             print(
-                f"flash grad d{name} {shape}: max err "
-                f"{(g - w).abs().max().item():.3g} "
-                f"(atol {atol}, rtol {rtol})"
+                f"flash grad d{name} {shape} {str(dtype)[6:]}: max err "
+                f"{(g - w).abs().max().item():.3g} ({rule})"
             )
             check(not bad.any().item(), f"flash gradient d{name} disagrees")
 
-    # Times at the main path's shape (bf16, causal).
+    # Times at the main path's shape (bf16, causal), all in this run.
     q, k, v = qkv(main_shape, torch.bfloat16)
-    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, True), 20)
+    ms = cuda_ms(lambda: _launch(KERNEL_SM90, q, k, v, True, None), 50)
+    f32_kernel_ms = cuda_ms(lambda: _launch(KERNEL, q, k, v, True, None), 20)
     plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, True), 5)
     q4, k4, v4 = (t.reshape(32, 12, 512, 64) for t in (q, k, v))
     library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 50
     )
-    noncausal_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, False), 20)
+    noncausal_ms = cuda_ms(
+        lambda: _launch(KERNEL_SM90, q, k, v, False, None), 50
+    )
     bh, seq, head_dim = main_shape
     # Visible (query, key) pairs under the causal mask; two products of
     # 2*D operations each.
@@ -201,19 +323,15 @@ def phase_flash():
     bound_flops_ms = flops / PEAK_BF16_FLOPS * 1e3
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     print(
-        f"flash fwd times (bf16 causal {main_shape}): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"non-causal kernel {noncausal_ms:.4f} ms; "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB"
+        f"flash fwd times (bf16 causal {main_shape}): {KERNEL_SM90} "
+        f"{ms:.4f} ms, non-causal {noncausal_ms:.4f} ms; {KERNEL} "
+        f"{f32_kernel_ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa "
+        f"{library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB"
     )
-    return {
-        "name": "flash_attention_fwd",
+    common = {
         "route": "cuda",
-        "source": "adaptdl_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "adaptdl_tpu/ops/flash_attention.py:57",
         "launches": None,
-        "max_abs_err": main_err,
-        "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bound_flops_ms, bound_bytes_ms),
         "bound_by": (
@@ -221,6 +339,13 @@ def phase_flash():
         ),
         "library_ms": library_ms,
     }
+    return [
+        {"name": KERNEL_SM90,
+         "source": f"adaptdl_tpu_torch/csrc/{KERNEL_SM90}.cu",
+         "max_abs_err": errs[KERNEL_SM90], "ms": ms, **common},
+        {"name": KERNEL, "source": f"adaptdl_tpu_torch/csrc/{KERNEL}.cu",
+         "max_abs_err": errs[KERNEL], "ms": f32_kernel_ms, **common},
+    ]
 
 
 def phase_main_path(kernel_rows):
@@ -237,6 +362,7 @@ def phase_main_path(kernel_rows):
         lm_loss_fn,
     )
     from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
     from adaptdl_tpu_torch.optim import AdamW
     from adaptdl_tpu_torch.scaling_rules import AdamScale
     from adaptdl_tpu_torch.trainer import ElasticTrainer
@@ -277,7 +403,7 @@ def phase_main_path(kernel_rows):
         for _ in epoch.remaining_epochs_until(1):
             for batch in loader:
                 i = len(losses)
-                before = _build.LAUNCHES["flash_attention_fwd"]
+                before = _build.LAUNCHES[KERNEL_SM90]
                 calibrations = len(trainer._calibrated)
                 torch.cuda.synchronize()
                 start = time.perf_counter()
@@ -296,22 +422,25 @@ def phase_main_path(kernel_rows):
                     accum + 1
                     + calibrated * (trainer.calibrate_repeats + 1)
                 )
-                got = _build.LAUNCHES["flash_attention_fwd"] - before
+                got = _build.LAUNCHES[KERNEL_SM90] - before
                 check(
                     got == expected,
                     f"step {i}: {got} flash launches, expected {expected}",
+                )
+                check(
+                    _build.LAUNCHES[KERNEL] == 0,
+                    f"step {i}: the bf16 main path launched {KERNEL}",
                 )
                 losses.append(float(m["loss"]))
                 if i + 1 == 10:
                     loader.apply_retune(16, 1)
                 if i + 1 == len(plan):
                     break
-        launches = dict(_build.LAUNCHES)
+        # The main path's launches, the only ones the kernel rows report:
+        # the f32 kernel is off the bf16 path and shows 0.
+        launches = {n: _build.LAUNCHES[n] for n in (KERNEL_SM90, KERNEL)}
+        check(launches[KERNEL_SM90] > 0, f"{KERNEL_SM90} never launched")
         peak_mem = torch.cuda.max_memory_allocated()
-
-        for row in kernel_rows:
-            row["launches"] = launches.get(row["name"], 0)
-            check(row["launches"] > 0, f"{row['name']} never launched")
         stats = {k: float(v) for k, v in m.items()}
         print(f"main path: {n_params / 1e6:.1f} M params, losses {losses}")
         print(f"main path: last step statistics {stats}")
@@ -338,25 +467,57 @@ def phase_main_path(kernel_rows):
             f"peak memory {peak_mem / 2**30:.2f} GiB"
         )
 
-        # The flash model against the dense-attention model, f32, on a
-        # small input: logits agree to f32 accumulation-order error.
-        f32_config = dataclasses.replace(config, dtype=torch.float32)
-        dense_config = dataclasses.replace(f32_config, attention_fn=None)
+        # The flash model against the dense-attention model on 2 x 512
+        # tokens, in f32 (the f32 kernel) and in bf16 (the sm90 kernel):
+        # one forward launch per layer each.
         tokens = torch.as_tensor(dataset["tokens"][:2, :-1], device=device)
+        logits = {}
+        _build.reset_launches()
         with torch.no_grad():
-            logits = {}
-            for name, cfg in (("flash", f32_config), ("dense", dense_config)):
-                twin = TransformerLM(cfg).to(device)
-                twin.load_state_dict(model.state_dict())
-                logits[name] = twin(tokens)
-            err = (logits["flash"] - logits["dense"]).abs().max().item()
+            for dtype in (torch.float32, torch.bfloat16):
+                for name, attention_fn in (
+                    ("flash", config.attention_fn), ("dense", None),
+                ):
+                    twin = TransformerLM(dataclasses.replace(
+                        config, dtype=dtype, attention_fn=attention_fn,
+                    )).to(device)
+                    twin.load_state_dict(model.state_dict())
+                    logits[name, dtype] = twin(tokens).float()
+        check_launches = dict(_build.LAUNCHES)
+        check(
+            check_launches == {
+                KERNEL: config.num_layers, KERNEL_SM90: config.num_layers,
+            },
+            f"model check launched {check_launches}",
+        )
+        f32, bf16 = torch.float32, torch.bfloat16
+        err = (logits["flash", f32] - logits["dense", f32]).abs().max().item()
+        # f32: accumulation order only.
         print(f"model: max|logits flash - dense| (f32) = {err:.3g} (tol 1e-3)")
         check(
-            logits["flash"].shape == (2, seq_len, config.vocab_size)
-            and torch.isfinite(logits["flash"]).all().item()
+            logits["flash", f32].shape == (2, seq_len, config.vocab_size)
+            and torch.isfinite(logits["flash", f32]).all().item()
             and err <= 1e-3,
-            "flash model disagrees with the dense model",
+            "flash model disagrees with the dense model (f32)",
         )
+        # bf16: rounding to bf16 alone moves the dense model's logits by
+        # e = max|dense bf16 - dense f32|. A right kernel changes where
+        # bf16 rounds, not how much, so the flash model stays within 2e of
+        # the dense bf16 model.
+        err = (logits["flash", bf16] - logits["dense", bf16]).abs().max().item()
+        e = (logits["dense", bf16] - logits["dense", f32]).abs().max().item()
+        print(
+            f"model: max|logits flash - dense| (bf16) = {err:.3g} "
+            f"(tol 2 x {e:.3g}, bf16's own error)"
+        )
+        check(
+            torch.isfinite(logits["flash", bf16]).all().item()
+            and err <= 2 * e,
+            "flash model disagrees with the dense model (bf16)",
+        )
+        for row in kernel_rows:
+            row["launches"] = launches[row["name"]]
+            row["check_launches"] = check_launches[row["name"]]
 
         # Checkpoint -> a fresh trainer, bit for bit.
         start = time.perf_counter()
@@ -398,7 +559,7 @@ def phase_main_path(kernel_rows):
 def main():
     smi = phase_device()
     phase_build()
-    kernel_rows = [phase_flash()]
+    kernel_rows = phase_flash()
     phase_main_path(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
