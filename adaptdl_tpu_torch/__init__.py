@@ -2,12 +2,21 @@
 
 The port of ``adaptdl_tpu`` (JAX, TPU) to PyTorch on NVIDIA Hopper. It
 imports nothing of the JAX package; the JAX package stays the reference
-it is tested against. This slice covers the elastic data-parallel
-training path of the transformer LM: ``initialize_job`` ->
-``data.AdaptiveDataLoader`` -> ``trainer.ElasticTrainer.run_step``, with
+it is tested against. It covers the elastic data-parallel training path
+of the transformer LM: ``initialize_job`` -> ``data.AdaptiveDataLoader``
+-> ``trainer.ElasticTrainer.run_step``, at one replica or at several (one
+process each, started by ``python -m adaptdl_tpu_torch.launch``), with
 flash attention as a hand-written sm_90a CUDA kernel (``ops``).
 """
 
-from adaptdl_tpu_torch.bootstrap import initialize_job
-
 __all__ = ["initialize_job"]
+
+
+def __getattr__(name):
+    # Imported on first use, so the launcher (which only starts the
+    # replicas) does not pay for importing torch.
+    if name == "initialize_job":
+        from adaptdl_tpu_torch.bootstrap import initialize_job
+
+        return initialize_job
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -28,7 +28,7 @@ import shutil
 import tempfile
 from typing import IO
 
-from adaptdl_tpu_torch import env
+from adaptdl_tpu_torch import collective, env
 
 LOG = logging.getLogger(__name__)
 
@@ -53,6 +53,10 @@ class State:
             raise ValueError(f"duplicate State name: {name!r}")
         self.name = name
         _registry[name] = self
+
+    def sync(self) -> None:
+        """Called on every replica before a save; a state whose replicas
+        hold different parts reconciles them here (a collective)."""
 
     def save(self, fileobj: IO[bytes]) -> None:
         raise NotImplementedError
@@ -117,19 +121,31 @@ def _hash_file(path: str) -> tuple[str, int]:
 
 
 def save_all_states() -> str | None:
-    """Save every registered state on rank 0; returns the new
-    checkpoint dir (None when no checkpoint path is set or this is not
-    rank 0)."""
+    """Sync every registered state on every replica, then save them all
+    on rank 0; returns the new checkpoint dir (None when no checkpoint
+    path is set or this is not rank 0). Every replica must call it, and
+    none returns before rank 0's checkpoint is complete and renamed, so
+    a process that exits right after cannot let a successor start on an
+    older checkpoint."""
+    states = list(_registry.values())
+    for state in states:
+        state.sync()
     root = env.checkpoint_path()
-    if root is None or env.replica_rank() != 0:
-        return None
+    final = None
+    if root is not None and env.replica_rank() == 0:
+        final = _write(root, states)
+    collective.barrier()
+    return final
+
+
+def _write(root: str, states: list[State]) -> str:
     os.makedirs(root, exist_ok=True)
     restart = env.num_restarts()
     existing = _list_checkpoints(root)
     tmpdir = tempfile.mkdtemp(prefix=_TMP_PREFIX, dir=root)
     try:
         digests = {}
-        for state in list(_registry.values()):
+        for state in states:
             path = os.path.join(tmpdir, state.name)
             with open(path, "wb") as f:
                 state.save(f)

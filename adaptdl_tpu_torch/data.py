@@ -17,9 +17,11 @@
 - **replay**: loops finished before a restart are skipped; the
   interrupted loop resumes at its saved position.
 
-The loader yields numpy batches of ``num_replicas * (accum_steps + 1) *
-atomic_bsz`` rows, shuffled per epoch and always whole (a partial
-trailing batch is dropped); the trainer moves them to its device.
+Each global batch holds ``num_replicas * (accum_steps + 1) * atomic_bsz``
+rows, shuffled per epoch and always whole (a partial trailing batch is
+dropped). With one process per replica, each process yields only its
+own contiguous, replica-major block of ``(accum_steps + 1) * atomic_bsz``
+rows (numpy); the trainer moves it to its device.
 """
 
 from __future__ import annotations
@@ -208,8 +210,10 @@ class AdaptiveDataLoader:
     # -- elasticity ----------------------------------------------------
 
     def _check_exit(self) -> None:
-        """Exit-flag agreement; checkpoint + exit(143) once every
-        replica has seen the signal."""
+        """Exit-flag agreement, once per step on every replica: the
+        flags are OR-ed across replicas, so a signal that reached any
+        one of them stops all of them at the same step, where every
+        state is checkpointed and each exits 143."""
         if self._exit_future is not None and self._exit_future.result():
             LOG.info("graceful exit: saving states and exiting 143")
             checkpoint.save_all_states()
@@ -240,6 +244,18 @@ class AdaptiveDataLoader:
                 take = self.current_batch_size
                 self._check_exit()
                 indices = self.sampler.next_indices(take)
+                num_processes = env.num_processes()
+                if num_processes > 1:
+                    # Each process materialises only its replica's rows,
+                    # replica-major: process r takes the r-th block.
+                    if take % num_processes:
+                        raise RuntimeError(
+                            "global batch not divisible across "
+                            f"{num_processes} processes (take={take})"
+                        )
+                    block = take // num_processes
+                    start = env.process_rank() * block
+                    indices = indices[start : start + block]
                 batch = {k: v[indices] for k, v in self.dataset.items()}
                 config = (self._atomic_bsz, self._accum_steps)
                 start = time.monotonic()
@@ -267,6 +283,11 @@ class AdaptiveDataLoader:
             self.sampler.index = 0
         finally:
             _current_dataloader = None
+
+
+def current_dataloader() -> "AdaptiveDataLoader | None":
+    """The loader whose loop is running, None outside any loop."""
+    return _current_dataloader
 
 
 def _loop_epoch() -> int:

@@ -22,3 +22,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if resolved.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {resolved}")
     return resolved
+
+
+def replica_device(
+    device: str | torch.device, local_rank: int
+) -> torch.device:
+    """This replica's device: ``cuda`` without an index becomes
+    ``cuda:(local_rank % device_count)``, so local ranks that outnumber
+    the cards share them; anything else as ``resolve_device`` gives it."""
+    resolved = resolve_device(device)
+    if resolved.type == "cuda" and resolved.index is None:
+        return torch.device("cuda", local_rank % torch.cuda.device_count())
+    return resolved

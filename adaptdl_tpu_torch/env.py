@@ -8,7 +8,10 @@ uses, with the same names, defaults and meanings as the JAX package's
 
 Terminology: a *replica* is one data-parallel model replica (one GPU);
 a *node* is one host, the unit whose internal links are fast; a
-*process* is one Python process driving its replicas.
+*process* is one Python process driving its replica. Where the JAX
+package drives every chip of a host from one process, the port runs
+one process per replica, so ``ADAPTDL_NUM_PROCESSES`` equals
+``ADAPTDL_NUM_REPLICAS`` and the process rank is the replica rank.
 """
 
 from __future__ import annotations
@@ -72,8 +75,39 @@ def num_nodes() -> int:
 
 
 def num_processes() -> int:
-    """Processes participating in the job (default 1)."""
+    """Processes participating in the job (default 1). The port runs one
+    process per replica, so a multi-replica job has as many processes
+    as replicas."""
     return _get_int("ADAPTDL_NUM_PROCESSES", 1)
+
+
+def process_rank() -> int:
+    """This process's rank in [0, num_processes); the replica rank by
+    default."""
+    return _get_int("ADAPTDL_PROCESS_RANK", replica_rank())
+
+
+def local_rank() -> int:
+    """This process's rank among the processes of its node, which picks
+    its device: the job's processes fill its nodes in rank order."""
+    per_node = max(num_processes() // max(num_nodes(), 1), 1)
+    return process_rank() % per_node
+
+
+def coordinator_addr() -> str | None:
+    """``host:port`` of the process group's rendezvous (rank 0's
+    store); required when ``num_processes() > 1``."""
+    return _get_str("ADAPTDL_COORDINATOR_ADDR")
+
+
+def master_addr() -> str:
+    """Host that serves the rendezvous (rank 0's)."""
+    return _get_str("ADAPTDL_MASTER_ADDR") or "127.0.0.1"
+
+
+def master_port() -> int:
+    """Port of the rendezvous; 0 lets the launcher pick a free one."""
+    return _get_int("ADAPTDL_MASTER_PORT", 0)
 
 
 def num_restarts() -> int:

@@ -11,7 +11,8 @@ The port of the profiling half of ``adaptdl_tpu.metrics``:
   ``step_time - accum_steps * accum_time``, the residual that holds the
   gradient sync.
 
-Every ``fit_interval`` seconds rank 0 refits the performance model on
+Every replica profiles its own steps; every ``fit_interval`` seconds
+rank 0 alone refits the performance model on
 a background thread (joined by :func:`join_fit`), and
 :func:`get_goodput_fn` combines it with the latest gradient statistics.
 Profiles and fitted parameters are checkpointed so a restarted job does
@@ -21,6 +22,7 @@ supervisor is not part of the port yet.
 
 from __future__ import annotations
 
+import atexit
 import pickle
 import threading
 import time
@@ -57,6 +59,9 @@ class MetricsState:
     max_batch_size: int | None = None
     local_bsz_bounds: tuple[int, int] | None = None
     gradient_accumulation: bool = False
+    # The most replicas any incarnation of this job has profiled steps
+    # at; persisted, so profiles at several counts enter one fit.
+    max_profiled_replicas: int = 0
     max_seq_shards: int = 1
     max_model_shards: int = 1
     max_stage_shards: int = 1
@@ -71,10 +76,20 @@ _fit_thread: threading.Thread | None = None
 _active_topology: tuple[int, int, int, int, int] | None = None
 
 
+def current_state() -> MetricsState:
+    """What the engine knows now (profiles, fitted params, coverage)."""
+    return _state
+
+
 def join_fit(timeout: float | None = 60.0) -> None:
     """Wait for an in-flight background fit."""
     if _fit_thread is not None and _fit_thread.is_alive():
         _fit_thread.join(timeout)
+
+
+# A refit still running in torch code while the interpreter finalizes
+# can abort the process, so every exit waits for it.
+atexit.register(join_fit)
 
 
 def _reset_state() -> None:
@@ -179,6 +194,12 @@ def profile_step(
             optim_time = step_time
         entry.optim_time_sum += optim_time
         entry.optim_count += 1
+        # Profiled coverage counts devices, as the JAX package does.
+        sp, tp, ss, ep, _micro = active_topology()
+        _state.max_profiled_replicas = max(
+            _state.max_profiled_replicas,
+            env.num_replicas() * sp * tp * ss * ep,
+        )
     _maybe_fit()
 
 
@@ -263,7 +284,7 @@ def get_goodput_fn() -> GoodputFunction | None:
 
 _SAVED_FIELDS = (
     "perf_params", "grad_params", "init_batch_size", "max_batch_size",
-    "local_bsz_bounds", "gradient_accumulation",
+    "local_bsz_bounds", "gradient_accumulation", "max_profiled_replicas",
     "max_seq_shards", "max_model_shards", "max_stage_shards",
     "max_expert_shards", "progress",
 )
@@ -296,7 +317,11 @@ class _MetricsCheckpoint(checkpoint.State):
 
 
 def ensure_checkpoint_registered() -> None:
+    """Register the metrics state for checkpointing and, the first
+    time, restore it, so a restarted job keeps the profiles (at every
+    replica count it ran) and fitted parameters of its predecessors."""
     try:
-        _MetricsCheckpoint()
+        state = _MetricsCheckpoint()
     except ValueError:
-        pass  # already registered
+        return  # already registered (and restored)
+    checkpoint.load_state(state)

@@ -8,8 +8,9 @@ optimizer step at a given (atomic_bsz, accum_steps):
   ``sqrt(max(nu, 0)) + 1e-8`` of Adam's second moments read *before*
   this step's update when ``precondition="adam"`` -- is taken before the
   gradients are summed;
-- one all-reduce point then carries the mean gradient together with the
-  squared-norm scalars and the loss (the identity with one replica);
+- one all-reduce then averages the gradients, the squared-norm
+  scalars and the loss across the replicas, packed into one flat
+  buffer (the identity with one replica);
 - the gradient-noise statistics update, the scaling rule turns them
   into per-group LR factors, the optimizer applies them, and progress
   advances by the statistical gain.
@@ -75,11 +76,13 @@ class ElasticTrainer:
       smoothing: GNS EMA retention per unit scale.
       device: where the step runs; "cuda" (default) raises without CUDA.
 
-    ``zero1``, ``zero3``, ``zero3_blocks`` and a ``mesh`` belong to
-    parallel modes not ported yet and raise, as do sharded axes in the
-    environment. All parameters form one group for the noise statistics
-    and the LR factor (the JAX trainer's ``param_group_fn`` is not
-    ported yet).
+    Each of ``ADAPTDL_NUM_REPLICAS`` replicas is one process of the
+    job's process group (``initialize_job`` joins it), stepping on its
+    own block of each global batch. ``zero1``, ``zero3``,
+    ``zero3_blocks`` and a ``mesh`` belong to parallel modes not ported
+    yet and raise, as do sharded axes in the environment. All
+    parameters form one group for the noise statistics and the LR
+    factor (the JAX trainer's ``param_group_fn`` is not ported yet).
     """
 
     def __init__(
@@ -112,10 +115,19 @@ class ElasticTrainer:
             raise NotImplementedError(
                 f"sharded axes are not ported yet: {sharded}"
             )
-        if env.num_replicas() > 1:
+        num_replicas = env.num_replicas()
+        if num_replicas != env.num_processes():
             raise NotImplementedError(
-                "multi-replica data parallelism is not ported yet "
-                f"(ADAPTDL_NUM_REPLICAS={env.num_replicas()})"
+                "multi-replica data parallelism runs one process per "
+                f"replica; ADAPTDL_NUM_REPLICAS={num_replicas} over "
+                f"ADAPTDL_NUM_PROCESSES={env.num_processes()} would hold "
+                "several replicas in one process"
+            )
+        if collective.world_size() != num_replicas:
+            raise RuntimeError(
+                f"ADAPTDL_NUM_REPLICAS={num_replicas} but the process "
+                f"group holds {collective.world_size()} replica(s); call "
+                "initialize_job() first"
             )
         if precondition not in (None, "adam"):
             raise ValueError(f"unknown precondition: {precondition!r}")
@@ -140,7 +152,7 @@ class ElasticTrainer:
         self.scaling_rule = scaling_rule or ScalingRule()
         self.precondition = precondition
         self.smoothing = smoothing
-        self.num_replicas = 1
+        self.num_replicas = num_replicas
         metrics.set_active_topology()
         self._calibrated: set[int] = set()
         # One warm-up run plus this many timed runs per calibration.
@@ -175,9 +187,10 @@ class ElasticTrainer:
         ]
 
     def train_step(self, atomic_bsz: int, accum_steps: int = 0) -> Callable:
-        """``(state, batch) -> (state, metrics)`` for batches (on the
-        device) of ``num_replicas * (accum_steps + 1) * atomic_bsz``
-        rows."""
+        """``(state, batch) -> (state, metrics)`` for this replica's
+        block (on the device) of ``(accum_steps + 1) * atomic_bsz`` rows
+        of the global batch; microbatch ``i`` is its ``i``-th run of
+        ``atomic_bsz`` rows."""
 
         def step(state: TrainState, batch: dict):
             return self._step(state, batch, atomic_bsz, accum_steps)
@@ -220,7 +233,7 @@ class ElasticTrainer:
             local_sqr_mean = lsqr_sum / num_micro
             loss = loss_sum / num_micro
             # The one all-reduce point: gradients, with the two noise
-            # scalars and the loss riding along.
+            # scalars and the loss riding along in one flat buffer.
             collective.allreduce_mean(grads + [local_sqr_mean, loss])
             new_gns = gns.update(
                 state.gns,
@@ -271,8 +284,12 @@ class ElasticTrainer:
     def calibrate_accum_time(self, host_batch: Any, atomic_bsz: int) -> float:
         """Time one microbatch forward and backward with no gradient
         sync (the best of ``calibrate_repeats`` runs after a warm-up)
-        and record it for the performance model."""
-        micro = self.to_device({k: v[:atomic_bsz] for k, v in host_batch.items()})
+        and record it for the performance model. ``host_batch`` is this
+        process's block; one microbatch takes its share of it."""
+        local_rows = self.num_replicas * atomic_bsz // env.num_processes()
+        micro = self.to_device(
+            {k: v[:local_rows] for k, v in host_batch.items()}
+        )
 
         def run():
             loss = self.loss_fn(self.model, micro)

@@ -26,10 +26,28 @@ Phases (any failure exits non-zero before the result line):
    statistics finite; the flash model agrees with the dense-attention
    model on 2 x 512 tokens in bf16 (sm90 kernel) and in f32 (f32
    kernel); a checkpoint restores bit for bit into a fresh trainer.
-5. result: the kernels line, the card line, then the device line. Each
+5. multi-replica: the same full-width LM, each replica a fresh process
+   started by ``python -m adaptdl_tpu_torch.launch`` (this script with
+   --replica-worker):
+   a. two replicas on the one card (gloo: two local ranks, one card),
+      atomic 16, accum 0, with the launch counts of each rank reset just
+      before and read just after its steps, as in phase 4; after every
+      step the ranks' parameter, Adam-moment and noise-statistic
+      checksums and their (atomic_bsz, accum_steps) must be equal;
+   b. rank 1 alone raises the exit flag after step 5: both ranks stop
+      after step 6, rank 0 saves, and the launcher exits 143;
+   c. a successor at one replica restores bit-equal to what rank 0
+      saved (checksums), resumes at the saved position, recomputes its
+      batch (atomic 32) and trains 4 steps with falling loss, holding
+      profiles at 2 and 1 replicas;
+   d. in a fresh process, the port's process group at world size 1 on
+      NCCL: the flat all-reduce of a full-width gradient set is one call
+      and returns its input bit for bit.
+6. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
-   is its count in the flash-vs-dense model check.
+   is its count in the flash-vs-dense model check; "multi_replica_
+   launches" its count on each rank of 5a and "rescaled_launches" in 5c.
 """
 
 import ctypes
@@ -556,11 +574,349 @@ def phase_main_path(kernel_rows):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# -- phase 5: multi-replica ----------------------------------------------
+
+PAIR_STEPS = 6  # rank 1 raises its exit flag after PAIR_STEPS - 1
+SUCCESSOR_STEPS = 4
+
+
+def state_checksums(model, optimizer, gns_state):
+    """One int64 per tensor of the parameters, Adam's moments and the
+    noise statistics: the sum of its elements' bit patterns, which any
+    changed bit moves."""
+    tensors = list(model.state_dict().values())
+    for p in optimizer.params():
+        tensors += [optimizer.state[p][k] for k in ("exp_avg", "exp_avg_sq")]
+    fields = gns_state.tensors()
+    tensors += fields.pop("prev_grad") + list(fields.values())
+    sums = [
+        (t.contiguous().view(torch.int32) if t.element_size() == 4
+         else t.to(torch.int64)).sum(dtype=torch.int64)
+        for t in tensors
+    ]
+    return torch.stack(sums).tolist()
+
+
+def replica_run(root, successor):
+    """One replica of phase 5a/b (``successor`` false) or 5c, started by
+    the launcher; writes its report to ``root``."""
+    import torch.distributed as dist
+
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch import _signal, checkpoint, collective, env, epoch, metrics
+    from adaptdl_tpu_torch.data import AdaptiveDataLoader
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config, synthetic_tokens
+    from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    rank, replicas = env.process_rank(), env.num_replicas()
+    name = f"rank {rank} of {replicas}"
+    backend = dist.get_backend() if collective.initialized() else None
+    check(
+        (backend is None) == (replicas == 1),
+        f"{name}: process group {backend}",
+    )
+    config = lm_config(cpu=False, seq_len=512, flash=True)
+    model = init_transformer(config, seed=0, device=device)
+    trainer = ElasticTrainer(
+        lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4),
+        init_batch_size=32, scaling_rule=AdamScale(), precondition="adam",
+        device=device,
+    )
+    holder = {"state": trainer.init_state()}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s)
+    )
+    start = time.perf_counter()
+    restored = checkpoint.load_state(ckpt)
+    restore_s = time.perf_counter() - start
+    check(restored == successor, f"{name}: restored={restored}")
+    metrics.ensure_checkpoint_registered()
+    loader = AdaptiveDataLoader(
+        synthetic_tokens(1024, 512, config.vocab_size), batch_size=32
+    )
+    report = {
+        "rank": rank, "backend": backend, "device": str(device),
+        "position": [loader.sampler.epoch, loader.sampler.index],
+        "restore_s": restore_s, "steps": [],
+    }
+    if successor:
+        with open(os.path.join(root, "pair-rank0.json")) as f:
+            saved = json.load(f)
+        check(
+            state_checksums(model, trainer.optimizer, holder["state"].gns)
+            == saved["checksums"],
+            f"{name}: restored state differs from what rank 0 saved",
+        )
+        check(
+            report["position"] == [0, PAIR_STEPS * 32],
+            f"{name}: resumed at {report['position']}",
+        )
+    print(
+        f"multi-replica {name}: backend {backend}, {device}, restored "
+        f"{restored} in {restore_s:.2f} s, position {report['position']}",
+        flush=True,
+    )
+    per_pass = config.num_layers * 2  # forward + remat recompute
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    stop_start = None
+    try:
+        for _ in epoch.remaining_epochs_until(1):
+            for batch in loader:
+                before = _build.LAUNCHES[KERNEL_SM90]
+                calibrations = len(trainer._calibrated)
+                torch.cuda.synchronize(device)
+                start = time.perf_counter()
+                holder["state"], m = trainer.run_step(
+                    holder["state"], batch, loader
+                )
+                torch.cuda.synchronize(device)
+                step_s = time.perf_counter() - start
+                config_now = (loader.current_atomic_bsz, loader.current_accum_steps)
+                calibrated = len(trainer._calibrated) - calibrations
+                expected = per_pass * (
+                    config_now[1] + 1
+                    + calibrated * (trainer.calibrate_repeats + 1)
+                )
+                got = _build.LAUNCHES[KERNEL_SM90] - before
+                check(got == expected, f"{name}: {got} flash launches, expected {expected}")
+                check(_build.LAUNCHES[KERNEL] == 0, f"{name}: launched {KERNEL}")
+                sums = state_checksums(model, trainer.optimizer, holder["state"].gns)
+                seen = collective.allreduce((config_now, sums), list)
+                check(
+                    all(x == seen[0] for x in seen),
+                    f"{name}: replicas out of lockstep after step "
+                    f"{len(report['steps']) + 1}",
+                )
+                stats = {k: float(v) for k, v in m.items()}
+                check(
+                    all(math.isfinite(stats[k]) for k in
+                        ("loss", "grad_sqr", "grad_var", "gain", "progress")),
+                    f"{name}: non-finite statistics {stats}",
+                )
+                report["steps"].append({
+                    "config": config_now, "loss": stats["loss"],
+                    "seconds": step_s, "calibrated": calibrated,
+                })
+                report["checksums"] = sums
+                print(
+                    f"multi-replica {name}: step {len(report['steps'])} "
+                    f"atomic {config_now[0]} accum {config_now[1]}: "
+                    f"{step_s * 1e3:.1f} ms{' (calibration)' if calibrated else ''}, "
+                    f"loss {stats['loss']:.4f}, {got} sm90 launches, "
+                    f"replicas in lockstep",
+                    flush=True,
+                )
+                n = len(report["steps"])
+                if not successor and n == PAIR_STEPS - 1 and rank == 1:
+                    _signal.set_exit_flag(True)
+                if successor and n == SUCCESSOR_STEPS:
+                    break
+                stop_start = time.perf_counter()
+    finally:
+        report["stop_s"] = (
+            time.perf_counter() - stop_start if stop_start else None
+        )
+        report["launches"] = {k: _build.LAUNCHES[k] for k in (KERNEL_SM90, KERNEL)}
+        report["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        state = metrics.current_state()
+        report["max_profiled_replicas"] = state.max_profiled_replicas
+        report["profiled_replicas"] = sorted(
+            {key[1] for key, e in state.profile.items() if e.optim_count}
+        )
+        tag = "successor" if successor else f"pair-rank{rank}"
+        with open(os.path.join(root, f"{tag}.json"), "w") as f:
+            json.dump(report, f)
+
+
+def nccl_world_one():
+    """Phase 5d, in its own process: the port's process group at world
+    size 1 on the one card must pick NCCL, and the flat all-reduce of a
+    full-width gradient set must be one call returning its input."""
+    import socket
+
+    import torch.distributed as dist
+
+    from adaptdl_tpu_torch import collective
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config
+    from adaptdl_tpu_torch.models import TransformerLM
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    device = torch.device("cuda", 0)
+    backend = collective.initialize(
+        "127.0.0.1", port, rank=0, world_size=1, device=device,
+        local_world_size=1,
+    )
+    try:
+        check(backend == "nccl", f"world-1 backend {backend}")
+        with torch.device("meta"):
+            model = TransformerLM(lm_config(cpu=False, seq_len=512, flash=True))
+        shapes = [p.shape for p in model.parameters()]
+        gen = torch.Generator(device=device).manual_seed(0)
+        tensors = [
+            torch.randn(shape, generator=gen, device=device)
+            for shape in shapes + [(1,), ()]
+        ]
+        want = [t.clone() for t in tensors]
+        calls = []
+        real = dist.all_reduce
+        dist.all_reduce = lambda t, *a, **k: calls.append(t.numel()) or real(t, *a, **k)
+        try:
+            collective.allreduce_mean(tensors)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            collective.allreduce_mean(tensors)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+        finally:
+            dist.all_reduce = real
+        n = sum(t.numel() for t in tensors)
+        check(calls == [n, n], f"flat all-reduce made calls {calls}")
+        check(
+            all(torch.equal(a, b) for a, b in zip(tensors, want)),
+            "world-1 NCCL all-reduce changed its input",
+        )
+        print(
+            f"multi-replica nccl: backend {backend} at world size 1, "
+            f"{len(tensors)} tensors ({n / 1e6:.1f} M float32) in one "
+            f"all-reduce per call, bit-equal; {ms:.1f} ms",
+            flush=True,
+        )
+    finally:
+        collective.teardown()
+
+
+def phase_multi_replica(kernel_rows):
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-mr-")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")}
+
+    def launch(replicas, restarts, mode):
+        run_env = dict(
+            base,
+            ADAPTDL_NUM_REPLICAS=str(replicas),
+            ADAPTDL_NUM_RESTARTS=str(restarts),
+            ADAPTDL_CHECKPOINT_PATH=os.path.join(root, "ckpt"),
+        )
+        start = time.perf_counter()
+        code = subprocess.run(
+            [sys.executable, "-m", "adaptdl_tpu_torch.launch",
+             os.path.join(here, "chip_smoke.py"), "--replica-worker", mode,
+             root],
+            cwd=here, env=run_env, timeout=600,
+        ).returncode
+        return code, time.perf_counter() - start
+
+    def load(tag):
+        with open(os.path.join(root, f"{tag}.json")) as f:
+            return json.load(f)
+
+    try:
+        code, wall = launch(2, 0, "pair")
+        check(code == 143, f"two-replica launch exited {code}, expected 143")
+        pair = [load(f"pair-rank{r}") for r in (0, 1)]
+        for r in pair:
+            check(
+                r["backend"] == "gloo" and r["device"] == "cuda:0",
+                f"rank {r['rank']} ran {r['backend']} on {r['device']}",
+            )
+            check(
+                len(r["steps"]) == PAIR_STEPS,
+                f"rank {r['rank']} stopped after {len(r['steps'])} steps",
+            )
+            check(
+                all(s["config"] == [16, 0] for s in r["steps"]),
+                f"rank {r['rank']} ran {[s['config'] for s in r['steps']]}",
+            )
+        check(pair[0]["checksums"] == pair[1]["checksums"], "final states differ")
+        step_ms = [
+            sorted(s["seconds"] for s in r["steps"][1:])[(PAIR_STEPS - 1) // 2]
+            * 1e3 for r in pair
+        ]
+        saved = sorted(os.listdir(os.path.join(root, "ckpt")))
+        print(
+            f"multi-replica pair: 2 ranks on one card over gloo, "
+            f"{PAIR_STEPS} steps each in lockstep, both stopped after step "
+            f"{PAIR_STEPS} (flag on rank 1 after step {PAIR_STEPS - 1}), "
+            f"launcher exit 143, checkpoint {saved}; step wall time (median "
+            f"of steps 2-{PAIR_STEPS}, correctness run, not a scaling "
+            f"figure) {step_ms[0]:.1f} / {step_ms[1]:.1f} ms; stop "
+            f"(agreement, save, barrier) {pair[0]['stop_s']:.1f} / "
+            f"{pair[1]['stop_s']:.1f} s; peak memory "
+            f"{pair[0]['peak_gib']:.2f} / {pair[1]['peak_gib']:.2f} GiB; "
+            f"launch wall {wall:.1f} s"
+        )
+
+        code, wall = launch(1, 1, "successor")
+        check(code == 0, f"one-replica successor exited {code}")
+        succ = load("successor")
+        check(
+            all(s["config"] == [32, 0] for s in succ["steps"])
+            and len(succ["steps"]) == SUCCESSOR_STEPS,
+            f"successor ran {[s['config'] for s in succ['steps']]}",
+        )
+        losses = [s["loss"] for s in succ["steps"]]
+        check(losses[-1] < losses[0], f"successor loss did not fall: {losses}")
+        check(
+            succ["max_profiled_replicas"] == 2
+            and succ["profiled_replicas"] == [1, 2],
+            f"successor profiles {succ['profiled_replicas']}, max "
+            f"{succ['max_profiled_replicas']}",
+        )
+        print(
+            f"multi-replica successor: 1 replica, restored bit-equal to rank "
+            f"0's save in {succ['restore_s']:.2f} s at position "
+            f"{succ['position']}, atomic 32, losses {losses}, profiles at "
+            f"{succ['profiled_replicas']} replicas; step "
+            f"{sorted(s['seconds'] for s in succ['steps'][1:])[1] * 1e3:.1f} ms, "
+            f"peak memory {succ['peak_gib']:.2f} GiB, launch wall {wall:.1f} s"
+        )
+
+        code = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--nccl-check"],
+            cwd=here, env=base, timeout=300,
+        ).returncode
+        check(code == 0, f"NCCL world-1 check exited {code}")
+        for row in kernel_rows:
+            row["multi_replica_launches"] = [
+                r["launches"][row["name"]] for r in pair
+            ]
+            row["rescaled_launches"] = succ["launches"][row["name"]]
+        launches = {r["name"]: r["multi_replica_launches"] for r in kernel_rows}
+        check(
+            all(n > 0 for n in launches[KERNEL_SM90])
+            and launches[KERNEL] == [0, 0],
+            f"multi-replica launch counts {launches}",
+        )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
+    if sys.argv[1:2] == ["--replica-worker"]:
+        mode, root = sys.argv[2:4]
+        replica_run(root, successor=mode == "successor")
+        return
+    if sys.argv[1:] == ["--nccl-check"]:
+        nccl_world_one()
+        return
     smi = phase_device()
     phase_build()
     kernel_rows = phase_flash()
     phase_main_path(kernel_rows)
+    phase_multi_replica(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

@@ -19,6 +19,7 @@ from adaptdl_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_reference,
 )
+from tests.torch_support import private_tempdir  # noqa: F401
 
 
 def _bf16_ulp(x):

@@ -17,6 +17,7 @@ from adaptdl_tpu import metrics as jmetrics
 from adaptdl_tpu_torch import checkpoint, data, metrics
 from adaptdl_tpu_torch.goodput import GradParams, PerfParams
 from tests.test_goodput import GRAD, PERF
+from tests.torch_support import private_tempdir  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

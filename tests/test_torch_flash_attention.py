@@ -23,6 +23,7 @@ from adaptdl_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_reference,
 )
+from tests.torch_support import private_tempdir  # noqa: F401
 
 
 def _qkv(batch=2, heads=2, seq=64, d=16, seed=0):

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from adaptdl_tpu_torch.ops import _build
+from tests.torch_support import private_tempdir  # noqa: F401
 
 fa = importlib.import_module("adaptdl_tpu_torch.ops.flash_attention")
 

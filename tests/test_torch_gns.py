@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from adaptdl_tpu import gns as jgns
 from adaptdl_tpu_torch import gns as tgns
+from tests.torch_support import private_tempdir  # noqa: F401
 
 SHAPES = [(3, 4), (5,), (2, 2, 2)]
 

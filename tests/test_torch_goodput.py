@@ -16,6 +16,7 @@ import pytest
 from adaptdl_tpu import goodput as jgoodput
 from adaptdl_tpu_torch import goodput as tgoodput
 from tests.test_goodput import GRAD, INIT_BSZ, PERF, _synthetic_measurements
+from tests.torch_support import private_tempdir  # noqa: F401
 
 ENVELOPE = [(1, 1, 64), (1, 2, 128), (1, 8, 64), (2, 16, 256), (4, 16, 128)]
 

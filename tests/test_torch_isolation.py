@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from tests.torch_support import private_tempdir  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "adaptdl_tpu"}

@@ -14,6 +14,7 @@ from adaptdl_tpu import gns as jgns
 from adaptdl_tpu import scaling_rules as jrules
 from adaptdl_tpu_torch import gns as tgns
 from adaptdl_tpu_torch import scaling_rules as trules
+from tests.torch_support import private_tempdir  # noqa: F401
 
 RULES = {
     "none": lambda m: m.ScalingRule(),

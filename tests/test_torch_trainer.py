@@ -51,6 +51,7 @@ from adaptdl_tpu_torch.optim import AdamW
 from adaptdl_tpu_torch.scaling_rules import AdamScale
 from adaptdl_tpu_torch.trainer import ElasticTrainer
 from adaptdl_tpu_torch.weights import flax_to_state_dict
+from tests.torch_support import private_tempdir  # noqa: F401
 
 SIZES = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32, d_ff=64)
 INIT_BATCH = 2

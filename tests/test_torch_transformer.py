@@ -24,6 +24,7 @@ from adaptdl_tpu.ops import make_flash_attention as jax_make_flash
 from adaptdl_tpu_torch.models import TransformerConfig, TransformerLM, lm_loss_fn
 from adaptdl_tpu_torch.ops import make_flash_attention
 from adaptdl_tpu_torch.weights import flax_to_state_dict
+from tests.torch_support import private_tempdir  # noqa: F401
 
 SIZES = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32, d_ff=64)
 

@@ -1,0 +1,191 @@
+"""One replica of the port's multi-replica tests, run under the launcher:
+
+    python -m adaptdl_tpu_torch.launch tests/torch_replica_worker.py \
+        parity DIR
+    python -m adaptdl_tpu_torch.launch tests/torch_replica_worker.py \
+        elastic DIR [--preempt-after K --preempt-rank R] [--autoscale]
+
+Each rank joins the process group on the CPU through ``initialize_job``
+and writes what it saw to ``DIR/rank{r}...``. It imports neither JAX nor
+the JAX package: the launcher starts it as a fresh interpreter.
+
+- ``parity``: the 2-layer transformer from ``DIR/weights.pt`` takes
+  three steps at accum_steps 0 and then (fresh from the same weights) at
+  accum_steps 1 on the global batches ``DIR/batches-accum{a}.npy``, each
+  rank stepping on its replica-major block of every batch.
+- ``elastic``: a user program of linear regression (ElasticTrainer,
+  AdaptiveDataLoader, remaining_epochs_until and an Accumulator) that
+  restores from ``ADAPTDL_CHECKPOINT_PATH``; with ``--preempt-after``
+  rank R alone raises the exit flag after K of its steps.
+"""
+
+import argparse
+import json
+import os
+
+import numpy as np
+import torch
+
+import adaptdl_tpu_torch
+from adaptdl_tpu_torch import _signal, checkpoint, env, epoch, metrics
+
+# The parity model and step (tests/test_torch_multi_replica.py holds the
+# JAX trainer to the same values).
+SIZES = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32, d_ff=64)
+INIT_BATCH = 2
+ATOMIC = 4
+
+TRUE_W = np.array([1.0, -2.0, 3.0, 0.5], np.float32)
+DATASET_SIZE = 512
+EPOCHS = 6
+
+
+def parity(out_dir):
+    from adaptdl_tpu_torch.models import TransformerConfig, TransformerLM, lm_loss_fn
+    from adaptdl_tpu_torch.ops import make_flash_attention
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    device = adaptdl_tpu_torch.initialize_job(device="cpu")
+    rank = env.process_rank()
+    weights = torch.load(os.path.join(out_dir, "weights.pt"))
+    for accum in (0, 1):
+        model = TransformerLM(TransformerConfig(
+            **SIZES, dtype=torch.float32, remat=True,
+            attention_fn=make_flash_attention(block_q=16, block_k=16),
+        ))
+        model.load_state_dict(weights)
+        trainer = ElasticTrainer(
+            lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4),
+            init_batch_size=INIT_BATCH, scaling_rule=AdamScale(),
+            precondition="adam", device=device,
+        )
+        state = trainer.init_state()
+        step = trainer.train_step(ATOMIC, accum)
+        rows = ATOMIC * (accum + 1)
+        steps = []
+        for batch in np.load(os.path.join(out_dir, f"batches-accum{accum}.npy")):
+            local = {"tokens": batch[rank * rows : (rank + 1) * rows]}
+            state, m = step(state, trainer.to_device(local))
+            steps.append({k: float(v) for k, v in m.items()})
+        torch.save(
+            {
+                "steps": steps,
+                "params": model.state_dict(),
+                "gns": {
+                    k: v for k, v in state.gns.tensors().items()
+                    if k != "prev_grad"
+                },
+                "step": int(state.step),
+            },
+            os.path.join(out_dir, f"rank{rank}-accum{accum}.pt"),
+        )
+
+
+def _dataset():
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(DATASET_SIZE, 4)).astype(np.float32)
+    y = x @ TRUE_W + 0.05 * rng.normal(size=DATASET_SIZE).astype(np.float32)
+    return {"x": x, "y": y}
+
+
+def _mse(model, batch):
+    return ((model(batch["x"]).squeeze(-1) - batch["y"]) ** 2).mean()
+
+
+def elastic(out_dir, preempt_after, preempt_rank, autoscale):
+    from adaptdl_tpu_torch.accumulator import Accumulator
+    from adaptdl_tpu_torch.data import AdaptiveDataLoader
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    device = adaptdl_tpu_torch.initialize_job(device="cpu")
+    rank = env.process_rank()
+    torch.manual_seed(0)
+    model = torch.nn.Linear(4, 1)
+    trainer = ElasticTrainer(
+        _mse, model, AdamW(model.parameters(), lr=0.1),
+        init_batch_size=32, scaling_rule=AdamScale(), device=device,
+    )
+    holder = {"state": trainer.init_state()}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s)
+    )
+    checkpoint.load_state(ckpt)
+    metrics.ensure_checkpoint_registered()
+    loader = AdaptiveDataLoader(_dataset(), batch_size=32)
+    if autoscale:
+        loader.autoscale_batch_size(
+            128, local_bsz_bounds=(8, 64), gradient_accumulation=True
+        )
+    accum = Accumulator()
+    report = {
+        "rank": rank,
+        "replicas": env.num_replicas(),
+        "position": [loader.sampler.epoch, loader.sampler.index],
+        "epochs": [],
+        "opened": [],
+        "closed": [],
+        "configs": [],
+        "losses": [],
+        "steps": 0,
+    }
+    try:
+        for e in epoch.remaining_epochs_until(EPOCHS):
+            report["epochs"].append(e)
+            # Out of any loop: after a restart into this epoch, this
+            # sync replays the total recorded before the preemption.
+            with accum.synchronized():
+                report["opened"].append(accum["steps"])
+            for batch in loader:
+                holder["state"], m = trainer.run_step(
+                    holder["state"], batch, loader
+                )
+                accum["steps"] += 1
+                accum["rows"] += len(batch["y"])
+                report["steps"] += 1
+                report["losses"].append(float(m["loss"]))
+                report["configs"].append(
+                    [loader.current_atomic_bsz, loader.current_accum_steps]
+                )
+                if report["steps"] == preempt_after and rank == preempt_rank:
+                    _signal.set_exit_flag(True)
+            with accum.synchronized():
+                report["closed"].append([accum["steps"], accum["rows"]])
+        metrics.join_fit()
+    finally:
+        state = metrics.current_state()
+        report["params"] = [
+            float(x) for p in model.parameters() for x in p.detach().reshape(-1)
+        ]
+        report["step"] = int(holder["state"].step)
+        report["progress"] = float(holder["state"].progress)
+        report["max_profiled_replicas"] = state.max_profiled_replicas
+        report["profiled_replica_counts"] = sorted(
+            {key[1] for key, entry in state.profile.items() if entry.optim_count}
+        )
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("mode", choices=("parity", "elastic"))
+    parser.add_argument("out_dir")
+    parser.add_argument("--preempt-after", type=int, default=None)
+    parser.add_argument("--preempt-rank", type=int, default=1)
+    parser.add_argument("--autoscale", action="store_true")
+    args = parser.parse_args()
+    if args.mode == "parity":
+        parity(args.out_dir)
+    else:
+        elastic(
+            args.out_dir, args.preempt_after, args.preempt_rank,
+            args.autoscale,
+        )
+
+
+if __name__ == "__main__":
+    main()
