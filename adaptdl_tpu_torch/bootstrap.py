@@ -1,35 +1,149 @@
 """Job initialization for the port.
 
-``initialize_job`` wires a training process into the elastic job: it
-places the process on its device (raising if CUDA was asked for and is
-absent), installs the graceful-preemption signal handlers, exports the
-single replica of a standalone run and, for a job of several replicas,
-joins the process group. The port runs one process per replica
-(``python -m adaptdl_tpu_torch.launch`` starts them), so
-``ADAPTDL_NUM_PROCESSES`` must equal ``ADAPTDL_NUM_REPLICAS``; a process
-holding several replicas raises. Supervisor rendezvous and scheduling
-hints belong to a later slice of the port and raise here rather than
-being skipped.
+``initialize_job`` wires a training process into the elastic job:
+
+1. places the process on its device (raising if CUDA was asked for and
+   is absent) and installs the graceful-preemption signal handlers;
+2. under a supervisor (``ADAPTDL_SUPERVISOR_URL`` and ``ADAPTDL_JOB_ID``)
+   with several processes, registers this rank (``PUT /register``) and
+   long-polls ``GET /discover`` until every rank of its restart group is
+   known; rank 0's address becomes the process group's host;
+3. starts the heartbeat thread, which renews this rank's lease every
+   ``ADAPTDL_HEARTBEAT_INTERVAL`` seconds;
+4. for a job of several replicas, joins the process group.
+
+The port runs one process per replica (``python -m
+adaptdl_tpu_torch.launch`` starts them), so ``ADAPTDL_NUM_PROCESSES``
+must equal ``ADAPTDL_NUM_REPLICAS``; a process holding several replicas
+raises. The JAX package's preemption listener, handoff prefetch and
+compile cache are not part of the port.
 """
 
 from __future__ import annotations
 
 import atexit
+import logging
+import socket
+import threading
 
 import torch
 
-from adaptdl_tpu_torch import _signal, collective, env
+from adaptdl_tpu_torch import _signal, collective, env, metrics, rpc, sched_hints
 from adaptdl_tpu_torch.device import replica_device
+
+LOG = logging.getLogger(__name__)
+
+# Rendezvous retry budgets. Registration is small and idempotent, so it
+# retries through supervisor blips; discover is a long poll with its own
+# server-side timeout, so it gets few attempts and a generous deadline.
+_REGISTER_ATTEMPTS = 6
+_REGISTER_DEADLINE = 120.0
+_DISCOVER_ATTEMPTS = 3
+_DISCOVER_DEADLINE = 700.0
+
+
+def _local_address() -> str:
+    """The address this rank registers: ``ADAPTDL_POD_IP`` where set,
+    else its host name's address, as the JAX worker registers; the
+    rendezvous host from the environment if the name does not resolve."""
+    address = env.pod_ip()
+    if address:
+        return address
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        LOG.warning("host name does not resolve; registering the "
+                    "rendezvous host")
+        coordinator = env.coordinator_addr()
+        return coordinator.rsplit(":", 1)[0] if coordinator else env.master_addr()
+
+
+def _discover_peers() -> dict[int, str] | None:
+    """Register with the supervisor and wait for every process of this
+    restart group; returns rank -> address, or None when there is no
+    supervisor or a single process. Both calls ride the resilient client:
+    a supervisor blip is retried within a deadline. Re-registration is
+    idempotent (keyed by group and rank), and a 404 is retried too: after
+    a supervisor restart the job record returns a moment later."""
+    url = env.supervisor_url()
+    job = env.job_id()
+    if not url or not job or env.num_processes() <= 1:
+        return None
+    group = env.num_restarts()
+    rank = env.process_rank()
+    client = rpc.default_client()
+    client.put(
+        f"{url}/register/{job}/{group}/{rank}",
+        # The process count is the supervisor's commit quorum for a
+        # pending allocation epoch.
+        json={"address": _local_address(), "processes": env.num_processes()},
+        endpoint=f"register/{job}",
+        timeout=(5, 30),
+        attempts=_REGISTER_ATTEMPTS,
+        deadline=_REGISTER_DEADLINE,
+        retry_statuses=rpc.RETRY_STATUSES + (404,),
+    ).raise_for_status()
+    response = client.get(
+        f"{url}/discover/{job}/{group}",
+        params={"replicas": env.num_processes()},
+        endpoint=f"discover/{job}",
+        timeout=(5, 330),
+        attempts=_DISCOVER_ATTEMPTS,
+        deadline=_DISCOVER_DEADLINE,
+    )
+    response.raise_for_status()
+    return {int(r): addr for r, addr in response.json().items()}
+
+
+_heartbeat_stop: threading.Event | None = None
+_heartbeat_thread: threading.Thread | None = None
+
+
+def start_heartbeat() -> threading.Event | None:
+    """Start the liveness-heartbeat thread (idempotent); returns its stop
+    event, or None without a supervisor or with heartbeats disabled.
+    Each beat after the first carries this rank's smoothed step time."""
+    global _heartbeat_stop, _heartbeat_thread
+    interval = env.heartbeat_interval()
+    if not env.supervisor_url() or not env.job_id() or interval <= 0:
+        return None
+    if _heartbeat_stop is not None and not _heartbeat_stop.is_set():
+        return _heartbeat_stop
+    stop = threading.Event()
+    rank = env.process_rank()
+
+    def loop():
+        sched_hints.send_heartbeat(rank=rank)
+        while not stop.wait(interval):
+            sched_hints.send_heartbeat(
+                rank=rank, step_time_ewma=metrics.step_time_ewma()
+            )
+
+    _heartbeat_thread = threading.Thread(
+        target=loop, name="adaptdl-torch-heartbeat", daemon=True
+    )
+    _heartbeat_thread.start()
+    _heartbeat_stop = stop
+    return stop
+
+
+def stop_heartbeat(timeout: float | None = 5.0) -> None:
+    """Stop the heartbeat thread and join it. Safe when none runs; a
+    later :func:`start_heartbeat` starts a fresh one."""
+    if _heartbeat_stop is not None:
+        _heartbeat_stop.set()
+    if _heartbeat_thread is not None:
+        _heartbeat_thread.join(timeout)
+
+
+# Heartbeats stop (and the fit thread is joined, by metrics) before the
+# interpreter finalizes.
+atexit.register(stop_heartbeat)
 
 
 def initialize_job(device="cuda") -> torch.device:
     """Initialize this process for elastic training and return its
     device (``cuda`` maps to this replica's card). Idempotent."""
-    if env.supervisor_url():
-        raise NotImplementedError(
-            "supervisor rendezvous and scheduling hints are not ported "
-            "to adaptdl_tpu_torch yet; unset ADAPTDL_SUPERVISOR_URL"
-        )
     replicas, processes = env.num_replicas(), env.num_processes()
     if replicas != processes:
         raise NotImplementedError(
@@ -39,7 +153,7 @@ def initialize_job(device="cuda") -> torch.device:
             "several replicas in one process"
         )
     coordinator = env.coordinator_addr()
-    if processes > 1 and coordinator is None:
+    if processes > 1 and coordinator is None and env.master_port() == 0:
         raise RuntimeError(
             f"ADAPTDL_NUM_PROCESSES={processes} needs "
             "ADAPTDL_COORDINATOR_ADDR (host:port of rank 0's "
@@ -49,8 +163,25 @@ def initialize_job(device="cuda") -> torch.device:
     _signal.install_handlers()
     if not env.num_replicas_is_set():
         env.set_num_replicas(1)
+    peers = None
+    if not collective.initialized():
+        try:
+            peers = _discover_peers()
+        except Exception:  # noqa: BLE001 - rendezvous falls back to env
+            LOG.exception(
+                "supervisor discovery failed; using the launcher's "
+                "coordinator address"
+            )
+    start_heartbeat()
     if processes > 1 and not collective.initialized():
-        host, port = coordinator.rsplit(":", 1)
+        # The host is rank 0's discovered address; the port comes from
+        # the environment, so every rank agrees on it.
+        if coordinator is not None:
+            host, port = coordinator.rsplit(":", 1)
+        else:
+            host, port = env.master_addr(), env.master_port()
+        if peers and 0 in peers:
+            host = peers[0]
         collective.initialize(
             host,
             int(port),

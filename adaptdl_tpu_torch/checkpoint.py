@@ -12,9 +12,19 @@ payload verifies, falls back to older ones past a corrupt payload, and
 raises :class:`CheckpointUnreadableError` rather than cold-starting
 over checkpoints it could not read.
 
-Saves are blocking. The asynchronous write pipeline, delta saves,
-peer-to-peer handoff and fault-injection points of the JAX package are
-not part of this module.
+Last-known-good (the numeric-health guard's rollback floor): every
+completed save becomes a *pending* candidate; after
+``ADAPTDL_GUARD_CONFIRM_STEPS`` healthy guard observations
+(:func:`note_healthy_step`) it earns a durable ``GOOD`` marker file, and
+an unhealthy observation drops every pending candidate
+(:func:`reset_health_confirmation`), since corruption precedes its
+detection. :func:`rollback_to_good` restores every registered state
+from the newest good-marked checkpoint; pruning never removes that one.
+At several replicas rank 0 writes checkpoints and markers, and every
+rank restores from the same directory.
+
+Saves are blocking. The asynchronous write pipeline, delta saves and
+peer-to-peer handoff of the JAX package are not part of this module.
 """
 
 from __future__ import annotations
@@ -26,13 +36,15 @@ import os
 import re
 import shutil
 import tempfile
+import time
 from typing import IO
 
-from adaptdl_tpu_torch import collective, env
+from adaptdl_tpu_torch import collective, env, faults
 
 LOG = logging.getLogger(__name__)
 
 MANIFEST_NAME = "manifest.json"
+GOOD_MARKER_NAME = "GOOD"
 _CKPT_DIR_PATTERN = re.compile(r"^checkpoint-(\d+)(?:\.(\d+))?$")
 _TMP_PREFIX = "_tmp-checkpoint-"
 
@@ -42,6 +54,13 @@ _registry: dict[str, "State"] = {}
 # again from an older one, so all states land on one version.
 _bad_dirs: set[str] = set()
 _loaded_from: dict[str, str] = {}
+# Good-marker candidacy: checkpoint dir -> healthy guard observations
+# since its save landed. Written on the training thread only (saves are
+# blocking), and only on rank 0, the rank that writes checkpoints.
+_pending_good: dict[str, int] = {}
+# While a rollback runs, the consistency re-loads of _poison keep to
+# the good-marked dirs too.
+_prefer_good_heal = False
 
 
 class State:
@@ -70,9 +89,12 @@ class State:
 
 def _reset_registry() -> None:
     """Clear all registered states (test isolation)."""
+    global _prefer_good_heal
     _registry.clear()
     _bad_dirs.clear()
     _loaded_from.clear()
+    _pending_good.clear()
+    _prefer_good_heal = False
 
 
 class CheckpointUnreadableError(RuntimeError):
@@ -133,12 +155,16 @@ def save_all_states() -> str | None:
     root = env.checkpoint_path()
     final = None
     if root is not None and env.replica_rank() == 0:
-        final = _write(root, states)
+        start = time.monotonic()
+        final, total_bytes = _write(root, states)
+        from adaptdl_tpu_torch import metrics
+
+        metrics.record_checkpoint_save(time.monotonic() - start, total_bytes)
     collective.barrier()
     return final
 
 
-def _write(root: str, states: list[State]) -> str:
+def _write(root: str, states: list[State]) -> tuple[str, int]:
     os.makedirs(root, exist_ok=True)
     restart = env.num_restarts()
     existing = _list_checkpoints(root)
@@ -169,12 +195,22 @@ def _write(root: str, states: list[State]) -> str:
         shutil.rmtree(tmpdir, ignore_errors=True)
         raise
     _fsync_dir(root)
+    # Prune what the new save supersedes, except the newest good-marked
+    # dir: the guard's rollback floor survives until a newer save earns
+    # the marker.
+    newest_good = _newest_good_dir(root)
     for _, _, path in existing:
-        shutil.rmtree(path, ignore_errors=True)
+        if path != newest_good:
+            shutil.rmtree(path, ignore_errors=True)
     for entry in os.listdir(root):
         if entry.startswith(_TMP_PREFIX):
             shutil.rmtree(os.path.join(root, entry), ignore_errors=True)
-    return final
+    # A candidate for the good marker; pruned candidates drop out.
+    _pending_good[final] = 0
+    for pending in list(_pending_good):
+        if pending != final and not os.path.isdir(pending):
+            _pending_good.pop(pending, None)
+    return final, sum(entry["bytes"] for entry in digests.values())
 
 
 def _verify(ckpt: str, name: str) -> str:
@@ -199,24 +235,138 @@ def _verify(ckpt: str, name: str) -> str:
     return "ok"
 
 
-def load_state(state: State) -> bool:
+def is_good_checkpoint(ckpt: str) -> bool:
+    """Whether ``ckpt`` carries the durable last-known-good marker."""
+    return os.path.exists(os.path.join(ckpt, GOOD_MARKER_NAME))
+
+
+def _newest_good_dir(root: str) -> str | None:
+    """Newest readable good-marked checkpoint dir, or None."""
+    for _, _, ckpt in reversed(_list_checkpoints(root)):
+        if ckpt not in _bad_dirs and is_good_checkpoint(ckpt):
+            return ckpt
+    return None
+
+
+def _mark_good(ckpt: str) -> None:
+    """Durably write ``ckpt``'s good marker (best-effort: a marker that
+    fails to land only delays rollback eligibility)."""
+    marker = os.path.join(ckpt, GOOD_MARKER_NAME)
+    try:
+        with open(marker, "w", encoding="utf-8") as f:
+            f.write("good\n")
+            f.flush()
+            os.fsync(f.fileno())
+        _fsync_dir(ckpt)
+        LOG.info("checkpoint %s marked last-known-good", ckpt)
+    except OSError:
+        LOG.warning("could not mark %s good", ckpt, exc_info=True)
+
+
+def note_healthy_step() -> None:
+    """One healthy guard observation: advance every pending candidate;
+    one that has now seen ``ADAPTDL_GUARD_CONFIRM_STEPS`` of them earns
+    its marker."""
+    if not _pending_good:
+        return
+    confirm = env.guard_confirm_steps()
+    for path in list(_pending_good):
+        count = _pending_good[path] + 1
+        if count >= confirm:
+            del _pending_good[path]
+            if os.path.isdir(path):
+                _mark_good(path)
+        else:
+            _pending_good[path] = count
+
+
+def reset_health_confirmation() -> None:
+    """An unhealthy observation: every unconfirmed checkpoint may already
+    carry the corruption, so none of them may earn the marker."""
+    _pending_good.clear()
+
+
+def last_good_age() -> float | None:
+    """Seconds since the newest good-marked checkpoint earned its
+    marker; None when there is none."""
+    root = env.checkpoint_path()
+    if root is None:
+        return None
+    good = _newest_good_dir(root)
+    if good is None:
+        return None
+    try:
+        # The marker may predate this process: its file time against the
+        # wall clock is the age.
+        marker = os.path.join(good, GOOD_MARKER_NAME)
+        return max(time.time() - os.path.getmtime(marker), 0.0)
+    except OSError:
+        return None
+
+
+def rollback_to_good() -> str | None:
+    """Restore every registered state from the newest good-marked
+    checkpoint (the guard's rollback); returns that dir's basename, or
+    None when no good checkpoint exists. Raises
+    :class:`CheckpointUnreadableError` when good checkpoints exist but
+    none is readable. Read-only with respect to the store. Every replica
+    calls it at the same step; rank 0's choice of the newest good dir is
+    broadcast, so all of them restore from one directory."""
+    global _prefer_good_heal
+    root = env.checkpoint_path()
+    if root is None:
+        return None
+    faults.maybe_fail("guard.rollback")
+    newest = collective.broadcast(
+        _newest_good_dir(root) if env.replica_rank() == 0 else None
+    )
+    if newest is None:
+        return None
+    _prefer_good_heal = True
+    try:
+        restored: str | None = None
+        for state in list(_registry.values()):
+            if load_state(state, prefer_good=True, newest=newest):
+                restored = _loaded_from.get(state.name, restored)
+    finally:
+        _prefer_good_heal = False
+    return os.path.basename(restored) if restored else None
+
+
+def load_state(
+    state: State, prefer_good: bool = False, newest: str | None = None
+) -> bool:
     """Restore one state from the newest readable checkpoint; False
-    when no checkpoint holds it."""
+    when no checkpoint holds it. ``prefer_good`` restricts the scan to
+    good-marked dirs whenever one exists (the guard's rollback), from
+    ``newest`` down when given."""
     root = env.checkpoint_path()
     if root is None:
         return False
+    good_floor = (newest or _newest_good_dir(root)) if prefer_good else None
+    dirs = [ckpt for _, _, ckpt in reversed(_list_checkpoints(root))]
+    if good_floor in dirs:
+        dirs = dirs[dirs.index(good_floor):]
     attempted = False
-    for _, _, ckpt in reversed(_list_checkpoints(root)):
+    for ckpt in dirs:
         if ckpt in _bad_dirs:
+            continue
+        if good_floor is not None and not is_good_checkpoint(ckpt):
             continue
         verdict = _verify(ckpt, state.name)
         if verdict == "skip":
             continue
         if verdict == "ok":
+            start = time.monotonic()
             try:
                 with open(os.path.join(ckpt, state.name), "rb") as f:
                     state.load(f)
                 _loaded_from[state.name] = ckpt
+                from adaptdl_tpu_torch import metrics
+
+                metrics.record_checkpoint_restore(
+                    state.name, time.monotonic() - start
+                )
                 return True
             except Exception:  # noqa: BLE001 - any unreadable payload
                 LOG.warning(
@@ -244,7 +394,9 @@ def _poison(ckpt: str) -> None:
     for name in [n for n, d in _loaded_from.items() if d == ckpt]:
         del _loaded_from[name]
         other = _registry.get(name)
-        if other is not None and not load_state(other):
+        if other is not None and not load_state(
+            other, prefer_good=_prefer_good_heal
+        ):
             raise CheckpointUnreadableError(
                 f"state {name!r} was restored from {ckpt}, which later "
                 "proved unreadable, and no older checkpoint holds it"

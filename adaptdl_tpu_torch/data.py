@@ -6,11 +6,15 @@
   *remaining* samples of an epoch, so a job restarted mid-epoch picks
   up exactly where it stopped.
 - **adaptive batch size**: each loop entry (and every
-  ``_reoptimize_every`` steps) re-optimizes (atomic_bsz, accum_steps)
-  with the fitted goodput function, adopting a new configuration only
-  for a >5% predicted speedup; rank 0 decides and broadcasts.
-  Candidate atomic sizes are bucketed (multiples of 8 below 128, of 64
-  above) so the set of step shapes stays small.
+  ``_reoptimize_every`` steps) re-optimizes (atomic_bsz, accum_steps):
+  the supervisor's published decision (``batchConfig`` of ``/config``)
+  when it has one for this allocation, else the fitted goodput function,
+  adopting a new configuration only for a >5% predicted speedup; rank 0
+  decides and broadcasts. Candidate atomic sizes are bucketed (multiples
+  of 8 below 128, of 64 above) so the set of step shapes stays small.
+- **poisoned ranges**: the numeric-health guard records the span of a
+  batch it condemned (:meth:`AdaptiveDataLoader.add_skip_range`); the
+  sampler jumps past it from then on, and the table is checkpointed.
 - **graceful preemption**: once per step the loader agrees on the
   SIGTERM flag across replicas; once set, it checkpoints every state
   and exits with code 143.
@@ -34,7 +38,14 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from adaptdl_tpu_torch import _signal, checkpoint, collective, env, metrics
+from adaptdl_tpu_torch import (
+    _signal,
+    checkpoint,
+    collective,
+    env,
+    metrics,
+    sched_hints,
+)
 
 LOG = logging.getLogger(__name__)
 
@@ -104,6 +115,17 @@ class AdaptiveDataLoader:
         self._reoptimize_every = 50
         self._ckpt_every_steps = env.checkpoint_every_steps()
         self._last_profiled_config: tuple[int, int] | None = None
+        # Poisoned (epoch, start, end) spans of the epoch permutation the
+        # sampler must never re-feed, and the span of the batch yielded
+        # last (the guard's identity for the step it grades).
+        self._skip_ranges: list[tuple[int, int, int]] = []
+        self._last_span: tuple[int, int, int] | None = None
+        # Bumped by every restore of the loader's state. A guard rollback
+        # restores the position during a step: the iterator sees it
+        # across the yield and keeps the restored cursor.
+        self._restore_gen = 0
+        # Only changes after the first decision count as live re-tunes.
+        self._decided_once = False
         metrics.set_batch_size_config(batch_size)
         self._checkpoint = _DataLoaderCheckpoint("adaptdl_dataloader", self)
         checkpoint.load_state(self._checkpoint)
@@ -155,14 +177,20 @@ class AdaptiveDataLoader:
         position and epoch bookkeeping carry over and nothing restarts.
         Must be called with the same values on every replica."""
         decision = (max(int(atomic_bsz), 1), max(int(accum_steps), 0))
-        if decision != (self._atomic_bsz, self._accum_steps):
-            LOG.info("re-tune: atomic_bsz=%d accum_steps=%d", *decision)
+        changed = decision != (self._atomic_bsz, self._accum_steps)
         self._atomic_bsz, self._accum_steps = decision
+        if changed and self._decided_once:
+            LOG.info("live re-tune: atomic_bsz=%d accum_steps=%d", *decision)
+            metrics.record_retune()
+        self._decided_once = True
 
     def _rank0_decision(self) -> tuple[int, int]:
         num_replicas = env.num_replicas()
         if self._max_batch_size is None:
             return max(self.batch_size // num_replicas, 1), 0
+        remote = self._supervisor_decision(num_replicas)
+        if remote is not None:
+            return remote
         goodput_fn = metrics.get_goodput_fn()
         if goodput_fn is None:
             # No fitted model yet: split the initial batch size.
@@ -207,6 +235,34 @@ class AdaptiveDataLoader:
             return atomic_bsz, int(accum_steps)
         return self._atomic_bsz, self._accum_steps
 
+    def _supervisor_decision(
+        self, num_replicas: int
+    ) -> tuple[int, int] | None:
+        """The allocator's published (atomicBsz, accumSteps) for this
+        job, or None (no supervisor, no decision, or one made for another
+        allocation): then the local decision applies. Rank 0 only."""
+        remote = sched_hints.fetch_job_config()
+        if not remote or not remote.get("batchConfig"):
+            return None
+        # The published config belongs to the published allocation: a
+        # different device count means this incarnation is about to be
+        # restarted, and a config sized for that world would skew the
+        # remaining steps' profile for nothing.
+        allocation = remote.get("allocation") or []
+        if allocation and len(allocation) != num_replicas:
+            return None
+        cfg = remote["batchConfig"]
+        try:
+            atomic = bucket_atomic_bsz(int(cfg.get("atomicBsz", 0)))
+            accum = max(int(cfg.get("accumSteps", 0)), 0)
+        except (TypeError, ValueError):
+            return None
+        if self._local_bsz_bounds is not None:
+            atomic = int(np.clip(atomic, *self._local_bsz_bounds))
+        if num_replicas * atomic * (accum + 1) > self._max_batch_size:
+            return None
+        return atomic, accum
+
     # -- elasticity ----------------------------------------------------
 
     def _check_exit(self) -> None:
@@ -221,6 +277,35 @@ class AdaptiveDataLoader:
         self._exit_future = collective.allreduce_async(
             bool(_signal.get_exit_flag()), any
         )
+
+    # -- numeric-health guard hooks ------------------------------------
+
+    def current_batch_span(self) -> tuple[int, int, int] | None:
+        """(epoch, start, end) permutation span of the batch yielded
+        last; None before the first batch."""
+        return self._last_span
+
+    def add_skip_range(self, epoch: int, start: int, end: int) -> None:
+        """Record a poisoned sample range the sampler skips from now on.
+        Every replica derives the same permutation, so the same call on
+        each keeps their batches aligned; the next save persists it."""
+        span = (int(epoch), int(start), int(end))
+        if span not in self._skip_ranges:
+            self._skip_ranges.append(span)
+            LOG.warning(
+                "guard: sampler will skip poisoned range epoch=%d [%d, %d)",
+                *span,
+            )
+
+    def _skip_bound(self, take: int) -> int | None:
+        """Where the sampler jumps if its next ``take`` samples overlap a
+        poisoned range; None when the batch is clean."""
+        start = self.sampler.index
+        end = start + take
+        for epoch, s0, e0 in self._skip_ranges:
+            if epoch == self.sampler.epoch and s0 < end and e0 > start:
+                return e0
+        return None
 
     # -- iteration -----------------------------------------------------
 
@@ -242,7 +327,19 @@ class AdaptiveDataLoader:
             steps = 0
             while self.sampler.remaining() >= self.current_batch_size:
                 take = self.current_batch_size
+                skip_to = self._skip_bound(take)
+                if skip_to is not None:
+                    # A poisoned range: jump past it without yielding.
+                    # The jump strictly advances the index, and replays
+                    # identically on every replica and after a restart.
+                    self.sampler.index = skip_to
+                    continue
                 self._check_exit()
+                self._last_span = (
+                    self.sampler.epoch,
+                    self.sampler.index,
+                    self.sampler.index + take,
+                )
                 indices = self.sampler.next_indices(take)
                 num_processes = env.num_processes()
                 if num_processes > 1:
@@ -258,9 +355,15 @@ class AdaptiveDataLoader:
                     indices = indices[start : start + block]
                 batch = {k: v[indices] for k, v in self.dataset.items()}
                 config = (self._atomic_bsz, self._accum_steps)
+                restore_gen = self._restore_gen
                 start = time.monotonic()
                 yield batch
                 elapsed = time.monotonic() - start
+                if self._restore_gen != restore_gen:
+                    # A rollback restored the loader during the step: the
+                    # restored position is authoritative, and the aborted
+                    # step neither moves it nor records a profile sample.
+                    continue
                 if config == self._last_profiled_config:
                     metrics.profile_step(*config, elapsed)
                 else:
@@ -313,6 +416,7 @@ class _DataLoaderCheckpoint(checkpoint.State):
                 "loops_finished": loader._loops_finished,
                 "atomic_bsz": loader._atomic_bsz,
                 "accum_steps": loader._accum_steps,
+                "skip_ranges": list(loader._skip_ranges),
             },
             fileobj,
         )
@@ -324,3 +428,8 @@ class _DataLoaderCheckpoint(checkpoint.State):
         loader._loops_finished = payload["loops_finished"]
         loader._atomic_bsz = payload["atomic_bsz"]
         loader._accum_steps = payload["accum_steps"]
+        # Checkpoints from before the guard slice carry no skip table.
+        loader._skip_ranges = [
+            tuple(r) for r in payload.get("skip_ranges", [])
+        ]
+        loader._restore_gen += 1

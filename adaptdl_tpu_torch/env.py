@@ -105,6 +105,13 @@ def master_addr() -> str:
     return _get_str("ADAPTDL_MASTER_ADDR") or "127.0.0.1"
 
 
+def pod_ip() -> str | None:
+    """The address this rank registers with the supervisor, where the
+    deployment gives each worker its own (a pod's IP); unset, the rank
+    registers its host name's address."""
+    return _get_str("ADAPTDL_POD_IP")
+
+
 def master_port() -> int:
     """Port of the rendezvous; 0 lets the launcher pick a free one."""
     return _get_int("ADAPTDL_MASTER_PORT", 0)
@@ -131,7 +138,8 @@ def checkpoint_verify() -> bool:
 
 
 def supervisor_url() -> str | None:
-    """Base URL of the cluster supervisor (rendezvous + sched hints)."""
+    """Base URL of the cluster supervisor (rendezvous, heartbeats,
+    scheduling hints, batch decisions, incidents)."""
     return _get_str("ADAPTDL_SUPERVISOR_URL")
 
 
@@ -146,5 +154,61 @@ def set_num_replicas(count: int) -> None:
 
 
 def fit_interval() -> float:
-    """Seconds between perf refits (reference cadence 30 s)."""
+    """Seconds between perf refits and hint posts (reference cadence
+    30 s)."""
     return _get_float("ADAPTDL_FIT_INTERVAL", 30.0)
+
+
+def job_id() -> str | None:
+    """Unique job identifier, ``namespace/name`` under the k8s operator."""
+    return _get_str("ADAPTDL_JOB_ID")
+
+
+def heartbeat_interval() -> float:
+    """Seconds between worker liveness heartbeats to the supervisor (0
+    disables the heartbeat thread; liveness then rides only on the hint
+    and config traffic)."""
+    return _get_float("ADAPTDL_HEARTBEAT_INTERVAL", 20.0)
+
+
+def fault_spec_raw() -> str | None:
+    """Fault-injection schedule, as the raw spec string (``faults``
+    parses it). Unset, every injection point is a no-op."""
+    return _get_str("ADAPTDL_FAULT_SPEC")
+
+
+def fault_seed() -> int:
+    """Seed of the fault schedule's probabilistic clauses."""
+    return _get_int("ADAPTDL_FAULT_SEED", 0)
+
+
+def guard_policy() -> str:
+    """What the numeric-health guard does on an unhealthy step: ``off``,
+    ``warn`` (log and report), ``skip`` (also never re-feed the poisoned
+    batch) or ``rollback`` (the default: restore the last-known-good
+    checkpoint, then skip the poisoned batch)."""
+    policy = (_get_str("ADAPTDL_GUARD_POLICY") or "rollback").lower()
+    if policy not in ("off", "warn", "skip", "rollback"):
+        return "rollback"
+    return policy
+
+
+def guard_window() -> int:
+    """Healthy losses the spike detector's rolling median+MAD covers."""
+    return max(_get_int("ADAPTDL_GUARD_WINDOW", 32), 4)
+
+
+def guard_min_samples() -> int:
+    """Healthy losses needed before the spike detector arms."""
+    return max(_get_int("ADAPTDL_GUARD_MIN_SAMPLES", 8), 2)
+
+
+def guard_mad_k() -> float:
+    """Spike threshold in robust sigmas (1.4826 x MAD) above the median."""
+    return max(_get_float("ADAPTDL_GUARD_MAD_K", 8.0), 1.0)
+
+
+def guard_confirm_steps() -> int:
+    """Healthy guard observations after a save before that checkpoint
+    earns its last-known-good marker."""
+    return max(_get_int("ADAPTDL_GUARD_CONFIRM_STEPS", 8), 1)

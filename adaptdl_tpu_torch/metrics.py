@@ -1,6 +1,6 @@
-"""Per-step profiling and perf-param fitting.
+"""Per-step profiling, perf-param fitting and hint reporting.
 
-The port of the profiling half of ``adaptdl_tpu.metrics``:
+The port of ``adaptdl_tpu.metrics``:
 
 - ``profile_step``: wall-clock of a whole training step, keyed by
   ``(num_nodes, num_replicas, seq_shards, model_shards, stage_shards,
@@ -12,12 +12,18 @@ The port of the profiling half of ``adaptdl_tpu.metrics``:
   gradient sync.
 
 Every replica profiles its own steps; every ``fit_interval`` seconds
-rank 0 alone refits the performance model on
-a background thread (joined by :func:`join_fit`), and
-:func:`get_goodput_fn` combines it with the latest gradient statistics.
-Profiles and fitted parameters are checkpointed so a restarted job does
-not re-learn its performance model. Posting scheduling hints to a
-supervisor is not part of the port yet.
+rank 0 alone refits the performance model and posts the scheduling
+hints to the supervisor (when one is set) on a background thread,
+joined by :func:`join_fit`; :func:`get_goodput_fn` combines the fit with
+the latest gradient statistics. Profiles and fitted parameters are
+checkpointed so a restarted job does not re-learn its performance
+model.
+
+Goodput hygiene: a step the numeric-health guard condemned
+(:func:`note_unhealthy_step`) feeds only the raw throughput EWMAs, never
+the profile table, the perf fit or the guarded EWMAs behind
+``measuredGoodput``. Flushing trace spans to the supervisor on the hint
+cadence is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
-from adaptdl_tpu_torch import checkpoint, env
+from adaptdl_tpu_torch import checkpoint, env, guard, sched_hints
 from adaptdl_tpu_torch.goodput import (
     GoodputFunction,
     GradParams,
@@ -67,6 +73,28 @@ class MetricsState:
     max_stage_shards: int = 1
     max_expert_shards: int = 1
     progress: float = 0.0
+    # The last save's seconds and bytes (the port's saves are blocking
+    # and full: all of it is on the training thread, the restartStats'
+    # snapshotS, with writeS 0), and this incarnation's restore seconds
+    # per state.
+    ckpt_snapshot_s: float | None = None  # guarded-by: _profile_lock
+    ckpt_save_bytes: int | None = None  # guarded-by: _profile_lock
+    restore_per_state: dict = field(  # guarded-by: _profile_lock
+        default_factory=dict
+    )
+    # In-process (atomic_bsz, accum) re-tunes adopted without a restart.
+    num_retunes: int = 0  # guarded-by: _profile_lock
+    # Smoothed step time (rides the heartbeats) and examples/s at the
+    # batch geometry of the last profiled step (measuredGoodput); the
+    # raw examples/s EWMA also takes the steps the guard condemned, and
+    # suppress_profile_steps counts condemned samples the loader has not
+    # recorded yet.
+    step_time_ewma: float | None = None  # guarded-by: _profile_lock
+    examples_ewma: float | None = None  # guarded-by: _profile_lock
+    last_global_bsz: int | None = None  # guarded-by: _profile_lock
+    raw_examples_ewma: float | None = None  # guarded-by: _profile_lock
+    unhealthy_steps: int = 0  # guarded-by: _profile_lock
+    suppress_profile_steps: int = 0  # guarded-by: _profile_lock
 
 
 _state = MetricsState()
@@ -82,13 +110,14 @@ def current_state() -> MetricsState:
 
 
 def join_fit(timeout: float | None = 60.0) -> None:
-    """Wait for an in-flight background fit."""
+    """Wait for an in-flight background fit and its hint post."""
     if _fit_thread is not None and _fit_thread.is_alive():
         _fit_thread.join(timeout)
 
 
 # A refit still running in torch code while the interpreter finalizes
-# can abort the process, so every exit waits for it.
+# can abort the process, so every exit waits for it (and for the hint
+# post that follows it on the same thread).
 atexit.register(join_fit)
 
 
@@ -181,26 +210,152 @@ def profile_step(
 ) -> None:
     """Record one full-step wall-clock measurement; the optim-time
     observation is the step time minus the modelled accumulation
-    micro-steps, kept positive."""
+    micro-steps, kept positive. A sample the guard condemned feeds only
+    the raw EWMAs."""
     key = _profile_key(atomic_bsz)
+    alpha = 0.2  # EWMA weight: a few fit intervals of memory
     with _profile_lock:
-        entry = _state.profile[key]
-        if accum_steps > 0 and entry.accum_count > 0:
-            accum_time = entry.accum_time_sum / entry.accum_count
-            optim_time = max(
-                step_time - accum_steps * accum_time, 0.1 * step_time
+        suppressed = _state.suppress_profile_steps > 0
+        if suppressed:
+            _state.suppress_profile_steps -= 1
+        if step_time > 0:
+            global_bsz = (
+                int(atomic_bsz) * (int(accum_steps) + 1) * env.num_replicas()
             )
-        else:
-            optim_time = step_time
-        entry.optim_time_sum += optim_time
-        entry.optim_count += 1
-        # Profiled coverage counts devices, as the JAX package does.
-        sp, tp, ss, ep, _micro = active_topology()
-        _state.max_profiled_replicas = max(
-            _state.max_profiled_replicas,
-            env.num_replicas() * sp * tp * ss * ep,
-        )
-    _maybe_fit()
+            examples_s = global_bsz / step_time
+            _state.raw_examples_ewma = _ewma(
+                _state.raw_examples_ewma, examples_s, alpha
+            )
+            _state.last_global_bsz = global_bsz
+        if not suppressed:
+            entry = _state.profile[key]
+            if accum_steps > 0 and entry.accum_count > 0:
+                accum_time = entry.accum_time_sum / entry.accum_count
+                optim_time = max(
+                    step_time - accum_steps * accum_time, 0.1 * step_time
+                )
+            else:
+                optim_time = step_time
+            entry.optim_time_sum += optim_time
+            entry.optim_count += 1
+            if step_time > 0:
+                _state.step_time_ewma = _ewma(
+                    _state.step_time_ewma, step_time, alpha
+                )
+                _state.examples_ewma = _ewma(
+                    _state.examples_ewma, examples_s, alpha
+                )
+            # Profiled coverage counts devices, as the JAX package does.
+            sp, tp, ss, ep, _micro = active_topology()
+            _state.max_profiled_replicas = max(
+                _state.max_profiled_replicas,
+                env.num_replicas() * sp * tp * ss * ep,
+            )
+    if not suppressed:
+        _maybe_fit()
+
+
+def _ewma(prev: float | None, value: float, alpha: float) -> float:
+    return value if prev is None else (1 - alpha) * prev + alpha * value
+
+
+def record_checkpoint_save(seconds: float, total_bytes: int) -> None:
+    """The last completed save: seconds it blocked the training thread
+    and the bytes it wrote."""
+    with _profile_lock:
+        _state.ckpt_snapshot_s = float(seconds)
+        _state.ckpt_save_bytes = int(total_bytes)
+
+
+def record_checkpoint_restore(name: str, seconds: float) -> None:
+    """Seconds one state's restore took in this incarnation."""
+    with _profile_lock:
+        _state.restore_per_state[name] = float(seconds)
+
+
+def record_retune() -> None:
+    """An in-process (atomic_bsz, accum) re-tune was adopted."""
+    with _profile_lock:
+        _state.num_retunes += 1
+
+
+def restart_stats() -> dict | None:
+    """Measured rescale-cost components for the ``restartStats`` hint
+    (the ``restart_stats`` wire family), or None before anything was
+    measured: ``snapshotS``/``writeS`` of the last save,
+    ``overlapFrac`` of it off the training thread (0 for the port's
+    blocking saves), its bytes, and ``restoreS`` summed over this
+    incarnation's restores."""
+    with _profile_lock:
+        if _state.ckpt_snapshot_s is None and not _state.restore_per_state:
+            return None
+        stats: dict = {"numRetunes": _state.num_retunes}
+        if _state.ckpt_snapshot_s is not None:
+            stats["snapshotS"] = round(_state.ckpt_snapshot_s, 4)
+            stats["writeS"] = 0.0
+            if _state.ckpt_snapshot_s > 0:
+                stats["overlapFrac"] = 0.0
+            stats["saveBytes"] = _state.ckpt_save_bytes
+            stats["saveKind"] = "full"
+        if _state.restore_per_state:
+            stats["restoreS"] = round(
+                sum(_state.restore_per_state.values()), 4
+            )
+        return stats
+
+
+def step_time_ewma() -> float | None:
+    """This process's smoothed step time (seconds), or None before the
+    first profiled step: what the heartbeats carry."""
+    with _profile_lock:
+        return _state.step_time_ewma
+
+
+def measured_goodput() -> float | None:
+    """Realized goodput (useful examples/s): the guarded throughput EWMA
+    times the statistical efficiency at the running batch size under
+    the current gradient params. None until both exist."""
+    with _profile_lock:
+        examples = _state.examples_ewma
+        global_bsz = _state.last_global_bsz
+        grad = _state.grad_params
+        init = _state.init_batch_size
+    return _goodput_from(examples, global_bsz, grad, init)
+
+
+def raw_goodput() -> float | None:
+    """:func:`measured_goodput` over the raw throughput EWMA, which also
+    counts the unhealthy and rolled-back steps."""
+    with _profile_lock:
+        examples = _state.raw_examples_ewma
+        global_bsz = _state.last_global_bsz
+        grad = _state.grad_params
+        init = _state.init_batch_size
+    return _goodput_from(examples, global_bsz, grad, init)
+
+
+def _goodput_from(examples, global_bsz, grad, init) -> float | None:
+    if examples is None or not global_bsz or grad is None or not init:
+        return None
+    scale = global_bsz / init
+    denom = grad.var / scale + grad.sqr
+    gain = (grad.var + grad.sqr) / denom if denom > 0 else 1.0
+    return examples * gain / scale
+
+
+def note_unhealthy_step(n: int = 1) -> None:
+    """The guard condemned the current step: count it and keep the next
+    ``n`` profile samples (the loader records a step's sample after the
+    trainer's guard graded it) out of the guarded EWMAs and the fit."""
+    with _profile_lock:
+        _state.unhealthy_steps += 1
+        _state.suppress_profile_steps += max(int(n), 0)
+
+
+def unhealthy_steps() -> int:
+    """Guard-condemned steps observed (restored with the metrics state)."""
+    with _profile_lock:
+        return _state.unhealthy_steps
 
 
 def update_grad_params(sqr: float, var: float) -> None:
@@ -251,6 +406,50 @@ def fit_now() -> None:
             _state.perf_params = perf
 
 
+def fit_and_report_now() -> None:
+    """Refit the performance model and, when a supervisor is set, post
+    the scheduling hints (best-effort)."""
+    fit_now()
+    with _profile_lock:
+        perf_params = _state.perf_params
+        grad_params = _state.grad_params
+    if _state.init_batch_size is None:
+        return
+    hints = sched_hints.empty_hints()
+    hints["initBatchSize"] = _state.init_batch_size
+    if _state.local_bsz_bounds is not None:
+        hints["localBszBounds"] = list(_state.local_bsz_bounds)
+    hints["maxBatchSize"] = _state.max_batch_size
+    hints["maxProfiledReplicas"] = _state.max_profiled_replicas
+    hints["gradientAccumulation"] = _state.gradient_accumulation
+    hints["maxSeqShards"] = _state.max_seq_shards
+    hints["maxModelShards"] = _state.max_model_shards
+    hints["maxStageShards"] = _state.max_stage_shards
+    hints["maxExpertShards"] = _state.max_expert_shards
+    # The pipeline fields at the JAX package's defaults for a job with
+    # no pipeline stages: the cap on M it would post (8), one
+    # microbatch, no interleaved schedule.
+    hints["maxPipelineMicro"] = 8
+    hints["pipelineMicrobatches"] = 1
+    hints["pipelineChunks"] = 0
+    measured = measured_goodput()
+    if measured is not None:
+        hints["measuredGoodput"] = round(measured, 6)
+    stats = restart_stats()
+    if stats is not None:
+        hints["restartStats"] = stats
+    gstats = guard.guard_stats()
+    if gstats is not None:
+        hints["guardStats"] = gstats
+    if grad_params is not None:
+        hints["gradParams"] = dict(grad_params._asdict())
+    if perf_params is not None:
+        hints["perfParams"] = {
+            k: float(v) for k, v in perf_params._asdict().items()
+        }
+    sched_hints.post_sched_hints(hints)
+
+
 def _maybe_fit() -> None:
     global _last_fit_time, _fit_thread
     now = time.monotonic()
@@ -259,10 +458,11 @@ def _maybe_fit() -> None:
     _last_fit_time = now
     if env.replica_rank() != 0:
         return
-    # The refit solves on the host; it must never stall the step loop.
+    # The refit and the post run on the host; they must never stall the
+    # step loop.
     if _fit_thread is None or not _fit_thread.is_alive():
         _fit_thread = threading.Thread(
-            target=fit_now, name="adaptdl-torch-fit", daemon=True
+            target=fit_and_report_now, name="adaptdl-torch-fit", daemon=True
         )
         _fit_thread.start()
 
@@ -288,6 +488,12 @@ _SAVED_FIELDS = (
     "max_seq_shards", "max_model_shards", "max_stage_shards",
     "max_expert_shards", "progress",
 )
+# Fields checkpoints from before the guard slice lack: read with their
+# defaults.
+_OPTIONAL_FIELDS = (
+    "ckpt_snapshot_s", "ckpt_save_bytes", "num_retunes",
+    "raw_examples_ewma", "unhealthy_steps",
+)
 
 
 class _MetricsCheckpoint(checkpoint.State):
@@ -298,7 +504,10 @@ class _MetricsCheckpoint(checkpoint.State):
 
     def save(self, fileobj):
         with _profile_lock:
-            payload = {name: getattr(_state, name) for name in _SAVED_FIELDS}
+            payload = {
+                name: getattr(_state, name)
+                for name in _SAVED_FIELDS + _OPTIONAL_FIELDS
+            }
             payload["profile"] = {
                 key: vars(entry).copy()
                 for key, entry in _state.profile.items()
@@ -314,6 +523,11 @@ class _MetricsCheckpoint(checkpoint.State):
             _state.profile = profile
             for name in _SAVED_FIELDS:
                 setattr(_state, name, payload[name])
+            defaults = MetricsState()
+            for name in _OPTIONAL_FIELDS:
+                setattr(
+                    _state, name, payload.get(name, getattr(defaults, name))
+                )
 
 
 def ensure_checkpoint_registered() -> None:

@@ -18,7 +18,9 @@ optimizer step at a given (atomic_bsz, accum_steps):
 This is deliberately not DDP: DDP averages gradients inside backward,
 before the noise statistics can see each replica's own gradient.
 Everything stays on the device; ``run_step`` reads the statistics back
-to the host only every ``metrics_every`` steps.
+to the host only every ``metrics_every`` steps, where the numeric-health
+guard grades them (and may roll the job back to its last-known-good
+checkpoint).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from adaptdl_tpu_torch import checkpoint, collective, env, gns, metrics
+from adaptdl_tpu_torch import checkpoint, collective, env, gns, guard, metrics
 from adaptdl_tpu_torch.device import resolve_device
 from adaptdl_tpu_torch.optim import AdamW
 from adaptdl_tpu_torch.scaling_rules import RuleContext, ScalingRule
@@ -160,6 +162,9 @@ class ElasticTrainer:
         # How often run_step reads the statistics back to the host.
         self.metrics_every = 10
         self._steps_since_pull = self.metrics_every - 1  # pull early once
+        # The state the last restore of a TrainerCheckpoint of this
+        # trainer set (what run_step hands back after a rollback).
+        self._restored_state: TrainState | None = None
 
     def init_state(self) -> TrainState:
         zero = torch.zeros((), device=self.device)
@@ -309,9 +314,11 @@ class ElasticTrainer:
 
     def run_step(self, state: TrainState, host_batch: Any, dataloader):
         """One elastic step wired to the dataloader's current config:
-        calibrates new batch sizes, runs the step, and feeds the noise
-        statistics and progress back to the metrics engine every
-        ``metrics_every`` steps."""
+        calibrates new batch sizes, runs the step, and every
+        ``metrics_every`` steps feeds the noise statistics and progress
+        back to the metrics engine and lets the numeric-health guard
+        grade the step. After a guard rollback it returns the restored
+        state (the one the trainer's checkpoint state just set)."""
         if env.num_replicas() != self.num_replicas:
             raise RuntimeError(
                 f"ADAPTDL_NUM_REPLICAS={env.num_replicas()} but the "
@@ -328,10 +335,20 @@ class ElasticTrainer:
         self._steps_since_pull += 1
         if self._steps_since_pull >= self.metrics_every:
             self._steps_since_pull = 0
-            metrics.update_grad_params(
-                float(out["grad_sqr"]), float(out["grad_var"])
-            )
+            loss = float(out["loss"])
+            grad_sqr = float(out["grad_sqr"])
+            grad_var = float(out["grad_var"])
+            metrics.update_grad_params(grad_sqr, grad_var)
             metrics.update_progress(float(out["progress"]))
+            # The detection latency is metrics_every steps, by this gate.
+            self._restored_state = None
+            verdict = guard.observe_step(
+                loss, grad_sqr=grad_sqr, grad_var=grad_var,
+                dataloader=dataloader,
+            )
+            restored = self._restored_state
+            if verdict["restored"] is not None and restored is not None:
+                state = restored
         return state, out
 
     def make_checkpoint_state(
@@ -379,11 +396,11 @@ class TrainerCheckpoint(checkpoint.State):
             **{k: v.to(device) for k, v in payload["gns"].items()},
             prev_grad=[t.to(device) for t in payload["prev_grad"]],
         )
-        self._set_state(
-            replace(
-                state,
-                gns=restored,
-                progress=payload["progress"].to(device),
-                step=payload["step"].to(device),
-            )
+        new_state = replace(
+            state,
+            gns=restored,
+            progress=payload["progress"].to(device),
+            step=payload["step"].to(device),
         )
+        self._set_state(new_state)
+        self._trainer._restored_state = new_state

@@ -43,11 +43,36 @@ Phases (any failure exits non-zero before the result line):
    d. in a fresh process, the port's process group at world size 1 on
       NCCL: the flat all-reduce of a full-width gradient set is one call
       and returns its input bit for bit.
-6. result: the kernels line, the card line, then the device line. Each
+   The two ranks of 5a run under the supervisor recorder (below): both
+   register, rendezvous through /discover and heartbeat; rank 0 alone
+   posts hints.
+6. supervised and guarded: the full-width LM at one replica as a job of
+   a supervisor, in this process. The supervisor is a recorder on the
+   standard library's HTTP server in a thread (the supervisor of the JAX
+   package needs aiohttp): it serves the job-facing routes, checks every
+   hint payload with the port's validate_hints and serves one
+   batchConfig once told to. Settings: a fit interval of 2 s,
+   heartbeats every 0.5 s, a save every 2 steps, good markers after 2
+   healthy observations, metrics_every 1 and an injected NaN gradient
+   statistic at the guard's 7th observation. Checked: a) heartbeats, and
+   accepted hints whose perfParams are finite, non-negative and predict
+   this card's measured throughput within 2x, with finite gradParams;
+   b) once /config serves {"atomicBsz": 16, "accumSteps": 1} for a
+   one-slot allocation, the loader adopts (16, 1) at its next
+   re-optimisation; c) the guard reports nan_grad at observation 7 and
+   rolls back: parameters, Adam moments and noise statistics equal
+   their checksums at the good-marked save, the loader resumes at that
+   save's position and skips the poisoned span; d) one incident
+   (nan_grad, rollback) reaches the supervisor; e) 5 more steps with
+   finite losses; f) the sm90 launches per step as in phase 4, none of
+   the f32 kernel. Prints the hint-post latency, the rollback's restore
+   seconds and the phase's median step time against phase 4's.
+7. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
-   launches" its count on each rank of 5a and "rescaled_launches" in 5c.
+   launches" its count on each rank of 5a, "rescaled_launches" in 5c and
+   "supervised_launches" in phase 6.
 """
 
 import ctypes
@@ -60,7 +85,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
@@ -484,6 +512,7 @@ def phase_main_path(kernel_rows):
             f"first step (with calibration) {step_s[0] * 1e3:.1f} ms, "
             f"peak memory {peak_mem / 2**30:.2f} GiB"
         )
+        print(f"main path: step times ms {[round(s * 1e3, 1) for s in step_s]}")
 
         # The flash model against the dense-attention model on 2 x 512
         # tokens, in f32 (the f32 kernel) and in bf16 (the sm90 kernel):
@@ -570,8 +599,143 @@ def phase_main_path(kernel_rows):
             f"restored bit-equal in {load_s:.1f} s (step {int(b.step)})"
         )
         metrics.join_fit()
+        return steady
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+# -- the supervisor recorder (phases 5 and 6) -----------------------------
+
+PAIR_JOB = "smoke/pair"
+SUPERVISED_JOB = "smoke/guarded"
+
+
+class SupervisorRecorder:
+    """A stand-in for the supervisor's job-facing routes on the standard
+    library's HTTP server, in a thread. It records every request and
+    answers as the supervisor does: ``PUT /register`` and the
+    ``GET /discover`` long poll (per restart group), ``PUT /heartbeat``,
+    ``PUT /hints`` (checked with the port's ``validate_hints``: 400 when
+    it refuses), ``GET /config`` (the job's allocation, and its
+    batchConfig once :meth:`serve_batch_config` was called) and
+    ``POST /incident``. Jobs are ``{job_id: allocation}``."""
+
+    def __init__(self, jobs):
+        self.jobs = dict(jobs)
+        self.cond = threading.Condition()
+        self.requests = []  # guarded-by: cond
+        self.workers = {}  # (job, group) -> {rank: address}; guarded-by: cond
+        self.batch_config = {}  # job -> batchConfig; guarded-by: cond
+        self.server = None
+        self.thread = None
+        self.url = None
+
+    def start(self) -> str:
+        recorder = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _answer(self):
+                parts = urllib.parse.urlsplit(self.path)
+                query = dict(urllib.parse.parse_qsl(parts.query))
+                length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length) if length else b""
+                body = json.loads(raw) if raw else None
+                status, reply = recorder.handle(
+                    self.command, parts.path.strip("/").split("/"), query, body
+                )
+                data = json.dumps(reply).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            do_GET = do_PUT = do_POST = _answer
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(
+            target=self.server.serve_forever, name="supervisor-recorder"
+        )
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        return self.url
+
+    def stop(self):
+        if self.server is not None:
+            self.server.shutdown()
+            self.server.server_close()
+            self.thread.join(10)
+
+    def serve_batch_config(self, job, config):
+        with self.cond:
+            self.batch_config[job] = dict(config)
+
+    def handle(self, method, path, query, body):
+        """(status, reply) for one request; every request is recorded."""
+        from adaptdl_tpu_torch import sched_hints
+
+        route, job, rest = path[0], "/".join(path[1:3]), path[3:]
+        status, reply = 404, {"error": "no such route"}
+        if job in self.jobs:
+            status, reply = 200, {"ok": True}
+            if (method, route) == ("PUT", "register"):
+                group, rank = int(rest[0]), int(rest[1])
+                with self.cond:
+                    self.workers.setdefault((job, group), {})[rank] = body["address"]
+                    self.cond.notify_all()
+            elif (method, route) == ("GET", "discover"):
+                group, want = int(rest[0]), int(query.get("replicas", 0))
+                with self.cond:
+                    self.cond.wait_for(
+                        lambda: len(self.workers.get((job, group), {})) >= want,
+                        timeout=60,
+                    )
+                    workers = dict(self.workers.get((job, group), {}))
+                if len(workers) >= want:
+                    reply = {str(r): a for r, a in workers.items()}
+                else:
+                    status, reply = 408, {"error": "discover timeout"}
+            elif (method, route) == ("PUT", "hints"):
+                try:
+                    sched_hints.validate_hints(body)
+                except (ValueError, TypeError) as exc:
+                    status, reply = 400, {"error": str(exc)}
+            elif (method, route) == ("GET", "config"):
+                with self.cond:
+                    reply = {
+                        "allocation": self.jobs[job],
+                        "topology": None,
+                        "batchConfig": self.batch_config.get(job),
+                        "retunes": int(job in self.batch_config),
+                        "group": 0,
+                    }
+            elif (method, route) == ("POST", "incident"):
+                if not (body or {}).get("kind"):
+                    status, reply = 400, {"error": "kind required"}
+            elif (method, route) != ("PUT", "heartbeat"):
+                status, reply = 404, {"error": "no such route"}
+        elif route in ("register", "discover", "heartbeat", "hints",
+                       "config", "incident"):
+            reply = {"error": "no such job"}
+        with self.cond:
+            self.requests.append({
+                "method": method, "route": route, "job": job, "rest": rest,
+                "query": query, "body": body, "status": status,
+                "time": time.monotonic(),
+            })
+        return status, reply
+
+    def seen(self, job, route, status=200):
+        with self.cond:
+            return [
+                r for r in self.requests
+                if r["job"] == job and r["route"] == route
+                and r["status"] == status
+            ]
 
 
 # -- phase 5: multi-replica ----------------------------------------------
@@ -603,7 +767,9 @@ def replica_run(root, successor):
     import torch.distributed as dist
 
     import adaptdl_tpu_torch
-    from adaptdl_tpu_torch import _signal, checkpoint, collective, env, epoch, metrics
+    from adaptdl_tpu_torch import (
+        _signal, bootstrap, checkpoint, collective, env, epoch, metrics,
+    )
     from adaptdl_tpu_torch.data import AdaptiveDataLoader
     from adaptdl_tpu_torch.examples.transformer_lm import lm_config, synthetic_tokens
     from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
@@ -614,6 +780,16 @@ def replica_run(root, successor):
     from adaptdl_tpu_torch.trainer import ElasticTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    # The host the process group is joined at: rank 0's address as the
+    # supervisor's /discover gave it.
+    joined = {}
+    join = collective.initialize
+
+    def recorded_join(addr, port, **kwargs):
+        joined["host"] = addr
+        return join(addr, port, **kwargs)
+
+    collective.initialize = recorded_join
     device = adaptdl_tpu_torch.initialize_job(device="cuda")
     rank, replicas = env.process_rank(), env.num_replicas()
     name = f"rank {rank} of {replicas}"
@@ -643,9 +819,18 @@ def replica_run(root, successor):
     )
     report = {
         "rank": rank, "backend": backend, "device": str(device),
+        "address": bootstrap._local_address(), "group_host": joined.get("host"),
         "position": [loader.sampler.epoch, loader.sampler.index],
-        "restore_s": restore_s, "steps": [],
+        "restore_s": restore_s, "steps": [], "hint_posts": [],
     }
+    post = metrics.sched_hints.post_sched_hints
+
+    def counted_post(hints):
+        ok = post(hints)
+        report["hint_posts"].append(ok)
+        return ok
+
+    metrics.sched_hints.post_sched_hints = counted_post
     if successor:
         with open(os.path.join(root, "pair-rank0.json")) as f:
             saved = json.load(f)
@@ -724,6 +909,7 @@ def replica_run(root, successor):
         report["stop_s"] = (
             time.perf_counter() - stop_start if stop_start else None
         )
+        metrics.join_fit()
         report["launches"] = {k: _build.LAUNCHES[k] for k in (KERNEL_SM90, KERNEL)}
         report["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         state = metrics.current_state()
@@ -795,19 +981,20 @@ def nccl_world_one():
         collective.teardown()
 
 
-def phase_multi_replica(kernel_rows):
+def phase_multi_replica(kernel_rows, recorder):
     from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
 
     here = os.path.dirname(os.path.abspath(__file__))
     root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-mr-")
     base = {k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")}
 
-    def launch(replicas, restarts, mode):
+    def launch(replicas, restarts, mode, **extra):
         run_env = dict(
             base,
             ADAPTDL_NUM_REPLICAS=str(replicas),
             ADAPTDL_NUM_RESTARTS=str(restarts),
             ADAPTDL_CHECKPOINT_PATH=os.path.join(root, "ckpt"),
+            **extra,
         )
         start = time.perf_counter()
         code = subprocess.run(
@@ -823,9 +1010,43 @@ def phase_multi_replica(kernel_rows):
             return json.load(f)
 
     try:
-        code, wall = launch(2, 0, "pair")
+        code, wall = launch(
+            2, 0, "pair", ADAPTDL_SUPERVISOR_URL=recorder.url,
+            ADAPTDL_JOB_ID=PAIR_JOB, ADAPTDL_HEARTBEAT_INTERVAL="1",
+        )
         check(code == 143, f"two-replica launch exited {code}, expected 143")
         pair = [load(f"pair-rank{r}") for r in (0, 1)]
+        registered = {
+            int(r["rest"][1]) for r in recorder.seen(PAIR_JOB, "register")
+            if r["rest"][0] == "0"
+        }
+        discovered = recorder.seen(PAIR_JOB, "discover")
+        beats = {int(r["rest"][0]) for r in recorder.seen(PAIR_JOB, "heartbeat")}
+        hints = recorder.seen(PAIR_JOB, "hints")
+        posts = [r["hint_posts"] for r in pair]
+        workers = recorder.workers[(PAIR_JOB, 0)]
+        check(
+            registered == {0, 1} and len(discovered) == 2
+            and workers == {r["rank"]: r["address"] for r in pair}
+            and [r["group_host"] for r in pair] == [workers[0]] * 2,
+            f"pair rendezvous: registered {registered} ({workers}), "
+            f"{len(discovered)} discover replies, group joined at "
+            f"{[r['group_host'] for r in pair]}",
+        )
+        check(beats == {0, 1}, f"pair heartbeats from ranks {beats}")
+        check(
+            len(hints) >= 1 and posts[0] and all(posts[0]) and posts[1] == []
+            and not recorder.seen(PAIR_JOB, "hints", status=400),
+            f"pair hint posts: rank 0 {posts[0]}, rank 1 {posts[1]}, "
+            f"{len(hints)} accepted",
+        )
+        print(
+            f"multi-replica supervisor: ranks {sorted(registered)} registered "
+            f"and rendezvoused through /discover ({workers}; group joined "
+            f"at rank 0's {workers[0]}), heartbeats from ranks "
+            f"{sorted(beats)}, {len(hints)} hint post(s) accepted, all from "
+            f"rank 0"
+        )
         for r in pair:
             check(
                 r["backend"] == "gloo" and r["device"] == "cuda:0",
@@ -904,6 +1125,305 @@ def phase_multi_replica(kernel_rows):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 6: supervised and guarded --------------------------------------
+
+FAULT_AT = 7  # the guard's observation that gets a NaN gradient statistic
+SERVE_BATCH_CONFIG_AFTER = 4  # steps before /config publishes a batchConfig
+SUPERVISED_STEPS = 12
+# The loader's configuration per step: (32, 0) until the re-optimisation
+# after step 9 (its 8th completed step: step 7 rolled back) adopts the
+# published (16, 1).
+SUPERVISED_PLAN = [(32, 0)] * 9 + [(16, 1)] * 3
+
+
+def phase_supervised(kernel_rows, recorder, main_step_s):
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch import (
+        bootstrap,
+        checkpoint,
+        epoch,
+        faults,
+        guard,
+        metrics,
+        rpc,
+        sched_hints,
+    )
+    from adaptdl_tpu_torch.data import AdaptiveDataLoader
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config, synthetic_tokens
+    from adaptdl_tpu_torch.goodput import GoodputFunction, PerfParams
+    from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-guard-")
+    settings = {
+        "ADAPTDL_CHECKPOINT_PATH": ckpt_dir,
+        "ADAPTDL_SUPERVISOR_URL": recorder.url,
+        "ADAPTDL_JOB_ID": SUPERVISED_JOB,
+        "ADAPTDL_FIT_INTERVAL": "2",
+        "ADAPTDL_HEARTBEAT_INTERVAL": "0.5",
+        "ADAPTDL_CKPT_EVERY_STEPS": "2",
+        "ADAPTDL_GUARD_CONFIRM_STEPS": "2",
+        "ADAPTDL_FAULT_SPEC": f"guard.corrupt_grad=fail@{FAULT_AT}",
+    }
+    previous = {k: os.environ.get(k) for k in settings}
+    os.environ.update(settings)
+    for reset in (checkpoint._reset_registry, metrics._reset_state,
+                  epoch._reset_state, guard._reset_state, faults.reset,
+                  rpc.reset_default_client):
+        reset()
+    # Timed wrappers around the two calls whose seconds are reported
+    # (metrics and guard reach them through these module attributes).
+    posts, rollbacks = [], []
+    real_post, real_rollback = sched_hints.post_sched_hints, checkpoint.rollback_to_good
+
+    def timed_post(hints):
+        start = time.perf_counter()
+        ok = real_post(hints)
+        posts.append((ok, time.perf_counter() - start))
+        return ok
+
+    def timed_rollback():
+        start = time.perf_counter()
+        restored = real_rollback()
+        rollbacks.append((restored, time.perf_counter() - start))
+        return restored
+
+    sched_hints.post_sched_hints = timed_post
+    checkpoint.rollback_to_good = timed_rollback
+    try:
+        device = adaptdl_tpu_torch.initialize_job(device="cuda")
+        check(
+            bootstrap._heartbeat_thread is not None
+            and bootstrap._heartbeat_thread.is_alive(),
+            "initialize_job started no heartbeat thread",
+        )
+        config = lm_config(cpu=False, seq_len=512, flash=True)
+        model = init_transformer(config, seed=0, device=device)
+        trainer = ElasticTrainer(
+            lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4),
+            init_batch_size=32, scaling_rule=AdamScale(), precondition="adam",
+            device=device,
+        )
+        trainer.metrics_every = 1
+        holder = {"state": trainer.init_state()}
+        ckpt = trainer.make_checkpoint_state(
+            lambda: holder["state"], lambda s: holder.__setitem__("state", s)
+        )
+        check(not checkpoint.load_state(ckpt), "fresh run found a checkpoint")
+        metrics.ensure_checkpoint_registered()
+        loader = AdaptiveDataLoader(
+            synthetic_tokens(1024, 512, config.vocab_size), batch_size=32
+        )
+        loader.autoscale_batch_size(
+            32, local_bsz_bounds=(16, 32), gradient_accumulation=True
+        )
+        loader._reoptimize_every = 4
+        per_pass = config.num_layers * 2  # forward + remat recompute
+        saved = {}  # checkpoint dir -> what the state was when it was saved
+        steps, rollback_step = [], None
+        served_at = None
+        _build.reset_launches()
+        for _ in epoch.remaining_epochs_until(1):
+            for batch in loader:
+                i = len(steps) + 1
+                saves = len(saved)
+                # A save lands after a step, before the next batch: the
+                # state here is the state it saved.
+                for name in os.listdir(ckpt_dir):
+                    path = os.path.join(ckpt_dir, name)
+                    if name.startswith("checkpoint-") and path not in saved:
+                        saved[path] = {
+                            "checksums": state_checksums(
+                                model, trainer.optimizer, holder["state"].gns
+                            ),
+                            "step": int(holder["state"].step),
+                            "position": (loader.sampler.epoch, loader.sampler.index),
+                        }
+                if i == SERVE_BATCH_CONFIG_AFTER + 1:
+                    recorder.serve_batch_config(
+                        SUPERVISED_JOB, {"atomicBsz": 16, "accumSteps": 1}
+                    )
+                    served_at = time.monotonic()
+                span = loader.current_batch_span()
+                config_now = (loader.current_atomic_bsz, loader.current_accum_steps)
+                before = _build.LAUNCHES[KERNEL_SM90]
+                calibrations = len(trainer._calibrated)
+                rolled = len(rollbacks)
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                holder["state"], m = trainer.run_step(holder["state"], batch, loader)
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - start
+                calibrated = len(trainer._calibrated) - calibrations
+                expected = per_pass * (
+                    config_now[1] + 1 + calibrated * (trainer.calibrate_repeats + 1)
+                )
+                got = _build.LAUNCHES[KERNEL_SM90] - before
+                check(got == expected, f"step {i}: {got} flash launches, expected {expected}")
+                check(_build.LAUNCHES[KERNEL] == 0, f"step {i}: launched {KERNEL}")
+                loss = float(m["loss"])
+                check(math.isfinite(loss), f"step {i}: loss {loss}")
+                steps.append({
+                    "config": config_now, "span": span, "seconds": step_s,
+                    "calibrated": calibrated, "loss": loss,
+                    "after_save": len(saved) > saves,
+                })
+                if len(rollbacks) > rolled:
+                    restored, restore_s = rollbacks[-1]
+                    incident = guard._get_guard().last_incident
+                    check(
+                        i == FAULT_AT and incident["kind"] == "nan_grad"
+                        and incident["action"] == "rollback"
+                        and incident["step"] == FAULT_AT,
+                        f"step {i}: incident {incident}",
+                    )
+                    good = os.path.join(ckpt_dir, restored)
+                    check(
+                        good in saved and checkpoint.is_good_checkpoint(good),
+                        f"rolled back to {restored}, not a good-marked save",
+                    )
+                    want = saved[good]
+                    check(
+                        state_checksums(model, trainer.optimizer, holder["state"].gns)
+                        == want["checksums"]
+                        and int(holder["state"].step) == want["step"],
+                        f"the state after the rollback differs from {restored}",
+                    )
+                    check(
+                        (loader.sampler.epoch, loader.sampler.index)
+                        == want["position"] and loader._skip_ranges == [span],
+                        f"loader at {(loader.sampler.epoch, loader.sampler.index)} "
+                        f"skipping {loader._skip_ranges}, expected "
+                        f"{want['position']} skipping [{span}]",
+                    )
+                    rollback_step = {
+                        "dir": restored, "restore_s": restore_s,
+                        "position": want["position"], "step": want["step"],
+                        "poisoned": span,
+                    }
+                    print(
+                        f"supervised: observation {i} nan_grad -> rolled back "
+                        f"to {restored} (step {want['step']}, position "
+                        f"{want['position']}), checksums equal, skipping "
+                        f"{span}; restore {restore_s:.2f} s",
+                        flush=True,
+                    )
+                if i == SUPERVISED_STEPS:
+                    break
+        launches = {n: _build.LAUNCHES[n] for n in (KERNEL_SM90, KERNEL)}
+        metrics.join_fit()
+        bootstrap.stop_heartbeat()
+        check(
+            faults.hit_count("guard.corrupt_grad") == SUPERVISED_STEPS,
+            f"the guard observed {faults.hit_count('guard.corrupt_grad')} "
+            f"times in {SUPERVISED_STEPS} steps",
+        )
+        # c, e: one rollback, at the fault; 5 more steps, never the
+        # poisoned span.
+        check(rollback_step is not None and len(rollbacks) == 1, f"rollbacks {rollbacks}")
+        after = steps[FAULT_AT:]
+        poisoned = rollback_step["poisoned"]
+        check(
+            len(after) == SUPERVISED_STEPS - FAULT_AT
+            and all(s["span"][1] >= poisoned[2] or s["span"][2] <= poisoned[1]
+                    for s in after),
+            f"steps after the rollback ran spans {[s['span'] for s in after]}",
+        )
+        check(
+            after[0]["span"][1] == rollback_step["position"][1],
+            f"resumed at {after[0]['span']}, saved at {rollback_step['position']}",
+        )
+        # b: (16, 1) from the re-optimisation after serving began.
+        configs = [s["config"] for s in steps]
+        check(configs == SUPERVISED_PLAN, f"configs {configs}")
+        fetched = [
+            r for r in recorder.seen(SUPERVISED_JOB, "config")
+            if r["time"] > served_at
+        ]
+        check(fetched, "no /config fetch after the batchConfig was served")
+        # d: one incident.
+        incidents = recorder.seen(SUPERVISED_JOB, "incident")
+        check(
+            len(incidents) == 1
+            and incidents[0]["body"]["kind"] == "nan_grad"
+            and incidents[0]["body"]["action"] == "rollback"
+            and incidents[0]["body"]["step"] == FAULT_AT,
+            f"incidents {[r['body'] for r in incidents]}",
+        )
+        # a: heartbeats, and hints fitted from this card's step times.
+        beats = recorder.seen(SUPERVISED_JOB, "heartbeat")
+        hints = [r["body"] for r in recorder.seen(SUPERVISED_JOB, "hints")]
+        check(beats, "no heartbeat reached the supervisor")
+        check(
+            not recorder.seen(SUPERVISED_JOB, "hints", status=400)
+            and posts and all(ok for ok, _ in posts),
+            f"hint posts {posts}",
+        )
+        fitted = [h for h in hints if h.get("perfParams") and h.get("gradParams")]
+        check(fitted, f"no accepted hints carried perfParams ({len(hints)} posts)")
+        last = fitted[-1]
+        perf = PerfParams(**last["perfParams"])
+        grad = last["gradParams"]
+        check(
+            all(math.isfinite(v) and v >= 0 for v in perf)
+            and all(math.isfinite(v) for v in grad.values()),
+            f"hint params {last['perfParams']} {grad}",
+        )
+        steady = sorted(
+            s["seconds"] for k, s in enumerate(steps, 1)
+            if s["config"] == (32, 0) and not s["calibrated"] and k != FAULT_AT
+        )
+        step_s = steady[len(steady) // 2]
+        predicted = GoodputFunction(
+            perf, (grad["sqr"], grad["var"]), 32
+        ).throughput(1, 1, 32, 0)
+        check(
+            0.5 <= predicted * step_s / 32 <= 2.0,
+            f"fitted model predicts {predicted:.1f} samples/s, measured "
+            f"{32 / step_s:.1f}",
+        )
+        latency = sorted(dt for _, dt in posts)
+        print(
+            f"supervised: {len(beats)} heartbeats, {len(hints)} hint posts "
+            f"accepted ({len(fitted)} with fitted params: predicted "
+            f"{predicted:.1f} samples/s at (32, 0), measured {32 / step_s:.1f}); "
+            f"hint-post latency median {latency[len(latency) // 2] * 1e3:.1f} ms, "
+            f"max {latency[-1] * 1e3:.1f} ms over {len(latency)} posts; "
+            f"(16, 1) adopted at step {configs.index((16, 1)) + 1}; incident "
+            f"{incidents[0]['body']}"
+        )
+        print(
+            f"supervised: step {step_s * 1e3:.1f} ms (median of {len(steady)} "
+            f"accum-0 steps) against phase 4's {main_step_s * 1e3:.1f} ms; "
+            f"rollback restore {rollback_step['restore_s']:.2f} s; losses "
+            f"{[round(s['loss'], 4) for s in steps]}"
+        )
+        print(
+            "supervised: step times ms (* after a save) "
+            + str([f"{s['seconds'] * 1e3:.1f}{'*' if s['after_save'] else ''}"
+                   for s in steps])
+        )
+        check(launches[KERNEL_SM90] > 0 and launches[KERNEL] == 0, f"launches {launches}")
+        for row in kernel_rows:
+            row["supervised_launches"] = launches[row["name"]]
+    finally:
+        sched_hints.post_sched_hints = real_post
+        checkpoint.rollback_to_good = real_rollback
+        bootstrap.stop_heartbeat()
+        metrics.join_fit()
+        faults.reset()
+        for k, v in previous.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -915,8 +1435,14 @@ def main():
     smi = phase_device()
     phase_build()
     kernel_rows = phase_flash()
-    phase_main_path(kernel_rows)
-    phase_multi_replica(kernel_rows)
+    main_step_s = phase_main_path(kernel_rows)
+    recorder = SupervisorRecorder({PAIR_JOB: ["slot-0"] * 2, SUPERVISED_JOB: ["slot-0"]})
+    recorder.start()
+    try:
+        phase_multi_replica(kernel_rows, recorder)
+        phase_supervised(kernel_rows, recorder, main_step_s)
+    finally:
+        recorder.stop()
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

@@ -1,7 +1,9 @@
 """The port stands alone: importing ``adaptdl_tpu_torch`` (every module)
-and ``chip_smoke.py`` loads neither JAX nor the JAX package, no source
-of either imports them, and the entry points refuse to run anywhere but
-where they were asked to (CUDA by default)."""
+and ``chip_smoke.py``, and running ``initialize_job`` under a supervisor
+(a stub that answers every request), loads neither JAX, the JAX package,
+``requests`` nor ``aiohttp`` (the card's machine has neither of the
+last two); no source imports them, and the entry points refuse to run
+anywhere but where they were asked to (CUDA by default)."""
 
 import ast
 import os
@@ -14,7 +16,10 @@ import torch
 from tests.torch_support import private_tempdir  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "adaptdl_tpu"}
+FORBIDDEN = {
+    "jax", "jaxlib", "flax", "optax", "orbax", "adaptdl_tpu", "requests",
+    "aiohttp",
+}
 
 
 def _port_sources():
@@ -25,12 +30,24 @@ def _port_sources():
 
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys, time\n"
         "import adaptdl_tpu_torch\n"
         "for m in pkgutil.walk_packages(adaptdl_tpu_torch.__path__, "
         "'adaptdl_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        # A supervisor that answers 200 to everything, in a thread.
+        "recorder = chip_smoke.SupervisorRecorder({'ns/job': ['slot-0']})\n"
+        "os.environ.update(ADAPTDL_SUPERVISOR_URL=recorder.start(), "
+        "ADAPTDL_JOB_ID='ns/job', ADAPTDL_HEARTBEAT_INTERVAL='0.05')\n"
+        "from adaptdl_tpu_torch import bootstrap, guard, metrics, sched_hints\n"
+        "bootstrap.initialize_job(device='cpu')\n"
+        "assert sched_hints.fetch_job_config()['allocation'] == ['slot-0']\n"
+        "assert guard.post_incident('nan_loss', step=1)\n"
+        "time.sleep(0.2)\n"
+        "bootstrap.stop_heartbeat()\n"
+        "recorder.stop()\n"
+        "assert recorder.seen('ns/job', 'heartbeat')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -84,9 +101,11 @@ def test_unported_job_settings_raise(monkeypatch):
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch.examples import transformer_lm
 
+    # A supervisor is no longer among them: with no job id there is
+    # nothing to register or beat for, and the job starts.
     monkeypatch.setenv("ADAPTDL_SUPERVISOR_URL", "http://localhost:1")
-    with pytest.raises(NotImplementedError, match="supervisor"):
-        adaptdl_tpu_torch.initialize_job(device="cpu")
+    monkeypatch.delenv("ADAPTDL_JOB_ID", raising=False)
+    assert adaptdl_tpu_torch.initialize_job(device="cpu") == torch.device("cpu")
     monkeypatch.delenv("ADAPTDL_SUPERVISOR_URL")
     monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "2")
     with pytest.raises(NotImplementedError, match="multi-replica"):

@@ -4,6 +4,8 @@
         parity DIR
     python -m adaptdl_tpu_torch.launch tests/torch_replica_worker.py \
         elastic DIR [--preempt-after K --preempt-rank R] [--autoscale]
+    python -m adaptdl_tpu_torch.launch tests/torch_replica_worker.py \
+        guarded DIR [--pod-ips ADDR0,ADDR1,...]
 
 Each rank joins the process group on the CPU through ``initialize_job``
 and writes what it saw to ``DIR/rank{r}...``. It imports neither JAX nor
@@ -17,6 +19,12 @@ the JAX package: the launcher starts it as a fresh interpreter.
   AdaptiveDataLoader, remaining_epochs_until and an Accumulator) that
   restores from ``ADAPTDL_CHECKPOINT_PATH``; with ``--preempt-after``
   rank R alone raises the exit flag after K of its steps.
+- ``guarded``: the same linear regression for one epoch with the guard
+  graded at every step (``metrics_every`` 1), under whatever supervisor,
+  save cadence and fault schedule the environment sets; each rank
+  records every step's loss, state checksum, position and rollbacks,
+  and the host its process group was joined at. With ``--pod-ips``
+  rank r registers the r-th address as its own (``ADAPTDL_POD_IP``).
 """
 
 import argparse
@@ -27,7 +35,7 @@ import numpy as np
 import torch
 
 import adaptdl_tpu_torch
-from adaptdl_tpu_torch import _signal, checkpoint, env, epoch, metrics
+from adaptdl_tpu_torch import _signal, checkpoint, collective, env, epoch, metrics
 
 # The parity model and step (tests/test_torch_multi_replica.py holds the
 # JAX trainer to the same values).
@@ -170,16 +178,100 @@ def elastic(out_dir, preempt_after, preempt_rank, autoscale):
             json.dump(report, f)
 
 
+def _state_values(model, optimizer, state):
+    """Every float of the parameters, Adam's moments and the noise
+    statistics, in a fixed order: equal lists mean equal states."""
+    tensors = list(model.parameters())
+    for p in optimizer.params():
+        tensors += [optimizer.state[p][k] for k in ("exp_avg", "exp_avg_sq")]
+    fields = state.gns.tensors()
+    tensors += fields.pop("prev_grad") + list(fields.values())
+    return [float(x) for t in tensors for x in t.detach().float().reshape(-1)]
+
+
+def guarded(out_dir, pod_ips):
+    from adaptdl_tpu_torch import guard
+    from adaptdl_tpu_torch.data import AdaptiveDataLoader
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    rank = env.process_rank()
+    if pod_ips:
+        os.environ["ADAPTDL_POD_IP"] = pod_ips.split(",")[rank]
+    joined = {}
+    join = collective.initialize
+
+    def recorded_join(addr, port, **kwargs):
+        joined["host"] = addr
+        return join(addr, port, **kwargs)
+
+    collective.initialize = recorded_join
+    device = adaptdl_tpu_torch.initialize_job(device="cpu")
+    torch.manual_seed(0)
+    model = torch.nn.Linear(4, 1)
+    trainer = ElasticTrainer(
+        _mse, model, AdamW(model.parameters(), lr=0.1),
+        init_batch_size=32, scaling_rule=AdamScale(), device=device,
+    )
+    trainer.metrics_every = 1
+    holder = {"state": trainer.init_state()}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s)
+    )
+    checkpoint.load_state(ckpt)
+    metrics.ensure_checkpoint_registered()
+    loader = AdaptiveDataLoader(_dataset(), batch_size=32)
+    report = {
+        "rank": rank, "group_host": joined.get("host"), "steps": [],
+        "hint_posts": [],
+    }
+    post = metrics.sched_hints.post_sched_hints
+
+    def counted_post(hints):
+        ok = post(hints)
+        report["hint_posts"].append(ok)
+        return ok
+
+    metrics.sched_hints.post_sched_hints = counted_post
+    try:
+        for _ in epoch.remaining_epochs_until(1):
+            for batch in loader:
+                span = loader.current_batch_span()
+                holder["state"], m = trainer.run_step(
+                    holder["state"], batch, loader
+                )
+                report["steps"].append({
+                    "span": list(span),
+                    "loss": float(m["loss"]),
+                    "rollbacks": guard._get_guard().rollbacks,
+                    "step": int(holder["state"].step),
+                    "position": [loader.sampler.epoch, loader.sampler.index],
+                    "values": _state_values(
+                        model, trainer.optimizer, holder["state"]
+                    ),
+                })
+        metrics.join_fit()
+    finally:
+        report["skip_ranges"] = [list(r) for r in loader._skip_ranges]
+        report["guard"] = guard.guard_stats()
+        with open(os.path.join(out_dir, f"guarded-rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+
+
 def main():
     parser = argparse.ArgumentParser()
-    parser.add_argument("mode", choices=("parity", "elastic"))
+    parser.add_argument("mode", choices=("parity", "elastic", "guarded"))
     parser.add_argument("out_dir")
     parser.add_argument("--preempt-after", type=int, default=None)
     parser.add_argument("--preempt-rank", type=int, default=1)
     parser.add_argument("--autoscale", action="store_true")
+    parser.add_argument("--pod-ips", default=None)
     args = parser.parse_args()
     if args.mode == "parity":
         parity(args.out_dir)
+    elif args.mode == "guarded":
+        guarded(args.out_dir, args.pod_ips)
     else:
         elastic(
             args.out_dir, args.preempt_after, args.preempt_rank,
