@@ -2,11 +2,13 @@
 
 The port of ``adaptdl_tpu`` (JAX, TPU) to PyTorch on NVIDIA Hopper. It
 imports nothing of the JAX package; the JAX package stays the reference
-it is tested against. It covers the elastic data-parallel training path
-of the transformer LM: ``initialize_job`` -> ``data.AdaptiveDataLoader``
--> ``trainer.ElasticTrainer.run_step``, at one replica or at several (one
-process each, started by ``python -m adaptdl_tpu_torch.launch``), with
-flash attention as a hand-written sm_90a CUDA kernel (``ops``).
+it is tested against. It covers the elastic data-parallel training path:
+``initialize_job`` -> ``data.AdaptiveDataLoader`` ->
+``trainer.ElasticTrainer.run_step``, at one replica or at several (one
+process each, started by ``python -m adaptdl_tpu_torch.launch``), for the
+transformer LM (flash attention as a hand-written sm_90a CUDA kernel,
+``ops``) and the model zoo (``models``: ResNet-18, SmallCNN, NeuMF,
+DCGAN, the BERT-style MLM encoder) under SGD, Adam or AdamW.
 """
 
 __all__ = ["initialize_job"]

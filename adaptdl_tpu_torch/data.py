@@ -53,14 +53,20 @@ SPEEDUP_THRESHOLD = 1.05
 _current_dataloader: "AdaptiveDataLoader | None" = None
 
 
-def bucket_atomic_bsz(atomic_bsz: int) -> int:
+def _grid_step(atomic_bsz: int) -> int:
+    return 1 if atomic_bsz <= 8 else 8 if atomic_bsz <= 128 else 64
+
+
+def bucket_atomic_bsz(atomic_bsz: int, minimum: int = 1) -> int:
     """Round a candidate atomic batch size DOWN onto the bucket grid,
-    keeping every cap the goodput optimizer already enforced."""
-    if atomic_bsz <= 8:
-        return max(int(atomic_bsz), 1)
-    if atomic_bsz <= 128:
-        return int(atomic_bsz // 8 * 8)
-    return int(atomic_bsz // 64 * 64)
+    keeping every cap the goodput optimizer already enforced; where that
+    falls below ``minimum``, round ``minimum`` UP onto the grid instead."""
+    step = _grid_step(atomic_bsz)
+    bucket = max(int(atomic_bsz) // step * step, 1)
+    if bucket >= minimum:
+        return bucket
+    step = _grid_step(minimum)
+    return -(-int(minimum) // step) * step
 
 
 class ElasticSampler:
@@ -225,7 +231,13 @@ class AdaptiveDataLoader:
             atomic_bsz_range=self._local_bsz_bounds,
             accumulation=self._gradient_accumulation,
         )
-        atomic_bsz = bucket_atomic_bsz(int(atomic_bsz))
+        # Rounding down alone may take the global batch below the initial
+        # one, where the goodput model is not defined (the JAX loader
+        # fails an assertion there, ROADMAP Queue 3).
+        atomic_bsz = bucket_atomic_bsz(
+            int(atomic_bsz),
+            minimum=-(-self.batch_size // (num_replicas * (int(accum_steps) + 1))),
+        )
         if self._local_bsz_bounds is not None:
             atomic_bsz = int(np.clip(atomic_bsz, *self._local_bsz_bounds))
         candidate_goodput = goodput_fn(

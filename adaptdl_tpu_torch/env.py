@@ -39,6 +39,16 @@ def checkpoint_path() -> str | None:
     return _get_str("ADAPTDL_CHECKPOINT_PATH")
 
 
+def share_path() -> str | None:
+    """Shared scratch directory (tensorboard output and the like)."""
+    return _get_str("ADAPTDL_SHARE_PATH")
+
+
+def tensorboard_logdir() -> str | None:
+    """Where the examples write TensorBoard event files."""
+    return _get_str("ADAPTDL_TENSORBOARD_LOGDIR")
+
+
 def replica_rank() -> int:
     """This replica's rank in [0, num_replicas)."""
     return _get_int("ADAPTDL_REPLICA_RANK", 0)

@@ -19,16 +19,7 @@ from __future__ import annotations
 
 import argparse
 
-import numpy as np
-
-
-def synthetic_tokens(n: int, seq_len: int, vocab: int, seed: int = 0):
-    """Deterministic arithmetic sequences: a fully learnable LM task."""
-    rng = np.random.default_rng(seed)
-    start = rng.integers(0, vocab, size=(n, 1))
-    stride = rng.integers(1, 4, size=(n, 1))
-    seqs = (start + stride * np.arange(seq_len + 1)[None, :]) % vocab
-    return {"tokens": seqs.astype(np.int32)}
+from adaptdl_tpu_torch.examples._data import synthetic_tokens
 
 
 def lm_config(cpu: bool, seq_len: int, flash: bool):

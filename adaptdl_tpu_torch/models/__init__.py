@@ -1,15 +1,43 @@
-"""Models of the port."""
+"""Models of the port: the transformer LM and the model zoo (SmallCNN,
+ResNet18, NeuMF, DCGAN), each with an init helper and a loss of the
+trainer's ``loss_fn(model, batch, generator)`` form."""
 
+from adaptdl_tpu_torch.models.cnn import SmallCNN, cnn_loss_fn, init_cnn
+from adaptdl_tpu_torch.models.dcgan import (
+    Discriminator,
+    Generator,
+    discriminator_loss_fn,
+    init_dcgan,
+    make_generator_step,
+)
+from adaptdl_tpu_torch.models.ncf import NeuMF, init_ncf, ncf_loss_fn
+from adaptdl_tpu_torch.models.resnet import ResNet18, init_resnet18, resnet_loss_fn
 from adaptdl_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
     init_transformer,
     lm_loss_fn,
+    mlm_loss_fn,
 )
 
 __all__ = [
+    "Discriminator",
+    "Generator",
+    "NeuMF",
+    "ResNet18",
+    "SmallCNN",
     "TransformerConfig",
     "TransformerLM",
+    "cnn_loss_fn",
+    "discriminator_loss_fn",
+    "init_cnn",
+    "init_dcgan",
+    "init_ncf",
+    "init_resnet18",
     "init_transformer",
     "lm_loss_fn",
+    "make_generator_step",
+    "mlm_loss_fn",
+    "ncf_loss_fn",
+    "resnet_loss_fn",
 ]

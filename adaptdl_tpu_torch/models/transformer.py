@@ -41,8 +41,11 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     # attention_fn(q, k, v) -> out over [batch, heads, seq, head_dim];
-    # None selects plain causal attention.
+    # None selects plain attention, causal unless ``causal`` is False.
     attention_fn: Callable | None = None
+    # causal=False gives bidirectional (encoder, BERT-style) attention
+    # on the plain path; the MLM objective (mlm_loss_fn) needs it.
+    causal: bool = True
     # Mixture-of-experts blocks belong to a later slice of the port.
     moe_every_n: int = 0
     moe_num_experts: int = 0
@@ -132,8 +135,10 @@ class Attention(nn.Module):
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))
         q = rope(q, positions)
         k = rope(k, positions)
-        attn = cfg.attention_fn or causal_attention
-        out = attn(q, k, v)  # [b, h, s, d]
+        if cfg.attention_fn is not None:
+            out = cfg.attention_fn(q, k, v)  # [b, h, s, d]
+        else:
+            out = causal_attention(q, k, v, causal=cfg.causal)
         out = out.transpose(1, 2).reshape(batch, seq, cfg.d_model)
         return _dense(out, self.out.weight, cfg.dtype)
 
@@ -214,11 +219,44 @@ def init_transformer(
     return model.to(device)
 
 
-def lm_loss_fn(model: TransformerLM, batch) -> torch.Tensor:
+def lm_loss_fn(model: TransformerLM, batch, generator=None) -> torch.Tensor:
     """Next-token cross-entropy, the mean over every position;
-    batch = {"tokens": [b, s+1] int}."""
+    batch = {"tokens": [b, s+1] int}. Draws nothing from
+    ``generator``."""
     tokens = batch["tokens"]
     logits = model(tokens[:, :-1])
     return F.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1).long()
     )
+
+
+def mlm_loss_fn(mask_token: int, mask_rate: float = 0.15) -> Callable:
+    """Masked-LM cross-entropy (the BERT-family objective), for a
+    ``TransformerConfig(causal=False)`` model: each step masks
+    ``mask_rate`` of the tokens, a fresh mask from the microbatch's
+    generator, replaces them by ``mask_token`` and scores only the
+    masked positions (a mean over them; zero when none is masked).
+    batch = {"tokens": [b, s] int}."""
+
+    def loss_fn(model: TransformerLM, batch, generator) -> torch.Tensor:
+        tokens = batch["tokens"]
+        draws = torch.rand(
+            tokens.shape, generator=generator, device=tokens.device
+        )
+        return masked_lm_loss(model, tokens, draws < mask_rate, mask_token)
+
+    return loss_fn
+
+
+def masked_lm_loss(model: TransformerLM, tokens, mask, mask_token: int):
+    """The MLM loss of ``tokens`` with the positions in ``mask`` (bool,
+    the tokens' shape) replaced by ``mask_token``."""
+    inputs = torch.where(mask, mask_token, tokens)
+    logits = model(inputs)
+    losses = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]),
+        tokens.reshape(-1).long(),
+        reduction="none",
+    )
+    weights = mask.reshape(-1).float()
+    return (losses * weights).sum() / torch.clamp(weights.sum(), min=1.0)

@@ -21,6 +21,13 @@ Everything stays on the device; ``run_step`` reads the statistics back
 to the host only every ``metrics_every`` steps, where the numeric-health
 guard grades them (and may roll the job back to its last-known-good
 checkpoint).
+
+Each microbatch gets its own ``torch.Generator`` for dropout and masks,
+as the JAX step folds the step and replica index into its key and splits
+one key per microbatch: seeded from the trainer's seed, the step, the
+microbatch index and the replica rank, so a restart (which restores the
+step and the seed) draws the same numbers. The two packages' random
+streams differ; only the port's own draws repeat.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from torch.profiler import record_function
 
 from adaptdl_tpu_torch import checkpoint, collective, env, gns, guard, metrics
 from adaptdl_tpu_torch.device import resolve_device
-from adaptdl_tpu_torch.optim import AdamW
+from adaptdl_tpu_torch.optim import SGD, AdamW
 from adaptdl_tpu_torch.scaling_rules import RuleContext, ScalingRule
 
 # Profiler ranges of the step's three phases (examples/profile_step.py
@@ -51,10 +58,14 @@ class TrainState:
     (which update in place)."""
 
     model: torch.nn.Module
-    optimizer: AdamW
+    optimizer: SGD | AdamW
     gns: gns.GNSState
     progress: torch.Tensor  # scale-invariant steps (advanced by gain)
     step: torch.Tensor  # raw optimizer steps taken
+    # The random draws' seed and ``step`` kept on the host, so that
+    # seeding a microbatch's generator reads nothing from the device.
+    seed: int = 0
+    host_step: int = 0
 
 
 def _sync(device: torch.device) -> None:
@@ -62,20 +73,47 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# The step index of the generator calibration runs draw from: no real
+# step has it, so a calibration repeats no training draw.
+CALIBRATION_STEP = 2**62
+
+
+def microbatch_generator(
+    device: torch.device, seed: int, step: int, micro: int, rank: int
+) -> torch.Generator:
+    """The generator of microbatch ``micro`` of ``step`` on replica
+    ``rank``: a fresh generator on ``device`` seeded by a hash of the
+    four integers."""
+    entropy = np.random.SeedSequence([seed, step, micro, rank])
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(entropy.generate_state(1, np.uint64)[0]))
+    return generator
+
+
 class ElasticTrainer:
     """Runs elastic data-parallel training steps.
 
     Args:
-      loss_fn: ``loss_fn(model, batch) -> scalar`` mean loss over the
-        batch (a dict of tensors with a common leading dim).
+      loss_fn: ``loss_fn(model, batch, generator) -> scalar`` mean loss
+        over the batch (a dict of tensors with a common leading dim);
+        ``generator`` is the microbatch's ``torch.Generator`` for
+        dropout and masks. With ``has_aux``, ``loss_fn(model, batch,
+        generator, aux)``.
       model: the ``nn.Module`` to train, already on ``device``.
-      optimizer: an :class:`adaptdl_tpu_torch.optim.AdamW` over
-        ``model.parameters()``, in the model's parameter order.
+      optimizer: an :mod:`adaptdl_tpu_torch.optim` optimizer (``SGD``,
+        ``Adam`` or ``AdamW``) over ``model.parameters()``, in the
+        model's parameter order.
       init_batch_size: the batch size the LR was tuned for.
-      scaling_rule: LR rule; default applies no scaling.
+      scaling_rule: LR rule; default applies no scaling. AdaScale for
+        SGD, AdamScale for the Adam family.
       precondition: None or "adam" (precondition the noise statistics
-        by Adam's second moments).
+        by Adam's second moments; the optimizer must keep them).
       smoothing: GNS EMA retention per unit scale.
+      seed: seeds every microbatch's generator (with the step, the
+        microbatch index and the replica rank).
+      has_aux: the step takes one more input, the same on every
+        replica and not split into microbatches, forwarded to the loss
+        (a GAN's generator, a teacher model).
       device: where the step runs; "cuda" (default) raises without CUDA.
 
     Each of ``ADAPTDL_NUM_REPLICAS`` replicas is one process of the
@@ -91,11 +129,13 @@ class ElasticTrainer:
         self,
         loss_fn: Callable,
         model: torch.nn.Module,
-        optimizer: AdamW,
+        optimizer: SGD | AdamW,
         init_batch_size: int,
         scaling_rule: ScalingRule | None = None,
         precondition: str | None = None,
         smoothing: float = 0.999,
+        seed: int = 0,
+        has_aux: bool = False,
         device="cuda",
         zero1: bool = False,
         zero3: bool = False,
@@ -133,6 +173,11 @@ class ElasticTrainer:
             )
         if precondition not in (None, "adam"):
             raise ValueError(f"unknown precondition: {precondition!r}")
+        if precondition == "adam" and not hasattr(optimizer, "second_moments"):
+            raise ValueError(
+                'precondition="adam" needs an optimizer with second moments '
+                f"(Adam or AdamW), not {type(optimizer).__name__}"
+            )
         self.device = resolve_device(device)
         named = list(model.named_parameters())
         self._params = [p for _, p in named]
@@ -154,6 +199,8 @@ class ElasticTrainer:
         self.scaling_rule = scaling_rule or ScalingRule()
         self.precondition = precondition
         self.smoothing = smoothing
+        self.seed = seed
+        self.has_aux = has_aux
         self.num_replicas = num_replicas
         metrics.set_active_topology()
         self._calibrated: set[int] = set()
@@ -174,6 +221,7 @@ class ElasticTrainer:
             gns=gns.init(self._params, self.num_param_groups),
             progress=zero.clone(),
             step=zero.to(torch.int64),
+            seed=self.seed,
         )
 
     def to_device(self, batch: dict) -> dict:
@@ -192,24 +240,31 @@ class ElasticTrainer:
         ]
 
     def train_step(self, atomic_bsz: int, accum_steps: int = 0) -> Callable:
-        """``(state, batch) -> (state, metrics)`` for this replica's
-        block (on the device) of ``(accum_steps + 1) * atomic_bsz`` rows
-        of the global batch; microbatch ``i`` is its ``i``-th run of
-        ``atomic_bsz`` rows."""
+        """``(state, batch[, aux]) -> (state, metrics)`` for this
+        replica's block (on the device) of ``(accum_steps + 1) *
+        atomic_bsz`` rows of the global batch; microbatch ``i`` is its
+        ``i``-th run of ``atomic_bsz`` rows. ``aux`` (with ``has_aux``)
+        reaches every microbatch's loss whole."""
 
-        def step(state: TrainState, batch: dict):
-            return self._step(state, batch, atomic_bsz, accum_steps)
+        def step(state: TrainState, batch: dict, aux: Any = None):
+            return self._step(state, batch, atomic_bsz, accum_steps, aux)
 
         return step
 
+    def _loss(self, micro: dict, generator: torch.Generator, aux: Any):
+        if self.has_aux:
+            return self.loss_fn(self.model, micro, generator, aux)
+        return self.loss_fn(self.model, micro, generator)
+
     def _step(self, state: TrainState, batch: dict, atomic_bsz: int,
-              accum_steps: int):
+              accum_steps: int, aux: Any = None):
         num_micro = accum_steps + 1
         count = self.num_replicas * num_micro
         accum_scale = self.num_replicas * atomic_bsz / self.init_batch_size
         scale = accum_scale * num_micro
         batch_size = self.num_replicas * num_micro * atomic_bsz
         precond = self._precond()
+        rank = env.replica_rank()
         grad_sum = None
         lsqr_sum = torch.zeros(self.num_param_groups, device=self.device)
         loss_sum = torch.zeros((), device=self.device)
@@ -219,7 +274,10 @@ class ElasticTrainer:
                     k: v[i * atomic_bsz : (i + 1) * atomic_bsz]
                     for k, v in batch.items()
                 }
-                loss = self.loss_fn(self.model, micro)
+                generator = microbatch_generator(
+                    self.device, state.seed, state.host_step, i, rank
+                )
+                loss = self._loss(micro, generator, aux)
                 grads = [
                     g.float()
                     for g in torch.autograd.grad(loss, self._params)
@@ -275,6 +333,7 @@ class ElasticTrainer:
             gns=new_gns,
             progress=state.progress + step_gain,
             step=state.step + 1,
+            host_step=state.host_step + 1,
         )
         return new_state, {
             "loss": loss,
@@ -286,7 +345,9 @@ class ElasticTrainer:
             "scale": torch.tensor(scale, device=self.device),
         }
 
-    def calibrate_accum_time(self, host_batch: Any, atomic_bsz: int) -> float:
+    def calibrate_accum_time(
+        self, host_batch: Any, atomic_bsz: int, aux: Any = None
+    ) -> float:
         """Time one microbatch forward and backward with no gradient
         sync (the best of ``calibrate_repeats`` runs after a warm-up)
         and record it for the performance model. ``host_batch`` is this
@@ -295,9 +356,12 @@ class ElasticTrainer:
         micro = self.to_device(
             {k: v[:local_rows] for k, v in host_batch.items()}
         )
+        generator = microbatch_generator(
+            self.device, self.seed, CALIBRATION_STEP, 0, env.replica_rank()
+        )
 
         def run():
-            loss = self.loss_fn(self.model, micro)
+            loss = self._loss(micro, generator, aux)
             grads = torch.autograd.grad(loss, self._params)
             return gns.normsqr(grads) + loss.detach()
 
@@ -312,13 +376,17 @@ class ElasticTrainer:
         metrics.profile_accum_time(atomic_bsz, best)
         return best
 
-    def run_step(self, state: TrainState, host_batch: Any, dataloader):
+    def run_step(
+        self, state: TrainState, host_batch: Any, dataloader, aux: Any = None
+    ):
         """One elastic step wired to the dataloader's current config:
         calibrates new batch sizes, runs the step, and every
         ``metrics_every`` steps feeds the noise statistics and progress
         back to the metrics engine and lets the numeric-health guard
-        grade the step. After a guard rollback it returns the restored
-        state (the one the trainer's checkpoint state just set)."""
+        grade the step. ``aux`` is forwarded to the loss when the
+        trainer was built with ``has_aux=True``. After a guard rollback
+        it returns the restored state (the one the trainer's checkpoint
+        state just set)."""
         if env.num_replicas() != self.num_replicas:
             raise RuntimeError(
                 f"ADAPTDL_NUM_REPLICAS={env.num_replicas()} but the "
@@ -327,10 +395,10 @@ class ElasticTrainer:
         atomic_bsz = dataloader.current_atomic_bsz
         accum_steps = dataloader.current_accum_steps
         if atomic_bsz not in self._calibrated:
-            self.calibrate_accum_time(host_batch, atomic_bsz)
+            self.calibrate_accum_time(host_batch, atomic_bsz, aux)
             self._calibrated.add(atomic_bsz)
         state, out = self.train_step(atomic_bsz, accum_steps)(
-            state, self.to_device(host_batch)
+            state, self.to_device(host_batch), aux
         )
         self._steps_since_pull += 1
         if self._steps_since_pull >= self.metrics_every:
@@ -382,6 +450,7 @@ class TrainerCheckpoint(checkpoint.State):
                 "gns": fields,
                 "progress": state.progress,
                 "step": state.step,
+                "seed": state.seed,
             },
             fileobj,
         )
@@ -401,6 +470,8 @@ class TrainerCheckpoint(checkpoint.State):
             gns=restored,
             progress=payload["progress"].to(device),
             step=payload["step"].to(device),
+            seed=payload.get("seed", state.seed),
+            host_step=int(payload["step"]),
         )
         self._set_state(new_state)
         self._trainer._restored_state = new_state

@@ -1,7 +1,24 @@
-"""Carry the JAX transformer's parameters into the port.
+"""Carry the JAX models' parameters into the port.
 
-The flax parameter tree, as nested dicts of numpy arrays, becomes the
-``state_dict`` of :class:`adaptdl_tpu_torch.models.TransformerLM`:
+Each converter takes a flax parameter tree, as nested dicts of numpy
+arrays, and returns the ``state_dict`` of the port's model. The layer
+rules:
+
+- ``nn.Dense`` kernels are ``[in, out]``; ``Linear`` weights
+  ``[out, in]``.
+- ``nn.Conv`` kernels are HWIO; ``F.conv2d`` takes OIHW.
+- ``nn.ConvTranspose`` kernels ``[kh, kw, in, out]`` are correlated
+  unflipped (``transpose_kernel=False``); ``F.conv_transpose2d`` takes
+  ``[in, out, kh, kw]`` and correlates flipped, so the kernel is
+  flipped in space and transposed.
+- ``nn.GroupNorm`` scale and bias and ``nn.Embed`` tables carry over.
+- A dense layer fed by an NHWC flatten (SmallCNN, the discriminator)
+  has rows in ``(h, w, c)`` order; the port flattens NCHW, ``(c, h,
+  w)``, so the rows are permuted. A dense output reshaped NHWC (the
+  generator) has its columns, and its bias, permuted the same way.
+
+The transformer's tree maps onto :class:`adaptdl_tpu_torch.models.
+TransformerLM` as follows:
 
 ================================  ===================================
 flax                              port
@@ -17,7 +34,6 @@ flax                              port
 ``layer_i/ff_down/kernel``        ``layers.i.ff_down.weight``
 ================================  ===================================
 
-Flax dense kernels are ``[in, out]``; ``Linear`` weights ``[out, in]``.
 """
 
 from __future__ import annotations
@@ -56,4 +72,125 @@ def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
             np.asarray(p["ff_down"]["kernel"]).T
         )
         layer += 1
+    return state
+
+
+def dense(p, prefix: str) -> dict[str, torch.Tensor]:
+    """``nn.Dense`` -> ``{prefix}.weight`` (and ``.bias``)."""
+    state = {prefix + ".weight": _tensor(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        state[prefix + ".bias"] = _tensor(p["bias"])
+    return state
+
+
+def conv(p, prefix: str) -> dict[str, torch.Tensor]:
+    """``nn.Conv`` (HWIO) -> OIHW ``{prefix}.weight`` (and ``.bias``)."""
+    state = {
+        prefix + ".weight": _tensor(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    }
+    if "bias" in p:
+        state[prefix + ".bias"] = _tensor(p["bias"])
+    return state
+
+
+def conv_transpose(p, prefix: str) -> dict[str, torch.Tensor]:
+    """``nn.ConvTranspose`` ``[kh, kw, in, out]`` -> the flipped
+    ``[in, out, kh, kw]`` weight of :class:`~adaptdl_tpu_torch.models.
+    layers.ConvTranspose2d`."""
+    kernel = np.asarray(p["kernel"])[::-1, ::-1]
+    return {prefix + ".weight": _tensor(kernel.transpose(2, 3, 0, 1).copy())}
+
+
+def group_norm(p, prefix: str) -> dict[str, torch.Tensor]:
+    return {prefix + ".scale": _tensor(p["scale"]), prefix + ".bias": _tensor(p["bias"])}
+
+
+def embed(p, prefix: str) -> dict[str, torch.Tensor]:
+    return {prefix + ".weight": _tensor(p["embedding"])}
+
+
+def dense_after_nhwc_flatten(p, prefix: str, channels: int):
+    """A dense layer whose input is an NHWC map flattened: its rows
+    permuted from ``(h, w, c)`` to ``(c, h, w)`` order (square maps)."""
+    kernel = np.asarray(p["kernel"])
+    side = int(round((kernel.shape[0] // channels) ** 0.5))
+    rows = kernel.reshape(side, side, channels, -1).transpose(2, 0, 1, 3)
+    return dense({"kernel": rows.reshape(kernel.shape), "bias": p["bias"]}, prefix)
+
+
+def dense_before_nhwc_reshape(p, prefix: str, channels: int):
+    """A dense layer whose output is reshaped to an NHWC map: its
+    columns and bias permuted from ``(h, w, c)`` to ``(c, h, w)``."""
+    kernel = np.asarray(p["kernel"])
+    side = int(round((kernel.shape[1] // channels) ** 0.5))
+    cols = kernel.reshape(-1, side, side, channels).transpose(0, 3, 1, 2)
+    bias = np.asarray(p["bias"]).reshape(side, side, channels).transpose(2, 0, 1)
+    return dense(
+        {"kernel": cols.reshape(kernel.shape), "bias": bias.reshape(-1)}, prefix
+    )
+
+
+def resnet18_state_dict(params) -> dict[str, torch.Tensor]:
+    """The port's ``ResNet18`` state for a flax ``ResNet18`` tree."""
+    state = {**conv(params["Conv_0"], "stem"),
+             **group_norm(params["GroupNorm_0"], "stem_norm")}
+    block = 0
+    while f"ResidualBlock_{block}" in params:
+        p, prefix = params[f"ResidualBlock_{block}"], f"blocks.{block}."
+        state.update(conv(p["Conv_0"], prefix + "conv1"))
+        state.update(group_norm(p["GroupNorm_0"], prefix + "norm1"))
+        state.update(conv(p["Conv_1"], prefix + "conv2"))
+        state.update(group_norm(p["GroupNorm_1"], prefix + "norm2"))
+        if "Conv_2" in p:
+            state.update(conv(p["Conv_2"], prefix + "proj"))
+            state.update(group_norm(p["GroupNorm_2"], prefix + "proj_norm"))
+        block += 1
+    state.update(dense(params["Dense_0"], "head"))
+    return state
+
+
+def cnn_state_dict(params) -> dict[str, torch.Tensor]:
+    """The port's ``SmallCNN`` state for a flax ``SmallCNN`` tree."""
+    return {
+        **conv(params["Conv_0"], "conv1"),
+        **conv(params["Conv_1"], "conv2"),
+        **dense_after_nhwc_flatten(params["Dense_0"], "fc1", channels=64),
+        **dense(params["Dense_1"], "fc2"),
+    }
+
+
+def ncf_state_dict(params) -> dict[str, torch.Tensor]:
+    """The port's ``NeuMF`` state for a flax ``NeuMF`` tree."""
+    state = {}
+    for name in ("gmf_user", "gmf_item", "mlp_user", "mlp_item"):
+        state.update(embed(params[name], name))
+    denses = sorted(
+        (k for k in params if k.startswith("Dense_")),
+        key=lambda k: int(k.split("_")[1]),
+    )
+    for i, name in enumerate(denses[:-1]):
+        state.update(dense(params[name], f"tower.{i}"))
+    state.update(dense(params[denses[-1]], "out"))
+    return state
+
+
+def generator_state_dict(params) -> dict[str, torch.Tensor]:
+    """The port's DCGAN ``Generator`` state for a flax tree."""
+    channels = np.asarray(params["GroupNorm_0"]["scale"]).shape[0]
+    state = dense_before_nhwc_reshape(params["Dense_0"], "project", channels)
+    for i in range(3):
+        state.update(group_norm(params[f"GroupNorm_{i}"], f"norm{i}"))
+        state.update(conv_transpose(params[f"ConvTranspose_{i}"], f"up{i + 1}"))
+    return state
+
+
+def discriminator_state_dict(params) -> dict[str, torch.Tensor]:
+    """The port's DCGAN ``Discriminator`` state for a flax tree."""
+    channels = np.asarray(params["GroupNorm_1"]["scale"]).shape[0]
+    state = {}
+    for i in range(3):
+        state.update(conv(params[f"Conv_{i}"], f"conv{i + 1}"))
+    state.update(group_norm(params["GroupNorm_0"], "norm2"))
+    state.update(group_norm(params["GroupNorm_1"], "norm3"))
+    state.update(dense_after_nhwc_flatten(params["Dense_0"], "out", channels))
     return state

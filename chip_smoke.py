@@ -67,12 +67,37 @@ Phases (any failure exits non-zero before the result line):
    finite losses; f) the sm90 launches per step as in phase 4, none of
    the f32 kernel. Prints the hint-post latency, the rollback's restore
    seconds and the phase's median step time against phase 4's.
-7. result: the kernels line, the card line, then the device line. Each
+7. model zoo: each path through the port's entry points on the card,
+   a fresh job each (registries reset, its own checkpoint dir), with the
+   flash launch counts reset just before and read just after (none of
+   them runs a flash kernel; BERT's attention is dense, as the JAX
+   example's):
+   a. CIFAR ResNet-18 (examples/cifar_resnet18.py: width 64, bf16,
+      SGD(0.1, momentum 0.9) + AdaScale, 50,000 images): 40 steps at
+      (128, 0) and 5 at (128, 1); losses finite, the last three below
+      the first (the loss climbs for about ten steps first); median step
+      ms, samples/s, peak memory, the device's busy time and the host
+      time in each of the trainer's ranges over 3 traced steps, the
+      bare train_step's time (no loader or metrics) and the device's
+      idle share of it (1 - busy / bare step); a save, a restore into a fresh trainer that is
+      bit-equal (parameters, momentum, noise statistics, progress), and
+      a resumed step whose loss matches the original trainer's;
+   b. NCF (256 users, 512 items, Adam + AdamScale, batch 256): 8 steps
+      and the ranked evaluation;
+   c. DCGAN (64 features, latent 32, batch 64): 8 steps of D under
+      has_aux with a G step after each; a sample grid; G and D restored
+      together bit-equal;
+   d. BERT MLM (12 x 768 x 3072, seq 512, vocab 30522, bf16, remat): 5
+      steps;
+   e. linear regression: its main() for 3 epochs; the weights within
+      0.05 of the true ones.
+8. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
-   launches" its count on each rank of 5a, "rescaled_launches" in 5c and
-   "supervised_launches" in phase 6.
+   launches" its count on each rank of 5a, "rescaled_launches" in 5c,
+   "supervised_launches" in phase 6 and "zoo_launches" in each path of
+   phase 7.
 """
 
 import ctypes
@@ -1424,6 +1449,371 @@ def phase_supervised(kernel_rows, recorder, main_step_s):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# -- phase 7: the model zoo -------------------------------------------------
+
+ZOO_RESNET_PLAN = [(128, 0)] * 40 + [(128, 1)] * 5
+ZOO_STEPS = 8  # NCF and DCGAN
+ZOO_BERT_STEPS = 5
+ZOO_LINEAR_EPOCHS = 3
+
+
+def _zoo_job(prefix):
+    """A fresh job of the port in this process: its own checkpoint dir,
+    every registry reset, no other phase's tensors left on the card.
+    Returns the checkpoint dir."""
+    import gc
+
+    from adaptdl_tpu_torch import checkpoint, epoch, guard, metrics
+
+    metrics.join_fit()
+    for reset in (checkpoint._reset_registry, metrics._reset_state,
+                  epoch._reset_state, guard._reset_state):
+        reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix=prefix)
+    os.environ["ADAPTDL_CHECKPOINT_PATH"] = ckpt_dir
+    torch.cuda.reset_peak_memory_stats()
+    return ckpt_dir
+
+
+def _drive(trainer, holder, loader, count, aux=None, after_step=None, plan=None):
+    """``count`` steps of ``trainer.run_step`` over ``loader``, each timed
+    between two synchronisations. Returns (losses, step seconds)."""
+    from adaptdl_tpu_torch import epoch
+
+    losses, seconds = [], []
+    for _ in epoch.remaining_epochs_until(1):
+        for batch in loader:
+            i = len(losses)
+            if plan is not None:
+                check(
+                    (loader.current_atomic_bsz, loader.current_accum_steps) == plan[i],
+                    f"step {i} ran {loader.current_atomic_bsz, loader.current_accum_steps}",
+                )
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            holder["state"], m = trainer.run_step(holder["state"], batch, loader, aux)
+            if after_step is not None:
+                after_step(batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            losses.append(float(m["loss"]))
+            if len(losses) == count:
+                break
+            if plan is not None and plan[len(losses)] != plan[i]:
+                loader.apply_retune(*plan[len(losses)])
+    check(len(losses) == count, f"{len(losses)} of {count} steps ran")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    return losses, seconds
+
+
+def _median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def _equal_states(model_a, opt_a, model_b, opt_b, what):
+    for (name, p), q in zip(model_a.state_dict().items(), model_b.state_dict().values()):
+        check(torch.equal(p, q), f"{what}: restored parameter {name} differs")
+    for p, q in zip(opt_a.params(), opt_b.params()):
+        s1, s2 = opt_a.state[p], opt_b.state[q]
+        check(
+            s1.keys() == s2.keys() and all(torch.equal(s1[k], s2[k]) for k in s1),
+            f"{what}: restored optimizer state differs",
+        )
+
+
+def _device_busy(run, steps=3):
+    """(busy ms, traced window ms, host ms in each of the trainer's
+    three ranges), each per step, over ``steps`` runs of ``run`` traced
+    by torch.profiler (after one untraced run). The window includes the
+    profiler's own host overhead, so it is longer than an untraced step."""
+    from adaptdl_tpu_torch import trainer
+    from adaptdl_tpu_torch.examples.profile_step import _timeline
+
+    run()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    _, _, busy_us, window_us, _ = _timeline(prof, {}, None)
+    check(window_us > 0, "the profiler saw no device kernel")
+    ranges = (trainer.RANGE_MICROBATCHES, trainer.RANGE_STATISTICS, trainer.RANGE_OPTIMIZER)
+    host_us = dict.fromkeys(ranges, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in host_us:
+            host_us[e.name] += e.time_range.end - e.time_range.start
+    host_ms = {name.split(".")[-1]: us / steps / 1e3 for name, us in host_us.items()}
+    return busy_us / steps / 1e3, window_us / steps / 1e3, host_ms
+
+
+def zoo_resnet(device):
+    """CIFAR ResNet-18 at full width through the example's make_trainer
+    and make_loader."""
+    from adaptdl_tpu_torch import checkpoint, metrics
+    from adaptdl_tpu_torch.examples import cifar_resnet18
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-resnet-")
+    try:
+        trainer, holder, ckpt = cifar_resnet18.make_trainer(device, cpu=False)
+        check(not checkpoint.load_state(ckpt), "fresh run found a checkpoint")
+        metrics.ensure_checkpoint_registered()
+        loader = cifar_resnet18.make_loader(cpu=False)
+        model = trainer.model
+        n_params = sum(p.numel() for p in model.parameters())
+        base = torch.cuda.memory_allocated()
+        losses, seconds = _drive(
+            trainer, holder, loader, len(ZOO_RESNET_PLAN), plan=ZOO_RESNET_PLAN
+        )
+        peak = torch.cuda.max_memory_allocated()
+        accum0 = losses[: ZOO_RESNET_PLAN.count((128, 0))]
+        # At SGD(0.1, momentum 0.9) from the flax initialisation the loss
+        # climbs for about ten steps (the JAX trainer's does the same)
+        # before it falls below where it started.
+        check(
+            sum(losses[-3:]) / 3 < losses[0],
+            f"ResNet-18 loss did not fall: {losses[:3]} -> {losses[-3:]}",
+        )
+        step_s = _median(seconds[1:len(accum0)])
+        accum_s = _median(seconds[len(accum0) + 1:])
+        batch = {k: v[:128] for k, v in loader.dataset.items()}
+        device_batch = trainer.to_device(batch)
+        step = trainer.train_step(128, 0)
+
+        def traced():
+            holder["state"], _ = step(holder["state"], device_batch)
+
+        busy_ms, window_ms, host_ms = _device_busy(traced)
+        # The trainer's step alone: no loader, metrics or refit thread.
+        bare = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            traced()
+            torch.cuda.synchronize()
+            bare.append(time.perf_counter() - start)
+        bare_s = _median(bare)
+        idle = 1.0 - busy_ms / (bare_s * 1e3)
+        print(
+            f"zoo resnet18: {n_params / 1e6:.2f} M params, losses {[round(x, 4) for x in losses]}"
+        )
+        print(
+            f"zoo resnet18: step {step_s * 1e3:.2f} ms (median of steps 2-{len(accum0)}, "
+            f"(128, 0)), {128 / step_s:.0f} samples/s; (128, 1) step "
+            f"{accum_s * 1e3:.2f} ms; first step (with calibration) "
+            f"{seconds[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} GiB over the {base / 2**20:.0f} MiB "
+            f"held before the steps); bare train_step at (128, 0) "
+            f"{bare_s * 1e3:.2f} ms (median of 10), device busy {busy_ms:.2f} ms "
+            f"per step (3 traced calls, window {window_ms:.2f} ms per step), idle "
+            f"{idle:.3f} of the bare step; host ms per step (traced) by range "
+            f"{host_ms}; progress "
+            f"{float(holder['state'].progress):.3f}"
+        )
+        print(f"zoo resnet18: step times ms {[round(s * 1e3, 2) for s in seconds]}")
+
+        # Save, restore into a fresh trainer bit for bit, resume.
+        saved = checkpoint.save_all_states()
+        ckpt.unregister()
+        trainer2, holder2, ckpt2 = cifar_resnet18.make_trainer(device, cpu=False, seed=1)
+        check(checkpoint.load_state(ckpt2), "ResNet-18 checkpoint did not restore")
+        a, b = holder["state"], holder2["state"]
+        _equal_states(trainer.model, trainer.optimizer, trainer2.model,
+                      trainer2.optimizer, "ResNet-18")
+        check(
+            all(len(trainer2.optimizer.state[p]) == 1 for p in trainer2.optimizer.params()),
+            "ResNet-18: a momentum buffer is missing",
+        )
+        g1, g2 = a.gns.tensors(), b.gns.tensors()
+        for k in g1:
+            pair = zip(g1[k], g2[k]) if k == "prev_grad" else [(g1[k], g2[k])]
+            check(all(torch.equal(x, y) for x, y in pair), f"ResNet-18: gns.{k} differs")
+        check(
+            torch.equal(a.step, b.step) and torch.equal(a.progress, b.progress)
+            and a.host_step == b.host_step == len(ZOO_RESNET_PLAN) + 14,
+            "ResNet-18: restored step/progress differ",
+        )
+        _, m1 = step(a, device_batch)
+        _, m2 = trainer2.train_step(128, 0)(b, trainer2.to_device(batch))
+        l1, l2 = float(m1["loss"]), float(m2["loss"])
+        check(
+            math.isfinite(l2) and abs(l1 - l2) <= 1e-5 * abs(l1),
+            f"ResNet-18: resumed step loss {l2} against {l1}",
+        )
+        print(
+            f"zoo resnet18: {os.path.basename(saved)} restored bit-equal "
+            f"(parameters, momentum, noise statistics, progress, step "
+            f"{int(b.step)}); resumed step loss {l2:.6f} (original {l1:.6f})"
+        )
+        return {"step_ms": step_s * 1e3, "accum1_step_ms": accum_s * 1e3,
+                "samples_per_s": 128 / step_s, "peak_gib": peak / 2**30,
+                "idle": idle, "busy_ms": busy_ms, "bare_step_ms": bare_s * 1e3,
+                "host_ms": host_ms}
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def zoo_ncf(device):
+    from adaptdl_tpu_torch import checkpoint, metrics
+    from adaptdl_tpu_torch.examples import ncf
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-ncf-")
+    try:
+        trainer, holder, ckpt = ncf.make_trainer(device, 256, 512)
+        checkpoint.load_state(ckpt)
+        metrics.ensure_checkpoint_registered()
+        data, _, held_out = ncf.make_data(256, 512)
+        loader = ncf.make_loader(data)
+        losses, seconds = _drive(trainer, holder, loader, ZOO_STEPS)
+        hr, ndcg = ncf.ranked_eval(trainer.model, held_out, 512)
+        check(0.0 <= ndcg <= hr <= 1.0, f"NCF eval {hr}, {ndcg}")
+        step_s, peak = _median(seconds[1:]), torch.cuda.max_memory_allocated()
+        print(
+            f"zoo ncf: step {step_s * 1e3:.2f} ms (median of steps 2-{ZOO_STEPS}, "
+            f"batch {loader.current_batch_size}), {loader.current_batch_size / step_s:.0f} "
+            f"samples/s, peak memory {peak / 2**30:.3f} GiB; losses "
+            f"{[round(x, 4) for x in losses]}; HR@10 {hr:.4f} NDCG@10 {ndcg:.4f}"
+        )
+        return {"step_ms": step_s * 1e3, "peak_gib": peak / 2**30}
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def zoo_dcgan(device):
+    from adaptdl_tpu_torch import checkpoint, metrics
+    from adaptdl_tpu_torch.examples import dcgan
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-dcgan-")
+    try:
+        d_trainer, holder, d_ckpt, g_step, g_ckpt = dcgan.make_pair(device, cpu=False)
+        checkpoint.load_state(d_ckpt)
+        checkpoint.load_state(g_ckpt)
+        metrics.ensure_checkpoint_registered()
+        loader = dcgan.make_loader(cpu=False)
+        generator = g_ckpt.generator
+        g_losses = []
+
+        def generator_step(batch):
+            z = d_trainer.to_device({"z": batch["z"]})["z"]
+            g_losses.append(g_step(z))
+
+        losses, seconds = _drive(
+            d_trainer, holder, loader, ZOO_STEPS, aux=generator,
+            after_step=generator_step,
+        )
+        g_losses = [float(x) for x in g_losses]
+        check(all(math.isfinite(x) for x in g_losses), f"generator losses {g_losses}")
+        step_s, peak = _median(seconds[1:]), torch.cuda.max_memory_allocated()
+        fixed = torch.randn(16, 32, generator=torch.Generator().manual_seed(1)).to(device)
+        grid = dcgan.sample_grid(generator, fixed)
+        check(grid.shape == (128, 128, 3), f"sample grid {grid.shape}")
+
+        checkpoint.save_all_states()
+        d_ckpt.unregister()
+        g_ckpt.unregister()
+        d2, holder2, d_ckpt2, _, g_ckpt2 = dcgan.make_pair(device, cpu=False, seed=1)
+        check(
+            checkpoint.load_state(d_ckpt2) and checkpoint.load_state(g_ckpt2),
+            "DCGAN pair did not restore",
+        )
+        _equal_states(d_trainer.model, d_trainer.optimizer, d2.model, d2.optimizer,
+                      "discriminator")
+        _equal_states(generator, g_ckpt.optimizer, g_ckpt2.generator,
+                      g_ckpt2.optimizer, "generator")
+        check(torch.equal(holder["state"].step, holder2["state"].step),
+              "discriminator step differs")
+        print(
+            f"zoo dcgan: step {step_s * 1e3:.2f} ms (D under has_aux + G, median of "
+            f"steps 2-{ZOO_STEPS}, batch {loader.current_batch_size}), peak memory "
+            f"{peak / 2**30:.3f} GiB; d losses {[round(x, 4) for x in losses]}; "
+            f"g losses {[round(x, 4) for x in g_losses]}; G and D restored together "
+            f"bit-equal"
+        )
+        return {"step_ms": step_s * 1e3, "peak_gib": peak / 2**30}
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def zoo_bert(device):
+    from adaptdl_tpu_torch import checkpoint, metrics
+    from adaptdl_tpu_torch.examples import bert_mlm
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-bert-")
+    try:
+        trainer, holder, ckpt = bert_mlm.make_trainer(device, cpu=False)
+        checkpoint.load_state(ckpt)
+        metrics.ensure_checkpoint_registered()
+        loader = bert_mlm.make_loader(cpu=False)
+        cfg = trainer.model.config
+        check(not cfg.causal and cfg.attention_fn is None, f"BERT config {cfg}")
+        losses, seconds = _drive(trainer, holder, loader, ZOO_BERT_STEPS)
+        step_s, peak = _median(seconds[1:]), torch.cuda.max_memory_allocated()
+        tokens = loader.current_batch_size * 512
+        print(
+            f"zoo bert_mlm: step {step_s * 1e3:.1f} ms (median of steps "
+            f"2-{ZOO_BERT_STEPS}, ({loader.current_atomic_bsz}, "
+            f"{loader.current_accum_steps}) x 512), {tokens / step_s:.0f} tokens/s, "
+            f"peak memory {peak / 2**30:.2f} GiB; losses {[round(x, 4) for x in losses]}"
+        )
+        return {"step_ms": step_s * 1e3, "peak_gib": peak / 2**30}
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def zoo_linear(device):
+    from adaptdl_tpu_torch.examples import linear_regression
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-linear-")
+    try:
+        start = time.perf_counter()
+        w, b = linear_regression.main(["--epochs", str(ZOO_LINEAR_EPOCHS)])
+        seconds = time.perf_counter() - start
+        err = float(abs(w - linear_regression.TRUE_W).max())
+        print(
+            f"zoo linear_regression: w {w.tolist()} b {b:.4f} after "
+            f"{ZOO_LINEAR_EPOCHS} epochs in {seconds:.1f} s, max|w - true| {err:.4f} "
+            "(tol 0.05)"
+        )
+        check(err < 0.05 and abs(b) < 0.05, "linear regression did not converge")
+        return {"seconds": seconds}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_zoo(kernel_rows):
+    """Phase 7: every zoo path through the port's entry points on the
+    card, the flash launch counts reset before and read after each."""
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch.ops import _build
+
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    check(device.type == "cuda", f"zoo device {device}")
+    paths = {
+        "resnet18": zoo_resnet, "ncf": zoo_ncf, "dcgan": zoo_dcgan,
+        "bert_mlm": zoo_bert, "linear_regression": zoo_linear,
+    }
+    launches, results = {}, {}
+    for name, run in paths.items():
+        start = time.perf_counter()
+        _build.reset_launches()
+        results[name] = run(device)
+        launches[name] = dict(_build.LAUNCHES)
+        print(f"zoo {name}: {time.perf_counter() - start:.1f} s, flash launches "
+              f"{launches[name]}")
+        # None of these paths runs the flash kernels (BERT's attention is
+        # dense, as the JAX example's).
+        check(not any(launches[name].values()), f"{name} launched {launches[name]}")
+    for row in kernel_rows:
+        row["zoo_launches"] = {n: c.get(row["name"], 0) for n, c in launches.items()}
+    return results
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -1443,6 +1833,7 @@ def main():
         phase_supervised(kernel_rows, recorder, main_step_s)
     finally:
         recorder.stop()
+    phase_zoo(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

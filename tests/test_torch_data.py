@@ -146,3 +146,32 @@ def test_collectives_are_identities_without_a_group_and_reduce_within_one():
         assert torch.equal(mean, torch.full((3,), 2.0))
     finally:
         dist.destroy_process_group()
+
+
+def test_bucketing_never_takes_the_batch_below_the_initial_one(monkeypatch):
+    """At 3 replicas and an initial batch of 32 the optimizer may pick
+    atomic 11 (global 33); the bucket grid rounds it to 8, a global 24
+    the goodput model is not defined at. The JAX loader fails its
+    assertion there; the port takes the next bucket up, 16."""
+    monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "3")
+    perf = dict(alpha_c=1e-4, beta_c=1e-3, alpha_n=1e-3, beta_n=0.0,
+                alpha_r=1e-3, beta_r=0.0, gamma=1.0)
+    dataset = {"x": np.zeros((512, 2), np.float32)}
+    loaders = []
+    for package in (data, jdata):
+        loader = package.AdaptiveDataLoader(dataset, batch_size=32)
+        loader.autoscale_batch_size(128, (8, 64), True)
+        loaders.append(loader)
+    metrics._state.perf_params = PerfParams(**perf)
+    jmetrics._state.perf_params = type(PERF)(**perf)
+    metrics._state.grad_params = GradParams(1.0, 1e-3)
+    jmetrics._state.grad_params = type(GRAD)(1.0, 1e-3)
+    goodput_fn = metrics.get_goodput_fn()
+    assert goodput_fn.optimize(
+        1, 3, max_batch_size=128, atomic_bsz_range=(8, 64), accumulation=True
+    )[1:] == (11, 0)
+    assert loaders[0]._rank0_decision() == (16, 0)
+    with pytest.raises(AssertionError):
+        loaders[1]._rank0_decision()
+    assert [data.bucket_atomic_bsz(a, minimum=m) for a, m in
+            ((3, 4), (8, 9), (120, 121), (130, 129), (500, 100))] == [4, 16, 128, 192, 448]

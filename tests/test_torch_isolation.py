@@ -97,6 +97,33 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         ElasticTrainer(lambda m, b: 0, model, AdamW(model.parameters(), lr=1.0), 4)
 
 
+@pytest.mark.parametrize(
+    "example", ["cifar_resnet18", "ncf", "dcgan", "bert_mlm", "linear_regression"]
+)
+def test_zoo_examples_refuse_to_run_without_cuda(monkeypatch, example):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "1")
+    module = importlib.import_module(f"adaptdl_tpu_torch.examples.{example}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(["--epochs", "1"])
+
+
+def test_zoo_models_default_to_cuda(monkeypatch):
+    from adaptdl_tpu_torch import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (
+        lambda: models.init_resnet18(width=8),
+        lambda: models.init_cnn(),
+        lambda: models.init_ncf(4, 4),
+        lambda: models.init_dcgan(base_features=8),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+
+
 def test_unported_job_settings_raise(monkeypatch):
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch.examples import transformer_lm

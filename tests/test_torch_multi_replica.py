@@ -23,6 +23,14 @@ epoch and position and converge, and hold profiles of both replica
 counts; a successor at 2 replicas ends bit for bit where an undisturbed
 2-replica run ends, Accumulator totals (replayed and summed) included.
 
+DCGAN: two gloo ranks train the DCGAN pair (discriminator under
+``has_aux``, generator through ``make_generator_step``) on their blocks
+of the same global batches: the generators stay bit for bit equal across
+the ranks, and both models agree with one process stepping the whole
+batch to float32 summation order (rtol 1e-5, atol 1e-6; Adam's update is
+the same function of the averaged gradient, which each side sums in
+another order).
+
 Units: the launcher's exit-code rule and signal forwarding, the backend
 rule, the device map, the flat all-reduce's packing and its one call
 per step on a gloo group, the loader's per-process block, the metrics'
@@ -211,6 +219,56 @@ def test_two_replicas_match_jax_two_device_mesh(port_runs, accum_steps):
     assert got["step"] == int(jstate.step) == STEPS
 
 
+# -- DCGAN: the generator in lockstep across two ranks --------------------
+
+
+def _dcgan_inputs(out):
+    """The pair's starting weights and DCGAN_STEPS global batches of 8."""
+    trainer, _, generator = worker.dcgan_pair(torch.device("cpu"))
+    torch.save(
+        {"generator": generator.state_dict(),
+         "discriminator": trainer.model.state_dict()},
+        out / "dcgan-weights.pt",
+    )
+    rng = np.random.default_rng(5)
+    np.savez(
+        out / "dcgan-batches.npz",
+        image=rng.normal(size=(worker.DCGAN_STEPS, 8, 32, 32, 1)).astype(np.float32),
+        z=rng.normal(size=(worker.DCGAN_STEPS, 8, 8)).astype(np.float32),
+    )
+
+
+def test_two_rank_dcgan_keeps_the_generator_equal(port_runs):
+    out = port_runs["root"] / "parity"
+    ranks = [torch.load(out / f"dcgan-rank{r}.pt") for r in (0, 1)]
+    for part in ("generator", "discriminator"):
+        for name, p in ranks[0][part].items():
+            assert torch.equal(p, ranks[1][part][name]), (part, name)
+    assert ranks[0]["g_losses"] == ranks[1]["g_losses"]
+
+    # One process on the whole batch.
+    trainer, g_step, generator = worker.dcgan_pair(torch.device("cpu"))
+    weights = torch.load(out / "dcgan-weights.pt")
+    generator.load_state_dict(weights["generator"])
+    trainer.model.load_state_dict(weights["discriminator"])
+    assert not torch.equal(
+        weights["generator"]["project.weight"],
+        ranks[0]["generator"]["project.weight"],
+    )
+    batches = np.load(out / "dcgan-batches.npz")
+    state, step = trainer.init_state(), trainer.train_step(8, 0)
+    for i in range(worker.DCGAN_STEPS):
+        batch = {k: batches[k][i] for k in ("image", "z")}
+        state, _ = step(state, trainer.to_device(batch), generator)
+        g_step(torch.as_tensor(batch["z"]))
+    for part, model in (("generator", generator), ("discriminator", trainer.model)):
+        for name, p in model.state_dict().items():
+            np.testing.assert_allclose(
+                ranks[0][part][name].numpy(), p.numpy(), rtol=1e-5, atol=1e-6,
+                err_msg=f"{part}.{name}",
+            )
+
+
 # -- elastic: preempt one rank, restart at 1, 2 and 3 replicas ------------
 
 
@@ -228,6 +286,7 @@ def port_runs(tmp_path_factory):
     independent:
 
     - ``parity``: both accum settings through two port processes;
+    - ``dcgan``: the DCGAN pair on two ranks;
     - ``preempted``: incarnation 0 of the elastic program at 2 replicas,
       rank 1 alone raising its exit flag after PREEMPT_AFTER steps; then
       an undisturbed 2-replica run and successors at 2, 1 and 3 replicas
@@ -270,9 +329,12 @@ def port_runs(tmp_path_factory):
         code, log = _finish(proc)
         runs[name] = (code, log, _reports(root / name, plan[name][0]))
 
+    _dcgan_inputs(parity_dir)
     try:
         launched.append(_start([WORKER, "parity", str(parity_dir)], replicas=2))
         parity = launched[-1]
+        launched.append(_start([WORKER, "dcgan", str(parity_dir)], replicas=2))
+        dcgan = launched[-1]
         preempted = start("preempted")
         runs["jax"] = {
             accum: _jax_reference(parity_dir, jax_model, params, accum)
@@ -281,6 +343,8 @@ def port_runs(tmp_path_factory):
         finish("preempted", preempted)
         started = {name: start(name) for name in plan if name != "preempted"}
         code, log = _finish(parity)
+        assert code == 0, log
+        code, log = _finish(dcgan)
         assert code == 0, log
         for name, proc in started.items():
             finish(name, proc)

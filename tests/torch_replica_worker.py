@@ -6,6 +6,8 @@
         elastic DIR [--preempt-after K --preempt-rank R] [--autoscale]
     python -m adaptdl_tpu_torch.launch tests/torch_replica_worker.py \
         guarded DIR [--pod-ips ADDR0,ADDR1,...]
+    python -m adaptdl_tpu_torch.launch tests/torch_replica_worker.py \
+        dcgan DIR
 
 Each rank joins the process group on the CPU through ``initialize_job``
 and writes what it saw to ``DIR/rank{r}...``. It imports neither JAX nor
@@ -18,13 +20,22 @@ the JAX package: the launcher starts it as a fresh interpreter.
 - ``elastic``: a user program of linear regression (ElasticTrainer,
   AdaptiveDataLoader, remaining_epochs_until and an Accumulator) that
   restores from ``ADAPTDL_CHECKPOINT_PATH``; with ``--preempt-after``
-  rank R alone raises the exit flag after K of its steps.
+  rank R alone raises the exit flag after K of its steps. With
+  ``--autoscale`` the loader chooses its batch size from a goodput model
+  pinned to ``PINNED_PERF`` (the refits return it), so that the choice
+  follows the gradient statistics, which the run determines, and not
+  the step times of a loaded host.
 - ``guarded``: the same linear regression for one epoch with the guard
   graded at every step (``metrics_every`` 1), under whatever supervisor,
   save cadence and fault schedule the environment sets; each rank
   records every step's loss, state checksum, position and rollbacks,
   and the host its process group was joined at. With ``--pod-ips``
   rank r registers the r-th address as its own (``ADAPTDL_POD_IP``).
+- ``dcgan``: the DCGAN pair at 8 features from ``DIR/dcgan-weights.pt``
+  takes DCGAN_STEPS alternating steps on the global batches
+  ``DIR/dcgan-batches.npz``, each rank on its replica-major block: the
+  discriminator under ``ElasticTrainer(has_aux=True)``, the generator
+  through ``make_generator_step`` on the rank's own noise.
 """
 
 import argparse
@@ -36,6 +47,7 @@ import torch
 
 import adaptdl_tpu_torch
 from adaptdl_tpu_torch import _signal, checkpoint, collective, env, epoch, metrics
+from adaptdl_tpu_torch.goodput import PerfParams
 
 # The parity model and step (tests/test_torch_multi_replica.py holds the
 # JAX trainer to the same values).
@@ -44,6 +56,13 @@ INIT_BATCH = 2
 ATOMIC = 4
 
 TRUE_W = np.array([1.0, -2.0, 3.0, 0.5], np.float32)
+# Step time mostly per sample (1 ms each), with a small fixed cost and a
+# small sync: throughput barely grows with the batch, so the statistical
+# efficiency picks the batch size.
+PINNED_PERF = dict(
+    alpha_c=1e-4, beta_c=1e-3, alpha_n=1e-3, beta_n=0.0,
+    alpha_r=1e-3, beta_r=0.0, gamma=1.0,
+)
 DATASET_SIZE = 512
 EPOCHS = 6
 
@@ -98,7 +117,7 @@ def _dataset():
     return {"x": x, "y": y}
 
 
-def _mse(model, batch):
+def _mse(model, batch, generator):
     return ((model(batch["x"]).squeeze(-1) - batch["y"]) ** 2).mean()
 
 
@@ -128,6 +147,9 @@ def elastic(out_dir, preempt_after, preempt_rank, autoscale):
         loader.autoscale_batch_size(
             128, local_bsz_bounds=(8, 64), gradient_accumulation=True
         )
+        pinned = PerfParams(**PINNED_PERF)
+        metrics._fit = lambda: pinned
+        metrics.current_state().perf_params = pinned
     accum = Accumulator()
     report = {
         "rank": rank,
@@ -259,9 +281,60 @@ def guarded(out_dir, pod_ips):
             json.dump(report, f)
 
 
+DCGAN_SIZES = dict(latent_dim=8, base_features=8, channels=1)
+DCGAN_STEPS = 3
+
+
+def dcgan_pair(device):
+    """(d_trainer, g_step, generator) of the DCGAN test pair."""
+    from adaptdl_tpu_torch.models import dcgan
+    from adaptdl_tpu_torch.optim import Adam
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    generator, discriminator = dcgan.init_dcgan(device=device, **DCGAN_SIZES)
+    trainer = ElasticTrainer(
+        dcgan.discriminator_loss_fn, discriminator,
+        Adam(discriminator.parameters(), lr=2e-4, b1=0.5), INIT_BATCH,
+        has_aux=True, device=device,
+    )
+    g_step = dcgan.make_generator_step(
+        generator, discriminator, Adam(generator.parameters(), lr=2e-4, b1=0.5)
+    )
+    return trainer, g_step, generator
+
+
+def dcgan_run(out_dir):
+    device = adaptdl_tpu_torch.initialize_job(device="cpu")
+    rank, replicas = env.process_rank(), env.num_replicas()
+    trainer, g_step, generator = dcgan_pair(device)
+    weights = torch.load(os.path.join(out_dir, "dcgan-weights.pt"))
+    generator.load_state_dict(weights["generator"])
+    trainer.model.load_state_dict(weights["discriminator"])
+    batches = np.load(os.path.join(out_dir, "dcgan-batches.npz"))
+    state = trainer.init_state()
+    rows = len(batches["image"][0]) // replicas
+    step = trainer.train_step(rows, 0)
+    g_losses = []
+    for i in range(DCGAN_STEPS):
+        local = {
+            k: batches[k][i][rank * rows : (rank + 1) * rows]
+            for k in ("image", "z")
+        }
+        state, _ = step(state, trainer.to_device(local), generator)
+        g_losses.append(float(g_step(torch.as_tensor(local["z"]))))
+    torch.save(
+        {
+            "generator": generator.state_dict(),
+            "discriminator": trainer.model.state_dict(),
+            "g_losses": g_losses,
+        },
+        os.path.join(out_dir, f"dcgan-rank{rank}.pt"),
+    )
+
+
 def main():
     parser = argparse.ArgumentParser()
-    parser.add_argument("mode", choices=("parity", "elastic", "guarded"))
+    parser.add_argument("mode", choices=("parity", "elastic", "guarded", "dcgan"))
     parser.add_argument("out_dir")
     parser.add_argument("--preempt-after", type=int, default=None)
     parser.add_argument("--preempt-rank", type=int, default=1)
@@ -270,6 +343,8 @@ def main():
     args = parser.parse_args()
     if args.mode == "parity":
         parity(args.out_dir)
+    elif args.mode == "dcgan":
+        dcgan_run(args.out_dir)
     elif args.mode == "guarded":
         guarded(args.out_dir, args.pod_ips)
     else:
