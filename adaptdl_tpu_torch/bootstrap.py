@@ -9,14 +9,22 @@
    long-polls ``GET /discover`` until every rank of its restart group is
    known; rank 0's address becomes the process group's host;
 3. starts the heartbeat thread, which renews this rank's lease every
-   ``ADAPTDL_HEARTBEAT_INTERVAL`` seconds;
-4. for a job of several replicas, joins the process group.
+   ``ADAPTDL_HEARTBEAT_INTERVAL`` seconds and flushes the trace spans;
+4. starts the preemption-notice listener when ``ADAPTDL_PREEMPT_POLL_S``
+   asks for it, and in a successor of a planned rescale
+   (``ADAPTDL_HANDOFF`` on, ``ADAPTDL_NUM_RESTARTS`` > 0) fetches the
+   predecessor's handoff manifest on a side thread;
+5. for a job of several replicas, joins the process group.
+
+It adopts ``ADAPTDL_TRACEPARENT`` first and opens the
+``restart.first_step`` span, which the first profiled step closes. The
+kernel libraries' cache on the share path is placed by
+``ops/_build.py`` from the same environment when a kernel first builds.
 
 The port runs one process per replica (``python -m
 adaptdl_tpu_torch.launch`` starts them), so ``ADAPTDL_NUM_PROCESSES``
 must equal ``ADAPTDL_NUM_REPLICAS``; a process holding several replicas
-raises. The JAX package's preemption listener, handoff prefetch and
-compile cache are not part of the port.
+raises.
 """
 
 from __future__ import annotations
@@ -28,8 +36,18 @@ import threading
 
 import torch
 
-from adaptdl_tpu_torch import _signal, collective, env, metrics, rpc, sched_hints
+from adaptdl_tpu_torch import (
+    _signal,
+    collective,
+    env,
+    handoff,
+    metrics,
+    rpc,
+    sched_hints,
+    trace,
+)
 from adaptdl_tpu_torch.device import replica_device
+from adaptdl_tpu_torch.sched import preemption
 
 LOG = logging.getLogger(__name__)
 
@@ -118,6 +136,9 @@ def start_heartbeat() -> threading.Event | None:
             sched_hints.send_heartbeat(
                 rank=rank, step_time_ewma=metrics.step_time_ewma()
             )
+            # Every rank's spans reach the supervisor on this cadence;
+            # the hint-cadence flush runs on rank 0 alone.
+            trace.flush_to_supervisor()
 
     _heartbeat_thread = threading.Thread(
         target=loop, name="adaptdl-torch-heartbeat", daemon=True
@@ -128,22 +149,45 @@ def start_heartbeat() -> threading.Event | None:
 
 
 def stop_heartbeat(timeout: float | None = 5.0) -> None:
-    """Stop the heartbeat thread and join it. Safe when none runs; a
-    later :func:`start_heartbeat` starts a fresh one."""
+    """Stop the heartbeat thread and join it and the handoff prefetch.
+    Safe when none runs; a later :func:`start_heartbeat` starts a fresh
+    one."""
     if _heartbeat_stop is not None:
         _heartbeat_stop.set()
-    if _heartbeat_thread is not None:
-        _heartbeat_thread.join(timeout)
+    for thread in (_heartbeat_thread, _prefetch_thread):
+        if thread is not None:
+            thread.join(timeout)
 
 
-# Heartbeats stop (and the fit thread is joined, by metrics) before the
-# interpreter finalizes.
-atexit.register(stop_heartbeat)
+_prefetch_thread: threading.Thread | None = None
+_restart_span_armed = False
+
+
+def _at_exit() -> None:
+    """Heartbeats stop (and the fit thread is joined, by metrics) before
+    the interpreter finalizes; the spans recorded since the last flush,
+    the final save's among them, go to the supervisor."""
+    stop_heartbeat()
+    trace.flush_to_supervisor()
+
+
+atexit.register(_at_exit)
 
 
 def initialize_job(device="cuda") -> torch.device:
     """Initialize this process for elastic training and return its
     device (``cuda`` maps to this replica's card). Idempotent."""
+    global _restart_span_armed
+    trace.init_from_env()
+    if not _restart_span_armed:
+        _restart_span_armed = True
+        trace.begin_pending("restart.first_step", restarts=env.num_restarts())
+    with trace.span("bootstrap.init", restarts=env.num_restarts()):
+        return _initialize(device)
+
+
+def _initialize(device) -> torch.device:
+    global _prefetch_thread
     replicas, processes = env.num_replicas(), env.num_processes()
     if replicas != processes:
         raise NotImplementedError(
@@ -173,6 +217,18 @@ def initialize_job(device="cuda") -> torch.device:
                 "coordinator address"
             )
     start_heartbeat()
+    preemption.ensure_listener()
+    if (
+        env.handoff_enabled() and env.num_restarts() > 0
+        and (_prefetch_thread is None or not _prefetch_thread.is_alive())
+    ):
+        # A planned rescale's successor: discover the peer and fetch its
+        # manifest while the rest of start-up runs.
+        _prefetch_thread = threading.Thread(
+            target=handoff.prefetch, name="adaptdl-torch-handoff-prefetch",
+            daemon=True,
+        )
+        _prefetch_thread.start()
     if processes > 1 and not collective.initialized():
         # The host is rank 0's discovered address; the port comes from
         # the environment, so every rank agrees on it.

@@ -8,12 +8,19 @@ exit-flag agreement); ``allreduce_mean`` is the trainer's one gradient
 all-reduce point. With one replica (no process group) they are the
 identity; otherwise they go over the group. Every replica must call
 every collective in the same order.
+
+``allreduce_async`` returns before the peers answer, as the JAX
+``Reducer`` does: its collective runs on one single-thread executor,
+over a gloo group of its own (made once), so that it never shares the
+default group's ordering with the training thread's all-reduce.
+``teardown`` shuts the executor down with the groups.
 """
 
 from __future__ import annotations
 
 import logging
-from concurrent.futures import Future
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable
 
 import torch
@@ -62,6 +69,7 @@ def initialize(
         world_size=world_size,
         **kwargs,
     )
+    _ensure_async_group()
     return backend
 
 
@@ -69,8 +77,21 @@ def initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+# The background object collective: one worker thread and the gloo
+# group it runs on, both made on first use and dropped by teardown.
+_async_lock = threading.Lock()
+_async_executor: ThreadPoolExecutor | None = None  # guarded-by: _async_lock
+_async_group = None  # guarded-by: _async_lock
+
+
 def teardown() -> None:
-    """Leave the process group (a no-op without one)."""
+    """Leave the process group (a no-op without one), after the
+    background collective's executor has finished its work."""
+    global _async_executor, _async_group
+    with _async_lock:
+        executor, _async_executor, _async_group = _async_executor, None, None
+    if executor is not None:
+        executor.shutdown(wait=True)
     if initialized():
         dist.destroy_process_group()
 
@@ -80,22 +101,42 @@ def world_size() -> int:
     return dist.get_world_size() if initialized() else 1
 
 
-def allreduce(obj: Any, reduce_fn: Callable[[list], Any]) -> Any:
+def allreduce(obj: Any, reduce_fn: Callable[[list], Any], group=None) -> Any:
     """Reduce ``obj`` across replicas; every rank receives the result."""
     if not initialized():
         return reduce_fn([obj])
     gathered = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, obj)
+    dist.all_gather_object(gathered, obj, group=group)
     return reduce_fn(gathered)
 
 
 def allreduce_async(obj: Any, reduce_fn: Callable[[list], Any]) -> Future:
-    """``allreduce`` as a future, ``.result()`` to join. Completed on
-    return: the object collectives are small and the step they would
-    overlap already runs asynchronously on the device."""
-    future: Future = Future()
-    future.set_result(allreduce(obj, reduce_fn))
-    return future
+    """``allreduce`` as a future, ``.result()`` to join. With one replica
+    it completes inline; otherwise it runs on the background executor
+    over its own gloo group and returns at once. Every rank issues these
+    in the same order, and one worker thread keeps that order."""
+    if not initialized() or dist.get_world_size() == 1:
+        future: Future = Future()
+        future.set_result(allreduce(obj, reduce_fn))
+        return future
+    executor, group = _ensure_async_group()
+    return executor.submit(allreduce, obj, reduce_fn, group)
+
+
+def _ensure_async_group():
+    """The background collective's executor and gloo group, made once.
+    ``new_group`` is itself a collective: ``initialize`` makes the group
+    on every rank; a group joined elsewhere gets it at the first
+    ``allreduce_async``, which every rank reaches at the same point."""
+    global _async_executor, _async_group
+    with _async_lock:
+        if _async_group is None and dist.get_world_size() > 1:
+            _async_group = dist.new_group(backend="gloo")
+        if _async_executor is None:
+            _async_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="adaptdl-torch-allreduce"
+            )
+        return _async_executor, _async_group
 
 
 def broadcast(obj: Any, src: int = 0) -> Any:

@@ -16,8 +16,12 @@
   batch it condemned (:meth:`AdaptiveDataLoader.add_skip_range`); the
   sampler jumps past it from then on, and the table is checkpointed.
 - **graceful preemption**: once per step the loader agrees on the
-  SIGTERM flag across replicas; once set, it checkpoints every state
-  and exits with code 143.
+  SIGTERM flag across replicas, overlapped with the step; once set, it
+  checkpoints every state (the urgent drain under a preemption notice,
+  else a blocking save that may leave a handoff server behind) and
+  exits with code 143.
+- **periodic saves** (``ADAPTDL_CKPT_EVERY_STEPS``) block for their
+  snapshot only; the write runs on a thread.
 - **replay**: loops finished before a restart are skipped; the
   interrupted loop resumes at its saved position.
 
@@ -43,9 +47,11 @@ from adaptdl_tpu_torch import (
     checkpoint,
     collective,
     env,
+    handoff,
     metrics,
     sched_hints,
 )
+from adaptdl_tpu_torch.sched import preemption
 
 LOG = logging.getLogger(__name__)
 
@@ -57,16 +63,24 @@ def _grid_step(atomic_bsz: int) -> int:
     return 1 if atomic_bsz <= 8 else 8 if atomic_bsz <= 128 else 64
 
 
-def bucket_atomic_bsz(atomic_bsz: int, minimum: int = 1) -> int:
+def bucket_atomic_bsz(
+    atomic_bsz: int, minimum: int = 1, maximum: int | None = None
+) -> int:
     """Round a candidate atomic batch size DOWN onto the bucket grid,
     keeping every cap the goodput optimizer already enforced; where that
-    falls below ``minimum``, round ``minimum`` UP onto the grid instead."""
+    falls below ``minimum``, take the least grid point at or above
+    ``minimum`` instead, if it is at most ``maximum``. Where no grid
+    point lies in [minimum, maximum], the candidate stays off the grid
+    (clipped into the range)."""
     step = _grid_step(atomic_bsz)
     bucket = max(int(atomic_bsz) // step * step, 1)
     if bucket >= minimum:
         return bucket
     step = _grid_step(minimum)
-    return -(-int(minimum) // step) * step
+    bucket = -(-int(minimum) // step) * step
+    if maximum is None or bucket <= maximum:
+        return bucket
+    return int(min(max(int(atomic_bsz), int(minimum)), int(maximum)))
 
 
 class ElasticSampler:
@@ -233,10 +247,13 @@ class AdaptiveDataLoader:
         )
         # Rounding down alone may take the global batch below the initial
         # one, where the goodput model is not defined (the JAX loader
-        # fails an assertion there, ROADMAP Queue 3).
+        # fails an assertion there), and rounding up may take it past
+        # max_batch_size: the bucket stays inside both.
+        per_step = num_replicas * (int(accum_steps) + 1)
         atomic_bsz = bucket_atomic_bsz(
             int(atomic_bsz),
-            minimum=-(-self.batch_size // (num_replicas * (int(accum_steps) + 1))),
+            minimum=-(-self.batch_size // per_step),
+            maximum=self._max_batch_size // per_step,
         )
         if self._local_bsz_bounds is not None:
             atomic_bsz = int(np.clip(atomic_bsz, *self._local_bsz_bounds))
@@ -278,13 +295,25 @@ class AdaptiveDataLoader:
     # -- elasticity ----------------------------------------------------
 
     def _check_exit(self) -> None:
-        """Exit-flag agreement, once per step on every replica: the
-        flags are OR-ed across replicas, so a signal that reached any
-        one of them stops all of them at the same step, where every
-        state is checkpointed and each exits 143."""
+        """Exit-flag agreement, once per step on every replica and
+        overlapped with the step: the flags are OR-ed across replicas,
+        so a signal that reached any one of them stops all of them at
+        the same step, where every state is checkpointed and each exits
+        143. A preemption notice routes the final save through the
+        urgent drain (deadline-budgeted, joins a write in flight);
+        otherwise it is a planned stop: a blocking save and, with the
+        handoff on, a shard server left behind for the successor, which
+        serves the save's own host copies."""
         if self._exit_future is not None and self._exit_future.result():
-            LOG.info("graceful exit: saving states and exiting 143")
-            checkpoint.save_all_states()
+            if preemption.notice_active():
+                LOG.info("graceful exit (preemption notice): urgent drain")
+                preemption.urgent_drain()
+            else:
+                LOG.info("graceful exit: saving states and exiting 143")
+                serve = env.handoff_enabled()
+                handle = checkpoint.save_all_states(retain_snapshots=serve)
+                if serve:
+                    handoff.spawn_server(snapshots=handle.snapshots)
             sys.exit(_signal.GRACEFUL_EXIT_CODE)
         self._exit_future = collective.allreduce_async(
             bool(_signal.get_exit_flag()), any
@@ -390,7 +419,8 @@ class AdaptiveDataLoader:
                     self._ckpt_every_steps
                     and steps % self._ckpt_every_steps == 0
                 ):
-                    checkpoint.save_all_states()
+                    # The snapshot blocks; the write runs on a thread.
+                    checkpoint.save_all_states(wait=False)
             self._loops_finished[epoch] = finished + 1
             for key in [k for k in self._loops_finished if k < epoch]:
                 del self._loops_finished[key]

@@ -40,7 +40,8 @@ def checkpoint_path() -> str | None:
 
 
 def share_path() -> str | None:
-    """Shared scratch directory (tensorboard output and the like)."""
+    """Shared scratch directory across restarts (tensorboard output, the
+    kernel cache)."""
     return _get_str("ADAPTDL_SHARE_PATH")
 
 
@@ -222,3 +223,81 @@ def guard_confirm_steps() -> int:
     """Healthy guard observations after a save before that checkpoint
     earns its last-known-good marker."""
     return max(_get_int("ADAPTDL_GUARD_CONFIRM_STEPS", 8), 1)
+
+
+def handoff_enabled() -> bool:
+    """Whether a planned rescale hands state to the successor peer to
+    peer: the stopping incarnation leaves a shard server holding its
+    final save's bytes, and the successor pulls them instead of reading
+    storage (``ADAPTDL_HANDOFF``; off by default). Any handoff failure
+    falls back to the durable checkpoint."""
+    knob = os.environ.get("ADAPTDL_HANDOFF", "")
+    return knob.lower() in ("on", "1", "true", "yes")
+
+
+def handoff_url() -> str | None:
+    """Explicit base URL of the predecessor's shard server; overrides
+    the supervisor's advertisement and the descriptor file."""
+    return _get_str("ADAPTDL_HANDOFF_URL")
+
+
+def handoff_ttl_s() -> float:
+    """Seconds the shard server waits for its successor before it
+    exits (the durable checkpoint then serves the restore)."""
+    return max(_get_float("ADAPTDL_HANDOFF_TTL_S", 60.0), 1.0)
+
+
+def handoff_timeout_s() -> float:
+    """Overall deadline of the successor's handoff fetch (manifest and
+    chunks); past it the restore reads the durable checkpoint."""
+    return max(_get_float("ADAPTDL_HANDOFF_TIMEOUT_S", 10.0), 0.1)
+
+
+def compile_cache_knob() -> str:
+    """Raw kernel-cache knob (``ADAPTDL_COMPILE_CACHE``): a path places
+    the cache, ``off``/``0``/``false``/``none`` disables it, empty means
+    the share path or else the checkpoint path (``ops/_build.py``
+    resolves it)."""
+    return os.environ.get("ADAPTDL_COMPILE_CACHE", "")
+
+
+def trace_dir() -> str | None:
+    """Directory of the per-job JSONL span journal; unset, spans stay
+    in the in-memory ring buffer."""
+    return _get_str("ADAPTDL_TRACE_DIR")
+
+
+def traceparent() -> str | None:
+    """W3C ``traceparent`` inherited across the restart: the successor's
+    spans join the trace of the decision that restarted it."""
+    return _get_str("ADAPTDL_TRACEPARENT")
+
+
+def preempt_notice_s() -> float:
+    """Seconds of warning a preemption notice gives before the machine
+    is reclaimed; the urgent drain budgets its final save inside it."""
+    return _get_float("ADAPTDL_PREEMPT_NOTICE_S", 30.0)
+
+
+def preempt_margin_s() -> float:
+    """Margin taken off the notice window for the exit after the drain's
+    save."""
+    return _get_float("ADAPTDL_PREEMPT_MARGIN_S", 5.0)
+
+
+def preempt_poll_s() -> float:
+    """Base cadence of the preemption-notice listener; 0 (the default)
+    starts no listener."""
+    return _get_float("ADAPTDL_PREEMPT_POLL_S", 0.0)
+
+
+def preempt_slow_poll_s() -> float:
+    """The listener's cadence after ``preempt_backoff_after``
+    consecutive polls found no metadata server."""
+    return _get_float("ADAPTDL_PREEMPT_SLOW_POLL_S", 60.0)
+
+
+def preempt_backoff_after() -> int:
+    """Consecutive unreachable polls before the listener backs off to
+    the slow cadence; one reachable poll restores the base one."""
+    return max(_get_int("ADAPTDL_PREEMPT_BACKOFF_AFTER", 12), 1)

@@ -43,6 +43,15 @@ INJECTION_POINTS = {
     "guard.corrupt_grad": "per-step gradient-statistic intake (injects NaN)",
     "guard.loss_spike": "per-step loss intake (injects a spike)",
     "guard.rollback": "before a last-known-good rollback restore",
+    # peer-to-peer handoff (handoff.py; serve faults become 500s on the
+    # shard server, fetch faults abort the successor's pull: both fall
+    # back to the durable checkpoint)
+    "handoff.serve": "shard-server chunk handler (doomed incarnation)",
+    "handoff.fetch": "before each chunk fetch on the successor",
+    # preemption survival (sched/preemption.py; an injected fault at
+    # preempt.notice SIMULATES a reclaim notice in the listener)
+    "preempt.notice": "each listener poll for a reclaim notice",
+    "preempt.drain_save": "before the urgent drain's blocking save",
 }
 
 

@@ -22,8 +22,9 @@ model.
 Goodput hygiene: a step the numeric-health guard condemned
 (:func:`note_unhealthy_step`) feeds only the raw throughput EWMAs, never
 the profile table, the perf fit or the guarded EWMAs behind
-``measuredGoodput``. Flushing trace spans to the supervisor on the hint
-cadence is not part of the port yet.
+``measuredGoodput``. The buffered trace spans reach the supervisor on
+the hint cadence (after each post), and the first profiled step closes
+the ``restart.first_step`` span bootstrap opened.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
-from adaptdl_tpu_torch import checkpoint, env, guard, sched_hints
+from adaptdl_tpu_torch import checkpoint, env, guard, sched_hints, trace
 from adaptdl_tpu_torch.goodput import (
     GoodputFunction,
     GradParams,
@@ -73,15 +74,21 @@ class MetricsState:
     max_stage_shards: int = 1
     max_expert_shards: int = 1
     progress: float = 0.0
-    # The last save's seconds and bytes (the port's saves are blocking
-    # and full: all of it is on the training thread, the restartStats'
-    # snapshotS, with writeS 0), and this incarnation's restore seconds
-    # per state.
+    # The last completed save: the seconds it blocked the training
+    # thread (the snapshot), the seconds of its write (on the writer
+    # thread for a periodic save), per-state timings and its bytes; this
+    # incarnation's restore seconds per state and its handoff transfer.
     ckpt_snapshot_s: float | None = None  # guarded-by: _profile_lock
+    ckpt_write_s: float | None = None  # guarded-by: _profile_lock
+    ckpt_per_state: dict = field(  # guarded-by: _profile_lock
+        default_factory=dict
+    )
     ckpt_save_bytes: int | None = None  # guarded-by: _profile_lock
     restore_per_state: dict = field(  # guarded-by: _profile_lock
         default_factory=dict
     )
+    handoff_s: float | None = None  # guarded-by: _profile_lock
+    handoff_bytes: int | None = None  # guarded-by: _profile_lock
     # In-process (atomic_bsz, accum) re-tunes adopted without a restart.
     num_retunes: int = 0  # guarded-by: _profile_lock
     # Smoothed step time (rides the heartbeats) and examples/s at the
@@ -212,6 +219,7 @@ def profile_step(
     observation is the step time minus the modelled accumulation
     micro-steps, kept positive. A sample the guard condemned feeds only
     the raw EWMAs."""
+    trace.end_pending("restart.first_step", atomic_bsz=int(atomic_bsz))
     key = _profile_key(atomic_bsz)
     alpha = 0.2  # EWMA weight: a few fit intervals of memory
     with _profile_lock:
@@ -259,12 +267,31 @@ def _ewma(prev: float | None, value: float, alpha: float) -> float:
     return value if prev is None else (1 - alpha) * prev + alpha * value
 
 
-def record_checkpoint_save(seconds: float, total_bytes: int) -> None:
-    """The last completed save: seconds it blocked the training thread
-    and the bytes it wrote."""
+def record_checkpoint_save(
+    snapshot_s: float,
+    write_s: float,
+    per_state: dict,
+    total_bytes: int | None = None,
+) -> None:
+    """The last completed save: the seconds its snapshot blocked the
+    training thread, the seconds of its write, per-state timings and
+    the bytes it wrote. Called from the writer thread while the fit
+    thread may read ``restart_stats``: the lock keeps one save's
+    numbers together."""
     with _profile_lock:
-        _state.ckpt_snapshot_s = float(seconds)
-        _state.ckpt_save_bytes = int(total_bytes)
+        _state.ckpt_snapshot_s = float(snapshot_s)
+        _state.ckpt_write_s = float(write_s)
+        _state.ckpt_per_state = dict(per_state)
+        if total_bytes is not None:
+            _state.ckpt_save_bytes = int(total_bytes)
+
+
+def record_handoff(seconds: float, transferred_bytes: int) -> None:
+    """The successor's peer-to-peer transfer (manifest and chunks), in
+    seconds and bytes: a planned rescale's restore cost."""
+    with _profile_lock:
+        _state.handoff_s = float(seconds)
+        _state.handoff_bytes = int(transferred_bytes)
 
 
 def record_checkpoint_restore(name: str, seconds: float) -> None:
@@ -283,20 +310,31 @@ def restart_stats() -> dict | None:
     """Measured rescale-cost components for the ``restartStats`` hint
     (the ``restart_stats`` wire family), or None before anything was
     measured: ``snapshotS``/``writeS`` of the last save,
-    ``overlapFrac`` of it off the training thread (0 for the port's
-    blocking saves), its bytes, and ``restoreS`` summed over this
-    incarnation's restores."""
+    ``overlapFrac`` = write / (snapshot + write), the share a periodic
+    save keeps off the training thread, its bytes, the handoff's
+    seconds and bytes, and ``restoreS`` summed over this incarnation's
+    restores."""
     with _profile_lock:
-        if _state.ckpt_snapshot_s is None and not _state.restore_per_state:
+        if (
+            _state.ckpt_snapshot_s is None
+            and not _state.restore_per_state
+            and _state.handoff_s is None
+        ):
             return None
         stats: dict = {"numRetunes": _state.num_retunes}
         if _state.ckpt_snapshot_s is not None:
-            stats["snapshotS"] = round(_state.ckpt_snapshot_s, 4)
-            stats["writeS"] = 0.0
-            if _state.ckpt_snapshot_s > 0:
-                stats["overlapFrac"] = 0.0
+            snap = _state.ckpt_snapshot_s
+            write = _state.ckpt_write_s or 0.0
+            stats["snapshotS"] = round(snap, 4)
+            stats["writeS"] = round(write, 4)
+            if snap + write > 0:
+                stats["overlapFrac"] = round(write / (snap + write), 4)
+        if _state.ckpt_save_bytes is not None:
             stats["saveBytes"] = _state.ckpt_save_bytes
             stats["saveKind"] = "full"
+        if _state.handoff_s is not None:
+            stats["handoffS"] = round(_state.handoff_s, 4)
+            stats["handoffBytes"] = _state.handoff_bytes or 0
         if _state.restore_per_state:
             stats["restoreS"] = round(
                 sum(_state.restore_per_state.values()), 4
@@ -448,6 +486,7 @@ def fit_and_report_now() -> None:
             k: float(v) for k, v in perf_params._asdict().items()
         }
     sched_hints.post_sched_hints(hints)
+    trace.flush_to_supervisor()
 
 
 def _maybe_fit() -> None:
@@ -492,7 +531,7 @@ _SAVED_FIELDS = (
 # defaults.
 _OPTIONAL_FIELDS = (
     "ckpt_snapshot_s", "ckpt_save_bytes", "num_retunes",
-    "raw_examples_ewma", "unhealthy_steps",
+    "raw_examples_ewma", "unhealthy_steps", "ckpt_write_s",
 )
 
 

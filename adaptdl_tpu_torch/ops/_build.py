@@ -4,9 +4,21 @@ Every ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers:
 a build takes seconds, not minutes). A source that declares
 ``adaptdl-build: parts=N`` compiles as N objects in parallel, each with
-``-DADAPTDL_PART=p``, linked into one library. Libraries land in
-``build/kernels/`` under the repository root, named by a hash of the
-sources, so a changed source rebuilds and an unchanged one is reused.
+``-DADAPTDL_PART=p``, linked into one library.
+
+Libraries are cached across restarts as the JAX package caches XLA's
+executables: in ``<dir>/.kernel_cache`` for the first of
+``ADAPTDL_COMPILE_CACHE``, ``ADAPTDL_SHARE_PATH`` and
+``ADAPTDL_CHECKPOINT_PATH`` that is set (``ADAPTDL_COMPILE_CACHE=off``,
+or none set, keeps them in ``build/kernels/`` under the repository
+root), so a successor on another machine loads what its predecessor
+built. A library is named by a digest of its sources, the arch flags and
+the torch and CUDA versions: a changed source or toolkit rebuilds, an
+unchanged one is reused. Each builder compiles into names of its own
+(process and thread) and renames the library into place, under a file
+lock, so two ranks or incarnations sharing the cache build once and the
+second loads the first's result.
+
 Nothing is built at import time: the first launch of a kernel (or
 :func:`build_all`) builds it. A missing or failing ``nvcc`` raises
 :class:`KernelBuildError` with the compiler's output; there is no
@@ -21,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -29,6 +42,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from adaptdl_tpu_torch import env
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -69,7 +84,25 @@ def _nvcc() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
+def cache_dir() -> Path:
+    """Where the libraries live: ``<dir>/.kernel_cache`` for the first of
+    ``ADAPTDL_COMPILE_CACHE``, the share path and the checkpoint path
+    that is set; ``build/kernels/`` when the knob is ``off`` or none is
+    set."""
+    knob = env.compile_cache_knob()
+    if knob.lower() in ("off", "0", "false", "none"):
+        return BUILD_DIR
+    path = knob or env.share_path() or env.checkpoint_path()
+    if not path:
+        return BUILD_DIR
+    return Path(os.path.abspath(path)) / ".kernel_cache"
+
+
+def _digest(name: str, arch_flags=ARCH_FLAGS) -> str:
+    """Digest of a library's sources, arch flags and torch and CUDA
+    versions."""
+    import torch
+
     src = CSRC_DIR / f"{name}.cu"
     if not src.exists():
         raise KernelBuildError(f"no kernel source {src}")
@@ -77,8 +110,18 @@ def _library_path(name: str) -> Path:
     for path in [src, *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    digest.update(" ".join(ARCH_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(arch_flags).encode())
+    digest.update(f"torch {torch.__version__} cuda {torch.version.cuda}".encode())
+    return digest.hexdigest()[:16]
+
+
+def _library_path(name: str) -> Path:
+    return cache_dir() / f"{name}-{_digest(name)}.so"
+
+
+def _temp_stem(out: Path) -> str:
+    """This builder's own prefix for temporary objects and libraries."""
+    return f"{out.name}.{os.getpid()}.{threading.get_ident()}"
 
 
 def _nvcc_run(cmd: list[str], what: str) -> str:
@@ -98,17 +141,27 @@ def build(name: str) -> Path:
     out = _library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _nvcc()  # raises before anything is created without a toolkit
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".so.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # Another builder may have finished while this one waited.
+        if not out.exists():
+            _compile(name, out)
+    return out
+
+
+def _compile(name: str, out: Path) -> None:
     src = CSRC_DIR / f"{name}.cu"
-    stem = f"{out.name}.{os.getpid()}.{threading.get_ident()}"
+    stem = _temp_stem(out)
     compile_flags = [
         *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
         "-Xptxas=-v",
     ]
     found = _PARTS.search(src.read_text())
     parts = int(found.group(1)) if found else 1
-    objects = [BUILD_DIR / f"{stem}.part{p}.o" for p in range(parts)]
-    tmp = BUILD_DIR / f"{stem}.tmp"
+    objects = [out.parent / f"{stem}.part{p}.o" for p in range(parts)]
+    tmp = out.parent / f"{stem}.tmp"
 
     def compile_part(p: int) -> str:
         define = [f"-DADAPTDL_PART={p}"] if found else []
@@ -131,7 +184,6 @@ def build(name: str) -> Path:
     finally:
         for path in [*objects, tmp]:
             path.unlink(missing_ok=True)
-    return out
 
 
 def build_all() -> dict[str, Path]:

@@ -14,14 +14,15 @@ through it and gets:
   lapses), so a dead supervisor costs each best-effort caller one cheap
   :class:`CircuitOpenError` per cadence;
 - **fault-injection points** ``rpc.request.send`` and
-  ``rpc.response.recv``.
+  ``rpc.response.recv``;
+- **a trace span** ``rpc.request`` per call, whose context rides the
+  ``traceparent`` header (``traced=False`` opts out: the trace flush).
 
 ``urllib`` takes one timeout per attempt where ``requests`` takes a
 (connect, read) pair: a pair is given as its larger member. Proxy
 settings in the environment are ignored, so a call goes only to the
 URL it names. A call returns a :class:`Response` with ``status_code``,
-``json()`` and ``raise_for_status()``. The JAX client's trace spans and
-``traceparent`` header are not part of the port yet.
+``json()`` and ``raise_for_status()``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import urllib.error
 import urllib.parse
 import urllib.request
 
-from adaptdl_tpu_torch import faults
+from adaptdl_tpu_torch import faults, trace
 
 LOG = logging.getLogger(__name__)
 
@@ -102,14 +103,14 @@ def _timeout_seconds(timeout) -> float:
     return float(timeout)
 
 
-def _send(method, url, params, json, timeout) -> Response:
+def _send(method, url, params, json, timeout, headers=None) -> Response:
     """One HTTP attempt. An HTTP error status is a response, not an
     exception; transport failures raise ``OSError`` or
     ``http.client.HTTPException``."""
     if params:
         query = urllib.parse.urlencode(params)
         url = f"{url}{'&' if '?' in url else '?'}{query}"
-    data, headers = None, {}
+    data, headers = None, dict(headers or {})
     if json is not None:
         data = json_lib.dumps(json).encode("utf-8")
         headers["Content-Type"] = "application/json"
@@ -224,37 +225,64 @@ class RpcClient:
         endpoint: str | None = None,
         params=None,
         json=None,
+        headers=None,
         timeout=_DEFAULT_TIMEOUT,
         attempts: int = 3,
         deadline: float | None = None,
         retry_statuses: tuple[int, ...] = RETRY_STATUSES,
         circuit_threshold: int = 3,
         circuit_cooldown: float = 60.0,
+        use_circuit: bool = True,
+        traced: bool = True,
     ) -> Response:
         """Make one logical RPC and return its :class:`Response`.
 
         Retries transport errors and ``retry_statuses`` up to
         ``attempts`` times within ``deadline`` seconds overall;
-        ``endpoint`` (default: method and URL) keys the circuit breaker.
-        Raises :class:`CircuitOpenError` without touching the network
-        when the endpoint's circuit is open, :class:`RpcError` when
-        every attempt failed. Other HTTP statuses are returned (use
+        ``endpoint`` (default: method and URL) keys the circuit breaker
+        (``use_circuit=False`` bypasses it). Raises
+        :class:`CircuitOpenError` without touching the network when the
+        endpoint's circuit is open, :class:`RpcError` when every attempt
+        failed. Other HTTP statuses are returned (use
         ``raise_for_status``) and count as circuit successes: the
-        endpoint answered.
+        endpoint answered. ``traced=False`` records no span and sends no
+        ``traceparent`` header.
         """
         key = endpoint if endpoint is not None else f"{method} {url}"
-        self._check_circuit(key, circuit_threshold, circuit_cooldown)
+        args = (method, url, key, params, json, timeout, attempts, deadline,
+                retry_statuses, circuit_threshold, circuit_cooldown,
+                use_circuit)
+        if not traced:
+            return self._attempts(*args, headers=headers)
+        with trace.span("rpc.request", endpoint=key, method=method) as attrs:
+            headers = dict(headers or {})
+            headers.setdefault("traceparent", trace.current_traceparent())
+            response = self._attempts(*args, headers=headers, attrs=attrs)
+            attrs["status"] = response.status_code
+            return response
+
+    def _attempts(
+        self, method, url, key, params, json, timeout, attempts, deadline,
+        retry_statuses, circuit_threshold, circuit_cooldown, use_circuit,
+        headers=None, attrs=None,
+    ) -> Response:
+        if use_circuit:
+            self._check_circuit(key, circuit_threshold, circuit_cooldown)
         overall = (
             time.monotonic() + deadline if deadline is not None else None
         )
         last_error: Exception | None = None
         last_response = None
+        tries = 0
         for attempt in range(max(attempts, 1)):
             if overall is not None and time.monotonic() >= overall:
                 break
+            tries = attempt + 1
+            if attrs is not None and attempt > 0:
+                trace.event("rpc.retry", endpoint=key)
             try:
                 faults.maybe_fail("rpc.request.send")
-                response = _send(method, url, params, json, timeout)
+                response = _send(method, url, params, json, timeout, headers)
                 faults.maybe_fail("rpc.response.recv")
             except (
                 OSError, http.client.HTTPException, faults.InjectedFault,
@@ -266,7 +294,10 @@ class RpcClient:
                 )
             else:
                 if response.status_code not in retry_statuses:
-                    self._record(key, ok=True)
+                    if use_circuit:
+                        self._record(key, ok=True)
+                    if attrs is not None:
+                        attrs["attempts"] = tries
                     return response
                 last_response = response
                 last_error = None
@@ -283,7 +314,10 @@ class RpcClient:
                 delay = min(delay, max(overall - time.monotonic(), 0.0))
             if delay > 0:
                 self._sleep(delay)
-        self._record(key, ok=False)
+        if use_circuit:
+            self._record(key, ok=False)
+        if attrs is not None:
+            attrs["attempts"] = tries
         if last_response is not None:
             raise RpcError(
                 f"{method} {url} failed with status "

@@ -5,8 +5,9 @@ fitted goodput-model parameters to the supervisor (``/hints``), and the
 cluster allocator turns them into speedup functions; the job reads the
 allocator's decision back from ``/config``; every rank renews its lease
 with heartbeats. Every call is best-effort: training never blocks on
-the supervisor being reachable. Adopting the ``traceParent`` a
-``/config`` reply carries is not part of the port yet.
+the supervisor being reachable. A ``/config`` reply's ``traceParent``
+becomes this process's trace context, so the final save of an
+incarnation about to be restarted lands in the rescale's trace.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import logging
 from typing import Any
 
-from adaptdl_tpu_torch import env, rpc
+from adaptdl_tpu_torch import env, rpc, trace
 from adaptdl_tpu_torch.goodput import GradParams, PerfParams
 from adaptdl_tpu_torch.wire import SCHED_HINTS_KEYS
 
@@ -111,7 +112,11 @@ def fetch_job_config() -> dict | None:
         )
         response.raise_for_status()
         payload = response.json()
-        return payload if isinstance(payload, dict) else None
+        if not isinstance(payload, dict):
+            return None
+        if payload.get("traceParent"):
+            trace.set_traceparent(payload["traceParent"])
+        return payload
     except Exception as exc:  # noqa: BLE001 - best effort by design
         LOG.debug("failed to fetch job config: %s", exc)
         return None

@@ -32,6 +32,7 @@ streams differ; only the port's own draws repeat.
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, replace
 from typing import Any, Callable
@@ -431,32 +432,97 @@ class ElasticTrainer:
 class TrainerCheckpoint(checkpoint.State):
     """Persists a TrainState device-agnostically: ``torch.save`` writes
     every tensor bit for bit, and a restore lands on the current
-    trainer's device."""
+    trainer's device.
+
+    The snapshot copies every tensor into a host buffer kept across
+    saves (pinned for a device tensor: one ``non_blocking`` copy each,
+    then one synchronize), so a periodic save blocks the step loop for
+    the copy alone and allocates no host memory after the first. The
+    write serializes those copies. For the handoff the snapshot splits
+    into one chunk per tensor (its raw bytes) and a ``meta`` chunk, JSON
+    of the structure, dtypes and shapes: what the successor reads from
+    the peer is data, never code, as ``torch.load(weights_only=True)``
+    reads storage."""
 
     def __init__(self, name, trainer: ElasticTrainer, get_state, set_state):
         super().__init__(name)
         self._trainer = trainer
         self._get_state = get_state
         self._set_state = set_state
+        self._host: list[torch.Tensor] = []
 
-    def save(self, fileobj):
+    @property
+    def host_buffer_bytes(self) -> int:
+        """Bytes of the reused host buffers (pinned for device tensors)."""
+        return sum(t.numel() * t.element_size() for t in self._host)
+
+    def _payload(self) -> dict:
         state = self._get_state()
         fields = state.gns.tensors()
-        torch.save(
-            {
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "prev_grad": fields.pop("prev_grad"),
-                "gns": fields,
-                "progress": state.progress,
-                "step": state.step,
-                "seed": state.seed,
-            },
-            fileobj,
+        return {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "prev_grad": fields.pop("prev_grad"),
+            "gns": fields,
+            "progress": state.progress,
+            "step": state.step,
+            "seed": state.seed,
+        }
+
+    def snapshot(self) -> dict:
+        tensors: list[torch.Tensor] = []
+        payload = self._payload()
+        _map_tensors(payload, tensors.append)
+        fits = len(self._host) == len(tensors) and all(
+            h.shape == t.shape and h.dtype == t.dtype
+            for h, t in zip(self._host, tensors)
         )
+        if not fits:
+            self._host = [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+                for t in tensors
+            ]
+        for host, t in zip(self._host, tensors):
+            host.copy_(t.detach(), non_blocking=t.is_cuda)
+        if any(t.is_cuda for t in tensors):
+            torch.cuda.synchronize(self._trainer.device)
+        host = iter(self._host)
+        return _map_tensors(payload, lambda t: next(host))
+
+    def write_snapshot(self, snapshot: dict, fileobj) -> None:
+        torch.save(snapshot, fileobj)
+
+    def save(self, fileobj):
+        self.write_snapshot(self.snapshot(), fileobj)
 
     def load(self, fileobj):
-        payload = torch.load(fileobj, map_location="cpu", weights_only=True)
+        self._apply(torch.load(fileobj, map_location="cpu", weights_only=True))
+
+    def snapshot_chunks(self, snapshot: dict) -> list:
+        tensors: list[torch.Tensor] = []
+        meta = json.dumps(_encode_meta(snapshot, tensors)).encode()
+        return [("meta", meta)] + [
+            (f"t{i}", t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+            for i, t in enumerate(tensors)
+        ]
+
+    def load_chunks(self, chunks: list) -> None:
+        data = dict(chunks)
+
+        def rebuild(index, dtype_name, shape):
+            dtype = getattr(torch, str(dtype_name), None)
+            if not isinstance(dtype, torch.dtype):
+                raise ValueError(f"handoff meta names no dtype: {dtype_name!r}")
+            raw = data[f"t{int(index)}"]
+            flat = (
+                torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+                if raw else torch.empty(0, dtype=torch.uint8)
+            )
+            return flat.view(dtype).reshape([int(n) for n in shape])
+
+        self._apply(_decode_meta(json.loads(data["meta"]), rebuild))
+
+    def _apply(self, payload: dict) -> None:
         device = self._trainer.device
         state = self._get_state()
         state.model.load_state_dict(payload["model"])
@@ -475,3 +541,56 @@ class TrainerCheckpoint(checkpoint.State):
         )
         self._set_state(new_state)
         self._trainer._restored_state = new_state
+
+
+def _encode_meta(obj, tensors: list):
+    """``obj`` (dicts, lists, tuples, tensors and JSON scalars) as JSON
+    data; each tensor goes to ``tensors`` and is replaced by its index,
+    dtype and shape. Containers are tagged so that tuples and non-string
+    keys (an optimizer's parameter ids) come back as they were."""
+    if isinstance(obj, torch.Tensor):
+        tensors.append(obj)
+        return {"tensor": [len(tensors) - 1, str(obj.dtype)[6:], list(obj.shape)]}
+    if isinstance(obj, dict):
+        return {"dict": [
+            [_encode_meta(k, tensors), _encode_meta(v, tensors)]
+            for k, v in obj.items()
+        ]}
+    if isinstance(obj, (list, tuple)):
+        kind = "list" if isinstance(obj, list) else "tuple"
+        return {kind: [_encode_meta(v, tensors) for v in obj]}
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    raise TypeError(f"the handoff cannot carry a {type(obj).__name__}")
+
+
+def _decode_meta(node, rebuild):
+    """Invert :func:`_encode_meta`, each tensor from ``rebuild(index,
+    dtype, shape)``; raises on anything it did not write."""
+    if isinstance(node, dict) and len(node) == 1:
+        (kind, items), = node.items()
+        if kind == "tensor":
+            return rebuild(*items)
+        if kind == "dict":
+            return {
+                _decode_meta(k, rebuild): _decode_meta(v, rebuild)
+                for k, v in items
+            }
+        if kind in ("list", "tuple"):
+            values = [_decode_meta(v, rebuild) for v in items]
+            return values if kind == "list" else tuple(values)
+    if node is None or isinstance(node, (bool, int, float, str)):
+        return node
+    raise ValueError(f"malformed handoff meta: {str(node)[:80]}")
+
+
+def _map_tensors(obj, fn):
+    """``obj`` with every tensor inside dicts, lists and tuples replaced
+    by ``fn(tensor)``, visited in a fixed order."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return type(obj)((k, _map_tensors(v, fn)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(v, fn) for v in obj)
+    return obj

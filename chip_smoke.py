@@ -6,8 +6,9 @@ Phases (any failure exits non-zero before the result line):
 
 1. device: versions, the card's name and power limit; CUDA required.
 2. build: every kernel under adaptdl_tpu_torch/csrc, compiled in
-   parallel (adaptdl_tpu_torch/ops/_build.py); ptxas registers, spills
-   and each sm90 instance's shared memory.
+   parallel (adaptdl_tpu_torch/ops/_build.py) into the kernel cache on a
+   share path the whole run uses (ADAPTDL_SHARE_PATH, a temp dir); ptxas
+   registers, spills and each sm90 instance's shared memory.
 3. kernels vs plain: both flash forward kernels against their plain
    PyTorch version on the card -- the sm90 kernel (bf16, head_dim 64
    and 128) at the main path's shape, head_dim 128 and a ragged seq;
@@ -91,13 +92,45 @@ Phases (any failure exits non-zero before the result line):
       steps;
    e. linear regression: its main() for 3 epochs; the weights within
       0.05 of the true ones.
-8. result: the kernels line, the card line, then the device line. Each
+8. rescale: the full-width LM through a planned rescale and a
+   preemption, each incarnation a fresh process (this script with
+   --rescale-worker) under the supervisor recorder, with the handoff on
+   (ADAPTDL_HANDOFF), the kernel cache on the job's share path, one
+   trace context (ADAPTDL_TRACEPARENT) and a span journal
+   (ADAPTDL_TRACE_DIR); the launch counts of each incarnation are reset
+   just before its steps and read just after (sm90 only):
+   a. incarnation 0 loads the kernels from the cache on the share path
+      (phase 2 built it there), takes 10 steps with a save every 3 in
+      the background (each save's blocking
+      snapshot and background write seconds, the step after each save
+      against the others, the pinned host buffers), the guard grading
+      every step (every GOOD-marked dir must verify), then stops: a
+      blocking save, a shard server left behind, exit 143;
+   b. successor A loads the kernels from the same cache (every
+      incarnation must: build seconds < 1), restores every state from the
+      peer (handoff seconds and bytes), bit-equal to the stopping
+      incarnation's state and to a storage restore of the same
+      checkpoint (its seconds), takes 3 steps and stops the same way;
+      the first shard server exits on the successor's /done;
+   c. successor B, with handoff.fetch failing, restores from storage
+      bit-equal; a notice (preempt.notice on the listener's first poll)
+      while a periodic write is in flight runs the urgent drain, which
+      joins the write and meets its deadline, the recorder receives
+      /preempt, exit 143; the last shard server exits on B's /done (a
+      rank that gave up on the peer posts it too) and is reaped (this
+      process is the servers' subreaper): none outlives the phase;
+   d. the journal holds incarnation 0's and successor A's spans under
+      one trace id; its per-phase medians are printed.
+9. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
    launches" its count on each rank of 5a, "rescaled_launches" in 5c,
-   "supervised_launches" in phase 6 and "zoo_launches" in each path of
-   phase 7.
+   "supervised_launches" in phase 6, "zoo_launches" in each path of
+   phase 7 and "rescale_launches" in each incarnation of phase 8. The
+   sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
+   own bound, plain version and SDPA on the same inputs; the f32 row's
+   "bf16_input_ms" is the f32 kernel on the bf16 input.
 """
 
 import ctypes
@@ -107,18 +140,21 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.parse
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM tensor cores, dense
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def check(cond, message):
@@ -374,15 +410,25 @@ def phase_flash():
             )
             check(not bad.any().item(), f"flash gradient d{name} disagrees")
 
-    # Times at the main path's shape (bf16, causal), all in this run.
+    # Times at the main path's shape (causal), all in this run: the sm90
+    # kernel on bf16, the f32 kernel on f32 (its own dtype; it also takes
+    # the bf16 input, timed beside for the earlier rows), each with the
+    # plain version and SDPA on the same inputs (TF32 off, as the port
+    # runs).
     q, k, v = qkv(main_shape, torch.bfloat16)
+    qf, kf, vf = (t.float() for t in (q, k, v))
     ms = cuda_ms(lambda: _launch(KERNEL_SM90, q, k, v, True, None), 50)
-    f32_kernel_ms = cuda_ms(lambda: _launch(KERNEL, q, k, v, True, None), 20)
+    f32_kernel_ms = cuda_ms(lambda: _launch(KERNEL, qf, kf, vf, True, None), 20)
+    f32_kernel_bf16_ms = cuda_ms(lambda: _launch(KERNEL, q, k, v, True, None), 20)
     plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, True), 5)
-    q4, k4, v4 = (t.reshape(32, 12, 512, 64) for t in (q, k, v))
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 50
-    )
+    f32_plain_ms = cuda_ms(lambda: flash_attention_reference(qf, kf, vf, True), 5)
+
+    def sdpa(a, b, c):
+        a, b, c = (t.reshape(32, 12, 512, 64) for t in (a, b, c))
+        return lambda: F.scaled_dot_product_attention(a, b, c, is_causal=True)
+
+    library_ms = cuda_ms(sdpa(q, k, v), 50)
+    f32_library_ms = cuda_ms(sdpa(qf, kf, vf), 20)
     noncausal_ms = cuda_ms(
         lambda: _launch(KERNEL_SM90, q, k, v, False, None), 50
     )
@@ -390,32 +436,41 @@ def phase_flash():
     # Visible (query, key) pairs under the causal mask; two products of
     # 2*D operations each.
     flops = 4 * head_dim * bh * seq * (seq + 1) / 2
-    nbytes = 4 * bh * seq * head_dim * 2 + bh * seq * 4
-    bound_flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+
+    def bound(element_bytes, peak_flops):
+        nbytes = 4 * bh * seq * head_dim * element_bytes + bh * seq * 4
+        by_flops = flops / peak_flops * 1e3
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        return nbytes, {
+            "bound_ms": max(by_flops, by_bytes),
+            "bound_by": "operations" if by_flops > by_bytes else "bytes",
+        }
+
+    nbytes, bf16_bound = bound(2, PEAK_BF16_FLOPS)
+    f32_bytes, f32_bound = bound(4, PEAK_F32_FLOPS)
     print(
-        f"flash fwd times (bf16 causal {main_shape}): {KERNEL_SM90} "
+        f"flash fwd times (causal {main_shape}): bf16: {KERNEL_SM90} "
         f"{ms:.4f} ms, non-causal {noncausal_ms:.4f} ms; {KERNEL} "
-        f"{f32_kernel_ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa "
-        f"{library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB"
+        f"{f32_kernel_bf16_ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa "
+        f"{library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, "
+        f"bound {bf16_bound}. f32: {KERNEL} {f32_kernel_ms:.4f} ms; plain "
+        f"{f32_plain_ms:.4f} ms; sdpa {f32_library_ms:.4f} ms; "
+        f"{f32_bytes / 1e6:.2f} MB, bound {f32_bound}"
     )
     common = {
         "route": "cuda",
         "replaces": "adaptdl_tpu/ops/flash_attention.py:57",
         "launches": None,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_flops_ms, bound_bytes_ms),
-        "bound_by": (
-            "operations" if bound_flops_ms > bound_bytes_ms else "bytes"
-        ),
-        "library_ms": library_ms,
     }
     return [
         {"name": KERNEL_SM90,
          "source": f"adaptdl_tpu_torch/csrc/{KERNEL_SM90}.cu",
-         "max_abs_err": errs[KERNEL_SM90], "ms": ms, **common},
+         "max_abs_err": errs[KERNEL_SM90], "ms": ms, "plain_ms": plain_ms,
+         "library_ms": library_ms, **bf16_bound, **common},
         {"name": KERNEL, "source": f"adaptdl_tpu_torch/csrc/{KERNEL}.cu",
-         "max_abs_err": errs[KERNEL], "ms": f32_kernel_ms, **common},
+         "max_abs_err": errs[KERNEL], "ms": f32_kernel_ms,
+         "plain_ms": f32_plain_ms, "library_ms": f32_library_ms,
+         "bf16_input_ms": f32_kernel_bf16_ms, **f32_bound, **common},
     ]
 
 
@@ -641,9 +696,13 @@ class SupervisorRecorder:
     answers as the supervisor does: ``PUT /register`` and the
     ``GET /discover`` long poll (per restart group), ``PUT /heartbeat``,
     ``PUT /hints`` (checked with the port's ``validate_hints``: 400 when
-    it refuses), ``GET /config`` (the job's allocation, and its
-    batchConfig once :meth:`serve_batch_config` was called) and
-    ``POST /incident``. Jobs are ``{job_id: allocation}``."""
+    it refuses), ``GET /config`` (the job's allocation, its batchConfig
+    once :meth:`serve_batch_config` was called, its traceParent once
+    :meth:`serve_trace_parent` was), ``POST /incident``, ``PUT`` and
+    ``GET /handoff`` (a shard server's advertisement, kept per job unless
+    its group is older), ``POST /preempt`` (a notice: the job drains and
+    takes the notice's traceParent) and ``PUT /trace`` (spans, kept per
+    job). Jobs are ``{job_id: allocation}``."""
 
     def __init__(self, jobs):
         self.jobs = dict(jobs)
@@ -651,6 +710,9 @@ class SupervisorRecorder:
         self.requests = []  # guarded-by: cond
         self.workers = {}  # (job, group) -> {rank: address}; guarded-by: cond
         self.batch_config = {}  # job -> batchConfig; guarded-by: cond
+        self.trace_parent = {}  # job -> traceParent; guarded-by: cond
+        self.handoff = {}  # job -> {"url", "group"}; guarded-by: cond
+        self.spans = {}  # job -> [span]; guarded-by: cond
         self.server = None
         self.thread = None
         self.url = None
@@ -672,11 +734,14 @@ class SupervisorRecorder:
                     self.command, parts.path.strip("/").split("/"), query, body
                 )
                 data = json.dumps(reply).encode()
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
+                try:
+                    self.send_response(status)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                except (BrokenPipeError, ConnectionResetError):
+                    pass  # a client that stopped waiting (an exiting worker)
 
             do_GET = do_PUT = do_POST = _answer
 
@@ -698,6 +763,10 @@ class SupervisorRecorder:
     def serve_batch_config(self, job, config):
         with self.cond:
             self.batch_config[job] = dict(config)
+
+    def serve_trace_parent(self, job, traceparent):
+        with self.cond:
+            self.trace_parent[job] = traceparent
 
     def handle(self, method, path, query, body):
         """(status, reply) for one request; every request is recorded."""
@@ -737,14 +806,35 @@ class SupervisorRecorder:
                         "batchConfig": self.batch_config.get(job),
                         "retunes": int(job in self.batch_config),
                         "group": 0,
+                        "traceParent": self.trace_parent.get(job),
                     }
             elif (method, route) == ("POST", "incident"):
                 if not (body or {}).get("kind"):
                     status, reply = 400, {"error": "kind required"}
+            elif (method, route) == ("PUT", "handoff"):
+                with self.cond:
+                    known = self.handoff.get(job)
+                    if known and int(body["group"]) < known["group"]:
+                        status, reply = 404, {"error": "stale group"}
+                    else:
+                        self.handoff[job] = {
+                            "url": body["url"], "group": int(body["group"]),
+                        }
+            elif (method, route) == ("GET", "handoff"):
+                with self.cond:
+                    reply = dict(self.handoff.get(job) or {})
+            elif (method, route) == ("POST", "preempt"):
+                with self.cond:
+                    if (body or {}).get("traceParent"):
+                        self.trace_parent[job] = body["traceParent"]
+                reply = {"ok": True, "draining": True}
+            elif (method, route) == ("PUT", "trace"):
+                with self.cond:
+                    self.spans.setdefault(job, []).extend((body or {}).get("spans") or [])
             elif (method, route) != ("PUT", "heartbeat"):
                 status, reply = 404, {"error": "no such route"}
         elif route in ("register", "discover", "heartbeat", "hints",
-                       "config", "incident"):
+                       "config", "incident", "handoff", "preempt", "trace"):
             reply = {"error": "no such job"}
         with self.cond:
             self.requests.append({
@@ -1019,6 +1109,7 @@ def phase_multi_replica(kernel_rows, recorder):
             ADAPTDL_NUM_REPLICAS=str(replicas),
             ADAPTDL_NUM_RESTARTS=str(restarts),
             ADAPTDL_CHECKPOINT_PATH=os.path.join(root, "ckpt"),
+            ADAPTDL_SHARE_PATH=os.environ["ADAPTDL_SHARE_PATH"],
             **extra,
         )
         start = time.perf_counter()
@@ -1256,18 +1347,19 @@ def phase_supervised(kernel_rows, recorder, main_step_s):
             for batch in loader:
                 i = len(steps) + 1
                 saves = len(saved)
-                # A save lands after a step, before the next batch: the
-                # state here is the state it saved.
-                for name in os.listdir(ckpt_dir):
-                    path = os.path.join(ckpt_dir, name)
-                    if name.startswith("checkpoint-") and path not in saved:
-                        saved[path] = {
-                            "checksums": state_checksums(
-                                model, trainer.optimizer, holder["state"].gns
-                            ),
-                            "step": int(holder["state"].step),
-                            "position": (loader.sampler.epoch, loader.sampler.index),
-                        }
+                # A periodic save snapshots after a step, before the next
+                # batch (its write lands later): the state here is the
+                # state it saved.
+                inflight = checkpoint.inflight_save()
+                path = inflight.path if inflight is not None else None
+                if path is not None and path not in saved:
+                    saved[path] = {
+                        "checksums": state_checksums(
+                            model, trainer.optimizer, holder["state"].gns
+                        ),
+                        "step": int(holder["state"].step),
+                        "position": (loader.sampler.epoch, loader.sampler.index),
+                    }
                 if i == SERVE_BATCH_CONFIG_AFTER + 1:
                     recorder.serve_batch_config(
                         SUPERVISED_JOB, {"atomicBsz": 16, "accumSteps": 1}
@@ -1446,6 +1538,8 @@ def phase_supervised(kernel_rows, recorder, main_step_s):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        # The last periodic save may still be writing into ckpt_dir.
+        checkpoint.wait_for_inflight_save()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
@@ -1814,26 +1908,451 @@ def phase_zoo(kernel_rows):
     return results
 
 
+# -- phase 8: the rescale path ----------------------------------------------
+
+RESCALE_JOB = "smoke/rescale"
+RESCALE_PLAN = {
+    # mode: (restarts, steps taken, step whose body raises the exit flag)
+    "first": (0, 10, 9),
+    "successor": (1, 3, 2),
+    "fallback": (2, 4, None),
+}
+RESCALE_SAVE_EVERY = {"first": 3, "successor": 0, "fallback": 2}
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def rescale_run(mode, root):
+    """One incarnation of phase 8 (``first``, ``successor`` or
+    ``fallback``), a fresh process; rewrites ``root/<mode>.json`` after
+    every step and at exit."""
+    import atexit
+
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch import _signal, checkpoint, env, epoch, handoff, metrics
+    from adaptdl_tpu_torch.data import AdaptiveDataLoader
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config, synthetic_tokens
+    from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.sched import preemption
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, steps, flag_at = RESCALE_PLAN[mode]
+    report = {"mode": mode, "pid": os.getpid(), "steps": [], "saves": []}
+    path = os.path.join(root, f"{mode}.json")
+
+    handles = []  # (step the save followed, its handle)
+
+    def write():
+        report["saves"] = [
+            {"after_step": step, "snapshot_s": h.snapshot_s,
+             "write_s": h.write_s if h.done() else None}
+            for step, h in handles
+        ]
+        report["restart_stats"] = metrics.restart_stats()
+        report["notice"] = preemption.notice_state()
+        report["written"] = time.time()
+        with open(path + ".tmp", "w") as f:
+            json.dump(report, f)
+        os.replace(path + ".tmp", path)
+
+    # The kernel cache on the job's share path, which phase 2 built.
+    hit = all(_build._library_path(n).exists() for n in _build.sources())
+    start = time.perf_counter()
+    _build.build_all()
+    report["build"] = {
+        "dir": str(_build.cache_dir()), "hit": hit,
+        "seconds": time.perf_counter() - start,
+    }
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    config = lm_config(cpu=False, seq_len=512, flash=True)
+
+    def make(seed):
+        model = init_transformer(config, seed=seed, device=device)
+        trainer = ElasticTrainer(
+            lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4),
+            init_batch_size=32, scaling_rule=AdamScale(), precondition="adam",
+            device=device,
+        )
+        trainer.metrics_every = 1  # the guard grades every step
+        holder = {"state": trainer.init_state()}
+        ckpt = trainer.make_checkpoint_state(
+            lambda: holder["state"], lambda s: holder.__setitem__("state", s)
+        )
+        return model, trainer, holder, ckpt
+
+    model, trainer, holder, ckpt = make(seed=100 + env.num_restarts())
+    start = time.perf_counter()
+    report["restored"] = checkpoint.load_state(ckpt)
+    report["restore_s"] = time.perf_counter() - start
+    if report["restored"]:
+        report["restored_checksums"] = state_checksums(
+            model, trainer.optimizer, holder["state"].gns
+        )
+    metrics.ensure_checkpoint_registered()
+    loader = AdaptiveDataLoader(
+        synthetic_tokens(1024, 512, config.vocab_size), batch_size=32
+    )
+    atexit.register(write)
+    per_pass = config.num_layers * 2  # forward + remat recompute
+    _build.reset_launches()
+    for _ in epoch.remaining_epochs_until(1):
+        for batch in loader:
+            n = len(report["steps"]) + 1
+            if n == 1:
+                # Every state is restored now (the epoch's at the loop).
+                report["loaded_from"] = {
+                    k: v if v == checkpoint.HANDOFF_SOURCE else os.path.basename(v)
+                    for k, v in checkpoint._loaded_from.items()
+                }
+                report["handoff"] = handoff.fetch_stats()
+                if mode == "successor":
+                    report["storage"] = storage_restore(make, ckpt)
+            if mode == "fallback" and n == 3:
+                # The save after step 2 is writing: a notice now, on the
+                # listener's first poll.
+                check(
+                    checkpoint.inflight_save() is not None,
+                    "fallback: no write in flight at the notice",
+                )
+                preemption.start_listener(interval=0.05)
+            inflight = checkpoint.inflight_save()
+            if inflight is not None and all(h is not inflight for _, h in handles):
+                handles.append((n - 1, inflight))
+            before = _build.LAUNCHES[KERNEL_SM90]
+            calibrations = len(trainer._calibrated)
+            torch.cuda.synchronize(device)
+            start = time.perf_counter()
+            holder["state"], m = trainer.run_step(holder["state"], batch, loader)
+            torch.cuda.synchronize(device)
+            step_s = time.perf_counter() - start
+            accum = loader.current_accum_steps
+            calibrated = len(trainer._calibrated) - calibrations
+            got = _build.LAUNCHES[KERNEL_SM90] - before
+            expected = per_pass * (
+                accum + 1 + calibrated * (trainer.calibrate_repeats + 1)
+            )
+            check(got == expected, f"{mode} step {n}: {got} flash launches, "
+                  f"expected {expected}")
+            check(_build.LAUNCHES[KERNEL] == 0, f"{mode}: launched {KERNEL}")
+            loss = float(m["loss"])
+            check(math.isfinite(loss), f"{mode} step {n}: loss {loss}")
+            report["steps"].append({
+                "seconds": step_s, "loss": loss, "calibrated": calibrated,
+                "config": [loader.current_atomic_bsz, accum],
+            })
+            report["launches"] = {k: _build.LAUNCHES[k] for k in (KERNEL_SM90, KERNEL)}
+            report["checksums"] = state_checksums(
+                model, trainer.optimizer, holder["state"].gns
+            )
+            report["host_buffer_bytes"] = ckpt.host_buffer_bytes
+            report["last_step_end"] = time.time()
+            write()
+            if n == flag_at:
+                _signal.set_exit_flag(True)
+            check(n < steps + 1, f"{mode}: step {n} ran past the stop")
+    check(False, f"{mode}: the loop ended without a stop")
+
+
+def storage_restore(make, ckpt):
+    """The successor's cross-check: the same checkpoint restored from
+    storage into a fresh trainer; its seconds and checksums."""
+    from adaptdl_tpu_torch import checkpoint, handoff
+
+    handoff.mark_unavailable()
+    ckpt.unregister()
+    model, trainer, holder, other = make(seed=7)
+    start = time.perf_counter()
+    check(checkpoint.load_state(other), "storage restore found nothing")
+    seconds = time.perf_counter() - start
+    source = os.path.basename(checkpoint._loaded_from[other.name])
+    sums = state_checksums(model, trainer.optimizer, holder["state"].gns)
+    other.unregister()
+    checkpoint._registry[ckpt.name] = ckpt
+    del model, trainer, holder, other
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "source": source, "checksums": sums}
+
+
+def _reap(pid, what, timeout=60.0):
+    """Wait for an orphaned shard server (reparented to this process, the
+    subreaper) to exit; its exit status."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            done, status = os.waitpid(pid, os.WNOHANG)
+        except ChildProcessError:
+            check(not os.path.exists(f"/proc/{pid}"), f"{what} {pid} is not reapable")
+            return None
+        if done:
+            return os.waitstatus_to_exitcode(status)
+        time.sleep(0.05)
+    check(False, f"{what} {pid} still runs after {timeout} s")
+
+
+def _children():
+    pids = []
+    for tid in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{tid}/children") as f:
+            pids += [int(p) for p in f.read().split()]
+    return pids
+
+
+def phase_rescale(kernel_rows, recorder):
+    """Phase 8: the rescale path at full width, each incarnation a fresh
+    process under the supervisor recorder, with the kernel cache on the
+    share path, the handoff on and one trace context."""
+    from adaptdl_tpu_torch import checkpoint, handoff, trace
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    # Orphaned shard servers come back to this process, which reaps them.
+    check(libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0,
+          "cannot become the shard servers' subreaper")
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-rs-")
+    ckpt_root = os.path.join(root, "ckpt")
+    decision = trace.new_traceparent()
+    recorder.serve_trace_parent(RESCALE_JOB, decision)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")}
+    common = dict(
+        ADAPTDL_CHECKPOINT_PATH=ckpt_root,
+        ADAPTDL_SHARE_PATH=os.environ["ADAPTDL_SHARE_PATH"],
+        ADAPTDL_TRACE_DIR=os.path.join(root, "trace"),
+        ADAPTDL_TRACEPARENT=decision,
+        ADAPTDL_SUPERVISOR_URL=recorder.url, ADAPTDL_JOB_ID=RESCALE_JOB,
+        ADAPTDL_HEARTBEAT_INTERVAL="1", ADAPTDL_HANDOFF="on",
+        ADAPTDL_GUARD_CONFIRM_STEPS="2",
+        ADAPTDL_PREEMPT_NOTICE_S="30", ADAPTDL_PREEMPT_MARGIN_S="5",
+    )
+
+    def run(mode, **extra):
+        run_env = dict(
+            base, **common, ADAPTDL_NUM_RESTARTS=str(RESCALE_PLAN[mode][0]),
+            ADAPTDL_CKPT_EVERY_STEPS=str(RESCALE_SAVE_EVERY[mode]), **extra,
+        )
+        start = time.perf_counter()
+        code = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--rescale-worker", mode, root],
+            cwd=here, env=run_env, timeout=600,
+        ).returncode
+        wall = time.perf_counter() - start
+        with open(os.path.join(root, f"{mode}.json")) as f:
+            report = json.load(f)
+        # From the end of the last step to the process's exit: the stop;
+        # its last part from the worker's exit hook (after the final save
+        # and the shard server's spawn) on.
+        now = time.time()
+        report["stop_s"] = now - report["last_step_end"]
+        report["teardown_s"] = now - report["written"]
+        check(code == 143, f"rescale {mode} exited {code}, expected 143")
+        check(len(report["steps"]) == RESCALE_PLAN[mode][1],
+              f"rescale {mode} took {len(report['steps'])} steps")
+        check(report["build"]["hit"] and report["build"]["seconds"] < 1.0,
+              f"rescale {mode} rebuilt the kernels: {report['build']}")
+        launches = report["launches"]
+        check(launches[KERNEL_SM90] > 0 and launches[KERNEL] == 0,
+              f"rescale {mode} launches {launches}")
+        print(
+            f"rescale {mode}: {wall:.1f} s, stop {report['stop_s']:.2f} s (exit "
+            f"teardown {report['teardown_s']:.2f} s), kernel "
+            f"build {report['build']['seconds']:.2f} s "
+            f"(cache {'hit' if report['build']['hit'] else 'cold'}, "
+            f"{report['build']['dir']}), steps ms "
+            f"{[round(s['seconds'] * 1e3, 1) for s in report['steps']]}, losses "
+            f"{[round(s['loss'], 4) for s in report['steps']]}, launches {launches}",
+            flush=True,
+        )
+        return report
+
+    def peer(group, timeout=60.0):
+        """The descriptor of incarnation ``group``'s shard server, which
+        the detached child writes once it serves (after its parent's
+        exit, so it is waited for)."""
+        path = os.path.join(ckpt_root, handoff.DESCRIPTOR_NAME)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                with open(path) as f:
+                    body = json.load(f)
+                if body.get("group") == group:
+                    return body
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.05)
+        check(False, f"no shard server of incarnation {group} advertised in {timeout} s")
+
+    start = time.perf_counter()
+    try:
+        # 1. Incarnation 0: periodic saves in the background, then a stop.
+        first = run("first")
+        saves = first["saves"]
+        check(len(saves) == 3 and all(s["write_s"] is not None for s in saves),
+              f"first: saves {saves}")
+        seconds = [s["seconds"] for s in first["steps"]]
+        after = {s["after_step"] + 1 for s in saves}
+        others = [t for i, t in enumerate(seconds, 1) if i not in after and i > 1]
+        for s in saves:
+            print(
+                f"rescale first: save after step {s['after_step']}: blocked "
+                f"{s['snapshot_s'] * 1e3:.1f} ms (snapshot), write "
+                f"{s['write_s']:.2f} s in the background; step "
+                f"{s['after_step'] + 1} {seconds[s['after_step']] * 1e3:.1f} ms "
+                f"against the others' median {_median(others) * 1e3:.1f} ms"
+            )
+        stats = first["restart_stats"]
+        print(
+            f"rescale first: pinned host buffers {first['host_buffer_bytes'] / 1e9:.3f} GB; "
+            f"final blocking save {stats['snapshotS']:.3f} s snapshot + "
+            f"{stats['writeS']:.2f} s write, {stats['saveBytes'] / 1e9:.3f} GB"
+        )
+        dirs = sorted(os.listdir(ckpt_root))
+        for name in dirs:
+            path = os.path.join(ckpt_root, name)
+            if checkpoint.is_good_checkpoint(path):
+                with open(os.path.join(path, "manifest.json")) as f:
+                    states = json.load(f)["states"]
+                check(all(checkpoint._verify(path, n) == "ok" for n in states),
+                      f"GOOD marker on an incomplete {name}")
+        good = [d for d in dirs if checkpoint.is_good_checkpoint(os.path.join(ckpt_root, d))]
+        check(good, f"no save earned a GOOD marker: {dirs}")
+        print(f"rescale first: dirs {dirs}, GOOD on {good} (each complete)")
+        peer0 = peer(0)
+        check(peer0["group"] == 0 and os.path.exists(f"/proc/{peer0['pid']}"),
+              f"first left no shard server: {peer0}")
+
+        # 2. Successor A: every state from the peer, bit-equal to storage.
+        successor = run("successor")
+        sources = set(successor["loaded_from"].values())
+        check(sources == {checkpoint.HANDOFF_SOURCE},
+              f"successor restored from {successor['loaded_from']}")
+        storage = successor["storage"]
+        check(successor["restored_checksums"] == first["checksums"]
+              == storage["checksums"], "successor: peer, storage and the "
+              "stopping incarnation's state differ")
+        moved = successor["handoff"]
+        print(
+            f"rescale successor: {len(successor['loaded_from'])} states from the "
+            f"peer in {moved['seconds']:.2f} s ({moved['bytes'] / 1e9:.3f} GB; "
+            f"trainer state {successor['restore_s']:.2f} s); storage restore of "
+            f"{storage['source']} {storage['seconds']:.2f} s; checksums equal"
+        )
+        code = _reap(peer0["pid"], "the first shard server")
+        check(code in (0, None), f"the first shard server exited {code}")
+        print(f"rescale successor: the first shard server exited ({code}) on /done")
+        peer1 = peer(1)
+        check(peer1["group"] == 1, f"successor's shard server {peer1}")
+
+        # 3. Successor B: a failed fetch falls back to storage; then a
+        # preemption notice while a periodic write is in flight.
+        fallback = run(
+            "fallback",
+            ADAPTDL_FAULT_SPEC="handoff.fetch=fail@1;preempt.notice=fail@1",
+        )
+        check(checkpoint.HANDOFF_SOURCE not in fallback["loaded_from"].values(),
+              f"fallback restored from {fallback['loaded_from']}")
+        check(fallback["restored_checksums"] == successor["checksums"],
+              "fallback: the storage restore differs from the successor's state")
+        notice = fallback["notice"]
+        check(notice and notice["drained"] and notice["drainS"] <= notice["budgetS"],
+              f"fallback: drain {notice}")
+        check(recorder.seen(RESCALE_JOB, "preempt"), "no /preempt reached the supervisor")
+        print(
+            f"rescale fallback: storage restore {fallback['restore_s']:.2f} s, "
+            f"bit-equal; urgent drain {notice['drainS']:.2f} s within its "
+            f"{notice['budgetS']:.0f} s budget"
+        )
+        code = _reap(peer1["pid"], "the successor's shard server")
+        check(code in (0, None), f"the successor's shard server exited {code}")
+        print(f"rescale fallback: the successor's shard server exited ({code}) "
+              "on the fallback's /done")
+
+        # 4. The trace: incarnation 0 and successor A under one trace id.
+        records = trace.read_journal(
+            os.path.join(root, "trace", "trace-smoke-rescale.jsonl")
+        )
+        trace_id = trace.parse_traceparent(decision)[0]
+        by_inc = {}
+        for rec in records:
+            by_inc.setdefault(rec["inc"], []).append(rec)
+        names = {i: {r["name"] for r in recs} for i, recs in by_inc.items()}
+        check({"ckpt.snapshot", "ckpt.write"} <= names.get(0, set())
+              and {"handoff.fetch", "restart.first_step"} <= names.get(1, set()),
+              f"trace journal spans {names}")
+        check({r["trace"] for r in by_inc[0] + by_inc[1]} == {trace_id},
+              "incarnations 0 and 1 are not in one trace")
+        drains = [r for r in by_inc.get(2, []) if r["name"] == "drain.save"]
+        check(len(drains) == 1 and drains[0]["attrs"]["joined_inflight"]
+              and "drain.deadline_exceeded" not in names.get(2, set()),
+              f"drain spans {drains}")
+        summary = trace.phase_summary(by_inc[0] + by_inc[1])
+        print(f"rescale trace {trace_id}: phase medians (s) "
+              f"{ {k: round(v, 4) for k, v in sorted(summary.items())} }")
+        with recorder.cond:
+            flushed = {r.get("inc") for r in recorder.spans.get(RESCALE_JOB, [])}
+        check({0, 1, 2} <= flushed, f"spans reached the supervisor from {flushed}")
+        check(not _children(), f"processes left behind: {_children()}")
+        for row in kernel_rows:
+            row["rescale_launches"] = {
+                mode: report["launches"][row["name"]]
+                for mode, report in (("first", first), ("successor", successor),
+                                     ("fallback", fallback))
+            }
+        print(f"rescale: phase {time.perf_counter() - start:.1f} s")
+    finally:
+        # A failed phase may leave incarnations' shard servers behind.
+        for pid in _children():
+            try:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+            except (ProcessLookupError, ChildProcessError):
+                pass
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
         replica_run(root, successor=mode == "successor")
         return
+    if sys.argv[1:2] == ["--rescale-worker"]:
+        rescale_run(*sys.argv[2:4])
+        return
     if sys.argv[1:] == ["--nccl-check"]:
         nccl_world_one()
         return
+    # The kernel cache lives on the share path (ops/_build.py): phase 2
+    # builds into it, and every later process (phase 5's ranks, phase 8's
+    # incarnations) loads from it.
+    share = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-share-")
+    os.environ["ADAPTDL_SHARE_PATH"] = share
+    try:
+        smoke()
+    finally:
+        shutil.rmtree(share, ignore_errors=True)
+
+
+def smoke():
     smi = phase_device()
     phase_build()
     kernel_rows = phase_flash()
     main_step_s = phase_main_path(kernel_rows)
-    recorder = SupervisorRecorder({PAIR_JOB: ["slot-0"] * 2, SUPERVISED_JOB: ["slot-0"]})
+    recorder = SupervisorRecorder({
+        PAIR_JOB: ["slot-0"] * 2, SUPERVISED_JOB: ["slot-0"],
+        RESCALE_JOB: ["slot-0"],
+    })
     recorder.start()
     try:
         phase_multi_replica(kernel_rows, recorder)
         phase_supervised(kernel_rows, recorder, main_step_s)
+        phase_zoo(kernel_rows)
+        phase_rescale(kernel_rows, recorder)
     finally:
         recorder.stop()
-    phase_zoo(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

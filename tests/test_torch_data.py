@@ -175,3 +175,26 @@ def test_bucketing_never_takes_the_batch_below_the_initial_one(monkeypatch):
         loaders[1]._rank0_decision()
     assert [data.bucket_atomic_bsz(a, minimum=m) for a, m in
             ((3, 4), (8, 9), (120, 121), (130, 129), (500, 100))] == [4, 16, 128, 192, 448]
+
+
+@pytest.mark.parametrize("initial, maximum", [(32, 40), (64, 70)])
+def test_bucketing_keeps_the_batch_within_max_batch_size(
+    monkeypatch, initial, maximum
+):
+    """At 3 replicas the grid point above the optimizer's atomic size
+    can take the global batch past max_batch_size (initial 32, max 40:
+    atomic 11 would round up to 16, a global 48). No grid point lies
+    between the least and the greatest atomic size that keep the batch
+    in [initial, max], so the optimizer's size stays off the grid."""
+    monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "3")
+    loader = data.AdaptiveDataLoader(
+        {"x": np.zeros((1024, 2), np.float32)}, batch_size=initial
+    )
+    loader.autoscale_batch_size(maximum)
+    metrics._state.perf_params = PerfParams(0.01, 0.001, 0.05, 0, 0.05, 0, 1.5)
+    metrics._state.grad_params = GradParams(1.0, 0.001)
+    atomic, accum = loader._rank0_decision()
+    assert initial <= 3 * atomic * (accum + 1) <= maximum
+    assert data.bucket_atomic_bsz(11, minimum=11, maximum=13) == 11
+    assert data.bucket_atomic_bsz(23, minimum=22, maximum=23) == 23
+    assert data.bucket_atomic_bsz(13, minimum=11, maximum=20) == 16

@@ -458,7 +458,7 @@ def _feed_metrics(module, port):
         module.profile_step(bsz, accum, t * (1 + 0.01 * k))
     module.update_grad_params(0.25, 4.0)
     if port:
-        module.record_checkpoint_save(1.25, 4096)
+        module.record_checkpoint_save(1.25, 0.0, {}, total_bytes=4096)
     else:
         module.record_checkpoint_save(1.25, 0.0, {}, kind="full", total_bytes=4096)
     module.record_checkpoint_restore("a", 0.5)

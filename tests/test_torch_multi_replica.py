@@ -728,3 +728,80 @@ def test_accumulator_keeps_updates_a_save_flushed_past_a_replay(
         with acc.synchronized():
             totals.append((opened, acc["n"]))
     assert totals == [(0, 8), (8, 11)]
+
+
+ASYNC_RANK = r"""
+import json, os, sys, time
+import torch
+from adaptdl_tpu_torch import collective
+rank, port, flag, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+collective.initialize("127.0.0.1", port, rank=rank, world_size=2,
+                      device=torch.device("cpu"), local_world_size=2)
+try:
+    report = {}
+    if rank == 1:
+        # Hold back this rank's contribution until rank 0 has looked.
+        deadline = time.monotonic() + 60
+        while not os.path.exists(flag) and time.monotonic() < deadline:
+            time.sleep(0.01)
+    start = time.monotonic()
+    future = collective.allreduce_async(rank + 1, sum)
+    report["return_s"] = time.monotonic() - start
+    report["done_on_return"] = future.done()
+    if rank == 0:
+        time.sleep(0.2)
+        report["done_while_held"] = future.done()
+        open(flag, "w").close()
+    report["async"] = future.result(timeout=60)
+    report["blocking"] = collective.allreduce(rank + 1, sum)
+    report["async_any"] = collective.allreduce_async(rank == 1, any).result(60)
+    report["blocking_any"] = collective.allreduce(rank == 1, any)
+    report["async_group_is_default"] = (
+        collective._async_group is None
+        or collective._async_group == torch.distributed.group.WORLD
+    )
+finally:
+    collective.teardown()
+with open(out, "w") as f:
+    json.dump(report, f)
+"""
+
+
+def test_allreduce_async_returns_before_the_peer_answers(tmp_path):
+    """Rank 0's future is not done while rank 1 holds back its
+    contribution; once it arrives both ranks get what the blocking
+    ``allreduce`` gives, over a gloo group of its own."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    run_env = {k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")}
+    run_env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    flag = tmp_path / "flag"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", ASYNC_RANK, str(rank), str(port), str(flag),
+             str(tmp_path / f"rank{rank}.json")],
+            cwd=REPO, env=run_env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in (0, 1)
+    ]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=120)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert [p.returncode for p in procs] == [0, 0], outputs
+    reports = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in (0, 1)]
+    assert reports[0]["done_on_return"] is False
+    assert reports[0]["done_while_held"] is False
+    for report in reports:
+        assert report["async"] == report["blocking"] == 3
+        assert report["async_any"] is report["blocking_any"] is True
+        assert report["async_group_is_default"] is False

@@ -398,7 +398,7 @@ def _assembled_hints(module, port, monkeypatch, fixed):
         module.profile_step(bsz, accum, t * (1 + 0.02 * k))
     module.update_grad_params(0.12, 3.4)
     if port:
-        module.record_checkpoint_save(2.5, 1 << 20)
+        module.record_checkpoint_save(2.5, 0.0, {}, total_bytes=1 << 20)
     else:
         module.record_checkpoint_save(2.5, 0.0, {}, kind="full", total_bytes=1 << 20)
     module.record_checkpoint_restore("elastic_trainer", 1.5)
