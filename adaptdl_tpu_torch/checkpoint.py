@@ -150,6 +150,11 @@ class CheckpointUnreadableError(RuntimeError):
     """Checkpoints exist on disk but none could be restored."""
 
 
+def registered_states() -> list["State"]:
+    """Every state registered in this process."""
+    return list(_registry.values())
+
+
 def _list_checkpoints(root: str) -> list[tuple[int, int, str]]:
     """(restart, seq, path) ascending for every versioned dir."""
     found = []

@@ -26,10 +26,14 @@
   interrupted loop resumes at its saved position.
 
 Each global batch holds ``num_replicas * (accum_steps + 1) * atomic_bsz``
-rows, shuffled per epoch and always whole (a partial trailing batch is
-dropped). With one process per replica, each process yields only its
-own contiguous, replica-major block of ``(accum_steps + 1) * atomic_bsz``
-rows (numpy); the trainer moves it to its device.
+rows, shuffled per epoch (``shuffle``, from ``seed``); a partial
+trailing batch is dropped unless ``drop_last=False``, which yields it
+(the trainer steps it as one microbatch of the rows it holds). With one
+process per replica, each process yields only its own contiguous,
+replica-major block of the batch's rows (numpy); the trainer moves it to
+its device. A dataset is a dict of equal-length arrays, or any
+indexable of samples (dicts, tuples or arrays, stacked per batch). Each
+loader checkpoints under its own ``name``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import logging
 import pickle
 import sys
 import time
+import weakref
 from typing import Any, Iterator
 
 import numpy as np
@@ -57,6 +62,9 @@ LOG = logging.getLogger(__name__)
 
 SPEEDUP_THRESHOLD = 1.05
 _current_dataloader: "AdaptiveDataLoader | None" = None
+# The loader that sizes the job: its batch-size configuration is the one
+# the metrics and hints carry, and its steps alone are profiled.
+_job_sizer: "weakref.ref[AdaptiveDataLoader] | None" = None
 
 
 def _grid_step(atomic_bsz: int) -> int:
@@ -84,11 +92,14 @@ def bucket_atomic_bsz(
 
 
 class ElasticSampler:
-    """Deterministic per-epoch shuffle; ``index`` counts the samples of
+    """Deterministic per-epoch shuffle (from ``(seed, epoch)``; the
+    identity order without ``shuffle``); ``index`` counts the samples of
     the epoch already consumed."""
 
-    def __init__(self, dataset_size: int):
+    def __init__(self, dataset_size: int, shuffle: bool = True, seed: int = 0):
         self.dataset_size = dataset_size
+        self.shuffle = shuffle
+        self.seed = seed
         self.epoch = 0
         self.index = 0  # samples of this epoch already consumed
         self._perm_cache: tuple[int, np.ndarray] | None = None
@@ -98,8 +109,10 @@ class ElasticSampler:
         self.index = index
 
     def _permutation(self) -> np.ndarray:
+        if not self.shuffle:
+            return np.arange(self.dataset_size)
         if self._perm_cache is None or self._perm_cache[0] != self.epoch:
-            rng = np.random.default_rng((0, self.epoch))
+            rng = np.random.default_rng((self.seed, self.epoch))
             self._perm_cache = (self.epoch, rng.permutation(self.dataset_size))
         return self._perm_cache[1]
 
@@ -114,15 +127,31 @@ class AdaptiveDataLoader:
     """Iterates global batches with adaptive sizing and elasticity.
 
     Args:
-      dataset: a dict of equal-length numpy arrays.
+      dataset: a dict of equal-length numpy arrays, or an indexable
+        with ``len`` whose ``dataset[i]`` is a sample (a dict, tuple or
+        array).
       batch_size: the initial (and LR-reference) global batch size.
+      shuffle: deterministic per-epoch shuffling.
+      drop_last: drop the trailing partial batch; with False it is
+        yielded (a multi-process job needs it to split evenly).
+      seed: seeds the per-epoch shuffle.
+      name: checkpoint state name, one per loader of a job.
     """
 
-    def __init__(self, dataset: dict, batch_size: int):
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        seed: int = 0,
+        name: str = "adaptdl_dataloader",
+    ):
         self.dataset = dataset
         self.batch_size = batch_size
-        self._size = len(next(iter(dataset.values())))
-        self.sampler = ElasticSampler(self._size)
+        self.drop_last = drop_last
+        self._size = _dataset_size(dataset)
+        self.sampler = ElasticSampler(self._size, shuffle, seed)
         self._max_batch_size: int | None = None
         self._local_bsz_bounds: tuple[int, int] | None = None
         self._gradient_accumulation = False
@@ -146,8 +175,16 @@ class AdaptiveDataLoader:
         self._restore_gen = 0
         # Only changes after the first decision count as live re-tunes.
         self._decided_once = False
-        metrics.set_batch_size_config(batch_size)
-        self._checkpoint = _DataLoaderCheckpoint("adaptdl_dataloader", self)
+        # The job's first loader sizes it until another one autoscales:
+        # a second loader (an evaluation loop's) would otherwise replace
+        # the batch-size configuration the goodput model is relative to,
+        # and add its steps to the training profile.
+        if not any(
+            isinstance(s, _DataLoaderCheckpoint)
+            for s in checkpoint.registered_states()
+        ):
+            self._size_the_job()
+        self._checkpoint = _DataLoaderCheckpoint(name, self)
         checkpoint.load_state(self._checkpoint)
 
     # -- configuration -------------------------------------------------
@@ -165,11 +202,19 @@ class AdaptiveDataLoader:
         self._max_batch_size = max_batch_size
         self._local_bsz_bounds = local_bsz_bounds
         self._gradient_accumulation = gradient_accumulation
+        self._size_the_job()
+
+    def _sizes_the_job(self) -> bool:
+        return _job_sizer is not None and _job_sizer() is self
+
+    def _size_the_job(self) -> None:
+        global _job_sizer
+        _job_sizer = weakref.ref(self)
         metrics.set_batch_size_config(
             self.batch_size,
-            max_batch_size,
-            local_bsz_bounds,
-            gradient_accumulation,
+            self._max_batch_size,
+            self._local_bsz_bounds,
+            self._gradient_accumulation,
         )
 
     @property
@@ -366,8 +411,12 @@ class AdaptiveDataLoader:
         try:
             self._optimize_batch_size()
             steps = 0
-            while self.sampler.remaining() >= self.current_batch_size:
-                take = self.current_batch_size
+            while True:
+                remaining = self.sampler.remaining()
+                global_bsz = self.current_batch_size
+                if remaining == 0 or (remaining < global_bsz and self.drop_last):
+                    break
+                take = min(global_bsz, remaining)
                 skip_to = self._skip_bound(take)
                 if skip_to is not None:
                     # A poisoned range: jump past it without yielding.
@@ -389,12 +438,13 @@ class AdaptiveDataLoader:
                     if take % num_processes:
                         raise RuntimeError(
                             "global batch not divisible across "
-                            f"{num_processes} processes (take={take})"
+                            f"{num_processes} processes (take={take}); "
+                            "use drop_last=True for multi-process jobs"
                         )
                     block = take // num_processes
                     start = env.process_rank() * block
                     indices = indices[start : start + block]
-                batch = {k: v[indices] for k, v in self.dataset.items()}
+                batch = _gather(self.dataset, indices)
                 config = (self._atomic_bsz, self._accum_steps)
                 restore_gen = self._restore_gen
                 start = time.monotonic()
@@ -405,9 +455,12 @@ class AdaptiveDataLoader:
                     # restored position is authoritative, and the aborted
                     # step neither moves it nor records a profile sample.
                     continue
-                if config == self._last_profiled_config:
+                # Neither a partial batch nor a loader that does not
+                # size the job gives a sample of the configuration.
+                profiled = take == global_bsz and self._sizes_the_job()
+                if profiled and config == self._last_profiled_config:
                     metrics.profile_step(*config, elapsed)
-                else:
+                elif profiled:
                     # A new shape's first step includes its one-off
                     # set-up; recording it would skew the fit.
                     self._last_profiled_config = config
@@ -433,6 +486,28 @@ class AdaptiveDataLoader:
 def current_dataloader() -> "AdaptiveDataLoader | None":
     """The loader whose loop is running, None outside any loop."""
     return _current_dataloader
+
+
+def _dataset_size(dataset) -> int:
+    if isinstance(dataset, dict):
+        return len(next(iter(dataset.values())))
+    return len(dataset)
+
+
+def _gather(dataset, index: np.ndarray):
+    """The rows ``index`` of ``dataset``: a dict of arrays is indexed
+    directly; samples of any other dataset are stacked per field."""
+    if isinstance(dataset, dict):
+        return {k: v[index] for k, v in dataset.items()}
+    samples = [dataset[int(i)] for i in index]
+    first = samples[0]
+    if isinstance(first, dict):
+        return {k: np.stack([s[k] for s in samples]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(
+            np.stack([s[j] for s in samples]) for j in range(len(first))
+        )
+    return np.stack(samples)
 
 
 def _loop_epoch() -> int:

@@ -15,7 +15,11 @@ walks over the vocabulary, so a masked token follows from its context.
 
 Run on the card:   python -m adaptdl_tpu_torch.examples.bert_mlm
 On the CPU (tiny): python -m adaptdl_tpu_torch.examples.bert_mlm --cpu --epochs 1
-``--moe-experts`` (mixture-of-experts FFNs) is not ported yet and raises.
+
+``--moe-experts E`` makes every second block a mixture of E experts
+(one expert shard), routed by ``--moe-router``: ``tokens`` (top-1 token
+choice) or ``experts`` (expert choice, valid here because the encoder
+is bidirectional), as the JAX example.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from adaptdl_tpu_torch.examples._data import stride_walks
 INIT_BATCH = 32
 
 
-def bert_config(cpu: bool):
+def bert_config(cpu: bool, moe_experts: int = 0, moe_router: str = "tokens"):
     import torch
 
     from adaptdl_tpu_torch.models import TransformerConfig
@@ -41,10 +45,16 @@ def bert_config(cpu: bool):
         dtype=torch.float32 if cpu else torch.bfloat16,
         remat=True,
         causal=False,
+        moe_every_n=2 if moe_experts > 0 else 0,
+        moe_num_experts=moe_experts,
+        moe_router=moe_router,
     )
 
 
-def make_trainer(device, cpu: bool, seed: int = 0):
+def make_trainer(
+    device, cpu: bool, seed: int = 0, moe_experts: int = 0,
+    moe_router: str = "tokens",
+):
     """(trainer, holder, checkpoint state) of a fresh encoder on
     ``device``; the checkpoint state is not loaded yet."""
     from adaptdl_tpu_torch.models import init_transformer, mlm_loss_fn
@@ -52,7 +62,7 @@ def make_trainer(device, cpu: bool, seed: int = 0):
     from adaptdl_tpu_torch.scaling_rules import AdamScale
     from adaptdl_tpu_torch.trainer import ElasticTrainer
 
-    config = bert_config(cpu)
+    config = bert_config(cpu, moe_experts, moe_router)
     model = init_transformer(config, seed=seed, device=device)
     trainer = ElasticTrainer(
         mlm_loss_fn(mask_token=config.vocab_size - 1), model,
@@ -84,18 +94,18 @@ def main(argv=None):
     parser.add_argument("--epochs", type=int, default=4)
     parser.add_argument("--seq-len", type=int, default=None)
     parser.add_argument("--moe-experts", type=int, default=0)
+    parser.add_argument(
+        "--moe-router", choices=("tokens", "experts"), default="tokens"
+    )
     args = parser.parse_args(argv)
-    if args.moe_experts:
-        raise NotImplementedError(
-            "--moe-experts: mixture-of-experts transformers are not ported "
-            "to adaptdl_tpu_torch yet"
-        )
 
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch import checkpoint, epoch, metrics
 
     device = adaptdl_tpu_torch.initialize_job(device="cpu" if args.cpu else "cuda")
-    trainer, holder, ckpt = make_trainer(device, args.cpu)
+    trainer, holder, ckpt = make_trainer(
+        device, args.cpu, moe_experts=args.moe_experts, moe_router=args.moe_router
+    )
     checkpoint.load_state(ckpt)
     metrics.ensure_checkpoint_registered()
     loader = make_loader(args.cpu, args.seq_len)

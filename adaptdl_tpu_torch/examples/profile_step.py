@@ -10,7 +10,8 @@ and the flash backward's kernel time, and the kernels that take the
 most time.
 
 Run on the card:  python -m adaptdl_tpu_torch.examples.profile_step
-Option: --accum-steps A (0 or more; atomic batch 32 / (A + 1)).
+Options: --accum-steps A (0 or more; atomic batch 32 / (A + 1)); the LM
+example's --moe-experts, --moe-top-k, --chunked-xent and --remat-policy.
 """
 
 from __future__ import annotations
@@ -80,6 +81,10 @@ def _timeline(prof, phases, nested):
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--accum-steps", type=int, default=0)
+    parser.add_argument("--moe-experts", type=int, default=0)
+    parser.add_argument("--moe-top-k", type=int, default=1)
+    parser.add_argument("--chunked-xent", type=int, default=0)
+    parser.add_argument("--remat-policy", type=str, default=None)
     args = parser.parse_args(argv)
     steps = 5  # timed, then traced
 
@@ -90,6 +95,7 @@ def main(argv=None):
         synthetic_tokens,
     )
     from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.ops.flash_attention import RANGE_BACKWARD
     from adaptdl_tpu_torch.optim import AdamW
     from adaptdl_tpu_torch.scaling_rules import AdamScale
@@ -99,10 +105,14 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     seq_len, global_batch = 512, 32
     atomic = global_batch // (args.accum_steps + 1)
-    config = lm_config(cpu=False, seq_len=seq_len, flash=True)
+    config = lm_config(
+        cpu=False, seq_len=seq_len, flash=True, remat_policy=args.remat_policy,
+        moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+    )
     model = init_transformer(config, seed=0, device=device)
     trainer = trainer_mod.ElasticTrainer(
-        lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
+        chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
+        else lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
         scaling_rule=AdamScale(), precondition="adam", device=device,
     )
     state = trainer.init_state()
@@ -148,7 +158,7 @@ def main(argv=None):
         prof, phases, RANGE_BACKWARD
     )
     per_step = 1e-3 / steps  # profiler microseconds -> ms per step
-    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:16]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -157,7 +167,10 @@ def main(argv=None):
         "card": smi,
         "config": {"layers": config.num_layers, "d_model": config.d_model,
                    "seq_len": seq_len, "global_batch": global_batch,
-                   "accum_steps": args.accum_steps, "dtype": "bfloat16"},
+                   "accum_steps": args.accum_steps, "dtype": "bfloat16",
+                   "moe_experts": args.moe_experts, "moe_top_k": args.moe_top_k,
+                   "chunked_xent": args.chunked_xent,
+                   "remat_policy": args.remat_policy},
         "step_ms": step_ms,
         "tokens_per_s": global_batch * seq_len / (step_ms * 1e-3),
         "traced_window_ms_per_step": window_us * per_step,

@@ -10,9 +10,13 @@ Run on the card:   python -m adaptdl_tpu_torch.examples.transformer_lm
 On the CPU (tiny): python -m adaptdl_tpu_torch.examples.transformer_lm --cpu --epochs 1
 
 Flash attention (the sm_90a kernel) is on by default on the card and
-off on the CPU, where it would run its plain version. The JAX example's
-other flags (sequence/tensor/pipeline/expert sharding, ZeRO, chunked
-cross-entropy, MoE) are not ported yet and raise.
+off on the CPU, where it would run its plain version. As in the JAX
+example: ``--chunked-xent N`` streams the output head in vocab chunks
+of N (``ops/chunked_xent.py``), ``--remat-policy`` names a
+jax.checkpoint_policies policy, and ``--moe-experts E --moe-top-k K``
+makes every second block a mixture of E experts (one expert shard).
+The JAX example's other flags (sequence/tensor/pipeline/expert
+sharding, ZeRO) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ import argparse
 from adaptdl_tpu_torch.examples._data import synthetic_tokens
 
 
-def lm_config(cpu: bool, seq_len: int, flash: bool):
+def lm_config(
+    cpu: bool, seq_len: int, flash: bool, remat_policy: str | None = None,
+    moe_experts: int = 0, moe_top_k: int = 1,
+):
     """The example's model: full width on the card, tiny on the CPU."""
     import torch
 
@@ -38,10 +45,14 @@ def lm_config(cpu: bool, seq_len: int, flash: bool):
         d_ff=128 if cpu else 3072,
         dtype=torch.float32 if cpu else torch.bfloat16,
         remat=True,
+        remat_policy=remat_policy,
         attention_fn=(
             make_flash_attention(block_q=block, block_k=block)
             if flash else None
         ),
+        moe_every_n=2 if moe_experts > 0 else 0,
+        moe_num_experts=moe_experts,
+        moe_top_k=moe_top_k,
     )
 
 
@@ -53,6 +64,10 @@ def main(argv=None):
     parser.add_argument(
         "--flash", action=argparse.BooleanOptionalAction, default=None
     )
+    parser.add_argument("--chunked-xent", type=int, default=0)
+    parser.add_argument("--remat-policy", type=str, default=None)
+    parser.add_argument("--moe-experts", type=int, default=0)
+    parser.add_argument("--moe-top-k", type=int, default=1)
     args, unported = parser.parse_known_args(argv)
     if unported:
         raise NotImplementedError(
@@ -63,6 +78,7 @@ def main(argv=None):
     from adaptdl_tpu_torch import checkpoint, epoch, metrics
     from adaptdl_tpu_torch.data import AdaptiveDataLoader
     from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.optim import AdamW
     from adaptdl_tpu_torch.scaling_rules import AdamScale
     from adaptdl_tpu_torch.trainer import ElasticTrainer
@@ -72,11 +88,15 @@ def main(argv=None):
     )
     seq_len = args.seq_len or (32 if args.cpu else 512)
     flash = args.flash if args.flash is not None else not args.cpu
-    config = lm_config(args.cpu, seq_len, flash)
+    config = lm_config(
+        args.cpu, seq_len, flash, args.remat_policy, args.moe_experts,
+        args.moe_top_k,
+    )
     model = init_transformer(config, seed=0, device=device)
 
     trainer = ElasticTrainer(
-        lm_loss_fn,
+        chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
+        else lm_loss_fn,
         model,
         AdamW(model.parameters(), lr=3e-4),
         init_batch_size=32,

@@ -83,6 +83,30 @@ def init(params, num_groups: int = 1) -> GNSState:
     )
 
 
+def normalize_groups(state: GNSState, num_groups: int) -> GNSState:
+    """``state`` with its four statistics at ``num_groups`` groups: a
+    scalar or one-group statistic (a checkpoint without groups) seeds
+    every group; any other size must already match."""
+
+    def fix(x: torch.Tensor) -> torch.Tensor:
+        if x.numel() == 1:
+            return x.reshape(1).float().expand(num_groups).clone()
+        if tuple(x.shape) != (num_groups,):
+            raise ValueError(
+                f"GNS statistics have {x.shape[0]} groups; trainer "
+                f"declares {num_groups}"
+            )
+        return x
+
+    return replace(
+        state,
+        sqr_biased=fix(state.sqr_biased),
+        sqr_unbias=fix(state.sqr_unbias),
+        var_biased=fix(state.var_biased),
+        var_unbias=fix(state.var_unbias),
+    )
+
+
 def raw_sqr_avg(state: GNSState) -> torch.Tensor:
     """Per-group debiased estimates of |E g|^2, shape (G,)."""
     positive = state.sqr_unbias > 0

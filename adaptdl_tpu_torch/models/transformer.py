@@ -7,7 +7,13 @@ output head through the embedding table. Parameters are float32;
 every matrix product and activation runs in ``config.dtype`` (bf16 on
 the card), exactly where the flax modules cast, and LayerNorm
 statistics are taken in float32. Per-block rematerialisation is
-``torch.utils.checkpoint`` (non-reentrant).
+``torch.utils.checkpoint`` (non-reentrant), selective under a
+``remat_policy`` (:data:`REMAT_POLICIES`).
+
+Mixture-of-experts: every ``moe_every_n``-th block replaces its dense
+FFN with :class:`MoEFFN` (:mod:`adaptdl_tpu_torch.models.moe`, one
+expert shard); :func:`apply_with_moe_aux` returns the weighted
+load-balancing loss beside the output, and both losses add it.
 
 Parameter names map one to one onto the flax tree (see
 :mod:`adaptdl_tpu_torch.weights`); dense kernels are stored as
@@ -16,6 +22,7 @@ Parameter names map one to one onto the flax tree (see
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -23,12 +30,30 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from adaptdl_tpu_torch.device import resolve_device
+from adaptdl_tpu_torch.models.moe import dense_switch_moe
 
 NEG_INF = -1e30
 LN_EPS = 1e-6  # flax LayerNorm's default
+
+_aten = torch.ops.aten
+_DOTS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default)
+_NO_BATCH_DOTS = (_aten.mm.default, _aten.addmm.default)
+# The jax.checkpoint_policies names the JAX model takes, and the ops
+# whose outputs each saves for the backward (the rest is recomputed):
+# None saves everything (no remat at all), () nothing (full-block remat).
+# The flash forward kernel runs outside the dispatcher, so every policy
+# that recomputes a block launches it again.
+REMAT_POLICIES = {
+    "everything_saveable": None,
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+    "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS,
+}
 
 
 @dataclass(frozen=True)
@@ -40,24 +65,55 @@ class TransformerConfig:
     d_ff: int = 3072
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+    # A jax.checkpoint_policies name (REMAT_POLICIES); None recomputes
+    # the whole block, as "nothing_saveable".
+    remat_policy: str | None = None
     # attention_fn(q, k, v) -> out over [batch, heads, seq, head_dim];
     # None selects plain attention, causal unless ``causal`` is False.
     attention_fn: Callable | None = None
     # causal=False gives bidirectional (encoder, BERT-style) attention
     # on the plain path; the MLM objective (mlm_loss_fn) needs it.
     causal: bool = True
-    # Mixture-of-experts blocks belong to a later slice of the port.
+    # Mixture-of-experts: every ``moe_every_n``-th block (1-indexed; 0
+    # disables) runs a Switch/GShard MoE of ``moe_num_experts`` experts
+    # in place of its dense FFN, on this device (no expert sharding).
+    # The losses add ``moe_aux_weight`` times the blocks' load-balancing
+    # losses.
     moe_every_n: int = 0
     moe_num_experts: int = 0
+    moe_capacity_factor: float = 2.0
+    moe_top_k: int = 1
+    moe_aux_weight: float = 1e-2
+    # "tokens" (token choice) or "experts" (expert choice: every expert
+    # ranks the whole token slice, so not causally valid).
+    moe_router: str = "tokens"
+    # Bin the tokens as this many expert-parallel devices would.
+    moe_dense_slices: int = 1
 
     def __post_init__(self):
-        if self.moe_every_n or self.moe_num_experts:
-            raise NotImplementedError(
-                "mixture-of-experts transformers are not ported yet; "
-                "this port runs the dense model only"
-            )
         if self.d_model % self.num_heads:
             raise ValueError("d_model must divide by num_heads")
+        if self.use_moe and self.moe_router == "experts" and self.causal:
+            # Expert choice ranks across the whole slice: a token's
+            # routing would depend on later tokens.
+            raise ValueError(
+                "moe_router='experts' is not causally valid with "
+                "causal=True (expert-choice gating sees future tokens); "
+                "use causal=False (encoder/MLM) or moe_router='tokens'"
+            )
+        if self.remat_policy is not None and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; valid "
+                f"names: {sorted(REMAT_POLICIES)}"
+            )
+
+    @property
+    def use_moe(self) -> bool:
+        return self.moe_every_n > 0 and self.moe_num_experts > 0
+
+    def moe_block(self, layer: int) -> bool:
+        """Whether block ``layer`` (0-indexed) is a MoE block."""
+        return self.use_moe and (layer + 1) % self.moe_every_n == 0
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -143,22 +199,59 @@ class Attention(nn.Module):
         return _dense(out, self.out.weight, cfg.dtype)
 
 
-class Block(nn.Module):
+class MoEFFN(nn.Module):
+    """Switch/GShard FFN over expert-stacked float32 parameters:
+    ``router [d, E]``, ``w_up [E, d, f]``, ``w_down [E, f, d]``. Returns
+    ``(out in config.dtype, aux)``."""
+
     def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.config = config
+        e, d, f = config.moe_num_experts, config.d_model, config.d_ff
+        self.router = nn.Parameter(torch.empty(d, e))
+        self.w_up = nn.Parameter(torch.empty(e, d, f))
+        self.w_down = nn.Parameter(torch.empty(e, f, d))
+
+    def forward(self, x):
+        cfg = self.config
+        out, aux = dense_switch_moe(
+            self.router,
+            {"w_up": self.w_up, "w_down": self.w_down},
+            x.reshape(-1, cfg.d_model),
+            num_slices=cfg.moe_dense_slices,
+            capacity_factor=cfg.moe_capacity_factor,
+            top_k=cfg.moe_top_k,
+            return_aux=True,
+            router_type=cfg.moe_router,
+        )
+        return out.reshape(x.shape).to(cfg.dtype), aux
+
+
+class Block(nn.Module):
+    """A pre-LN block; ``forward`` returns ``(x, aux)``, aux None for a
+    dense FFN."""
+
+    def __init__(self, config: TransformerConfig, use_moe: bool = False):
         super().__init__()
         self.config = config
         self.ln1 = LayerNorm(config.d_model, config.dtype)
         self.attention = Attention(config)
         self.ln2 = LayerNorm(config.d_model, config.dtype)
-        self.ff_up = nn.Linear(config.d_model, config.d_ff, bias=False)
-        self.ff_down = nn.Linear(config.d_ff, config.d_model, bias=False)
+        if use_moe:
+            self.moe = MoEFFN(config)
+        else:
+            self.ff_up = nn.Linear(config.d_model, config.d_ff, bias=False)
+            self.ff_down = nn.Linear(config.d_ff, config.d_model, bias=False)
 
     def forward(self, x, positions):
         dtype = self.config.dtype
         x = x + self.attention(self.ln1(x), positions)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
         y = _dense(self.ln2(x), self.ff_up.weight, dtype)
         y = F.gelu(y, approximate="tanh")
-        return x + _dense(y, self.ff_down.weight, dtype)
+        return x + _dense(y, self.ff_down.weight, dtype), None
 
 
 class TransformerLM(nn.Module):
@@ -167,25 +260,49 @@ class TransformerLM(nn.Module):
         self.config = config
         self.embed = nn.Embedding(config.vocab_size, config.d_model)
         self.layers = nn.ModuleList(
-            Block(config) for _ in range(config.num_layers)
+            Block(config, config.moe_block(i)) for i in range(config.num_layers)
         )
         self.ln_f = LayerNorm(config.d_model, config.dtype)
 
-    def forward(self, tokens, return_hidden: bool = False):
+    def _block(self, layer, x, positions):
+        cfg = self.config
+        saved = REMAT_POLICIES[cfg.remat_policy or "nothing_saveable"]
+        if not (cfg.remat and torch.is_grad_enabled()) or saved is None:
+            return layer(x, positions)
+        if not saved:
+            return checkpoint(layer, x, positions, use_reentrant=False)
+        return checkpoint(
+            layer, x, positions, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, list(saved)
+            ),
+        )
+
+    def forward(self, tokens, return_hidden: bool = False, return_aux: bool = False):
+        """Logits ``[b, s, vocab]`` (float32), or the final hidden states
+        in ``config.dtype`` with ``return_hidden``; with ``return_aux``,
+        ``(that, aux)``: ``moe_aux_weight`` times the sum of the MoE
+        blocks' load-balancing losses (0 for a dense model)."""
         cfg = self.config
         table = self.embed.weight.to(cfg.dtype)
         x = F.embedding(tokens, table)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        auxes = []
         for layer in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, positions, use_reentrant=False)
-            else:
-                x = layer(x, positions)
+            x, aux = self._block(layer, x, positions)
+            if aux is not None:
+                auxes.append(aux)
         x = self.ln_f(x)
         if return_hidden:
-            return x
-        # Tied output head through the embedding table.
-        return torch.matmul(x.to(cfg.dtype), table.t()).float()
+            out = x
+        else:
+            # Tied output head through the embedding table.
+            out = torch.matmul(x.to(cfg.dtype), table.t()).float()
+        if not return_aux:
+            return out
+        if not auxes:
+            return out, torch.zeros((), device=x.device)
+        return out, cfg.moe_aux_weight * sum(auxes)
 
 
 def _reset_parameters(model: TransformerLM, generator: torch.Generator):
@@ -205,6 +322,16 @@ def _reset_parameters(model: TransformerLM, generator: torch.Generator):
                 )
             elif isinstance(module, LayerNorm):
                 module.scale.fill_(1.0)
+            elif isinstance(module, MoEFFN):
+                module.router.normal_(0.0, 0.02, generator=generator)
+                for w in (module.w_up, module.w_down):
+                    # flax's variance_scaling fan-in over [E, in, out]
+                    # counts the expert axis as receptive field.
+                    fan_in = w.shape[0] * w.shape[1]
+                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                    nn.init.trunc_normal_(
+                        w, 0.0, std, -2 * std, 2 * std, generator=generator
+                    )
 
 
 def init_transformer(
@@ -219,15 +346,21 @@ def init_transformer(
     return model.to(device)
 
 
+def apply_with_moe_aux(model: TransformerLM, inputs, return_hidden: bool = False):
+    """``(logits or hidden states, weighted MoE aux loss)``; the aux is
+    0 for a dense model."""
+    return model(inputs, return_hidden=return_hidden, return_aux=True)
+
+
 def lm_loss_fn(model: TransformerLM, batch, generator=None) -> torch.Tensor:
-    """Next-token cross-entropy, the mean over every position;
-    batch = {"tokens": [b, s+1] int}. Draws nothing from
-    ``generator``."""
+    """Next-token cross-entropy, the mean over every position, plus the
+    weighted MoE aux loss; batch = {"tokens": [b, s+1] int}. Draws
+    nothing from ``generator``."""
     tokens = batch["tokens"]
-    logits = model(tokens[:, :-1])
+    logits, aux = apply_with_moe_aux(model, tokens[:, :-1])
     return F.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1).long()
-    )
+    ) + aux
 
 
 def mlm_loss_fn(mask_token: int, mask_rate: float = 0.15) -> Callable:
@@ -250,13 +383,14 @@ def mlm_loss_fn(mask_token: int, mask_rate: float = 0.15) -> Callable:
 
 def masked_lm_loss(model: TransformerLM, tokens, mask, mask_token: int):
     """The MLM loss of ``tokens`` with the positions in ``mask`` (bool,
-    the tokens' shape) replaced by ``mask_token``."""
+    the tokens' shape) replaced by ``mask_token``, plus the weighted MoE
+    aux loss."""
     inputs = torch.where(mask, mask_token, tokens)
-    logits = model(inputs)
+    logits, aux = apply_with_moe_aux(model, inputs)
     losses = F.cross_entropy(
         logits.reshape(-1, logits.shape[-1]),
         tokens.reshape(-1).long(),
         reduction="none",
     )
     weights = mask.reshape(-1).float()
-    return (losses * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (losses * weights).sum() / torch.clamp(weights.sum(), min=1.0) + aux

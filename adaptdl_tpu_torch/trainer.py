@@ -116,14 +116,17 @@ class ElasticTrainer:
         replica and not split into microbatches, forwarded to the loss
         (a GAN's generator, a teacher model).
       device: where the step runs; "cuda" (default) raises without CUDA.
+      param_group_fn: ``(name, param) -> int`` over
+        ``model.named_parameters()``, group ids 0..G-1 with none left
+        out: the noise statistics and the scaling rule's LR factor are
+        kept per group (the optimizer's param groups of the reference).
+        None puts every parameter in group 0.
 
     Each of ``ADAPTDL_NUM_REPLICAS`` replicas is one process of the
     job's process group (``initialize_job`` joins it), stepping on its
     own block of each global batch. ``zero1``, ``zero3``,
     ``zero3_blocks`` and a ``mesh`` belong to parallel modes not ported
-    yet and raise, as do sharded axes in the environment. All
-    parameters form one group for the noise statistics and the LR
-    factor (the JAX trainer's ``param_group_fn`` is not ported yet).
+    yet and raise, as do sharded axes in the environment.
     """
 
     def __init__(
@@ -138,6 +141,7 @@ class ElasticTrainer:
         seed: int = 0,
         has_aux: bool = False,
         device="cuda",
+        param_group_fn: Callable | None = None,
         zero1: bool = False,
         zero3: bool = False,
         zero3_blocks: str | None = None,
@@ -191,8 +195,16 @@ class ElasticTrainer:
             raise ValueError(
                 "the optimizer must hold model.parameters(), in order"
             )
-        self.num_param_groups = 1
-        self._group_ids = [0] * len(named)
+        if param_group_fn is None:
+            self._group_ids = [0] * len(named)
+        else:
+            self._group_ids = [int(param_group_fn(n, p)) for n, p in named]
+        self.num_param_groups = max(self._group_ids, default=0) + 1
+        if set(self._group_ids) != set(range(self.num_param_groups)):
+            raise ValueError(
+                "param_group_fn must assign contiguous group ids "
+                f"0..G-1; got {sorted(set(self._group_ids))}"
+            )
         self.loss_fn = loss_fn
         self.model = model
         self.optimizer = optimizer
@@ -387,7 +399,9 @@ class ElasticTrainer:
         grade the step. ``aux`` is forwarded to the loss when the
         trainer was built with ``has_aux=True``. After a guard rollback
         it returns the restored state (the one the trainer's checkpoint
-        state just set)."""
+        state just set). The trailing partial batch of a
+        ``drop_last=False`` loader steps as one microbatch of the rows
+        it holds, with no calibration."""
         if env.num_replicas() != self.num_replicas:
             raise RuntimeError(
                 f"ADAPTDL_NUM_REPLICAS={env.num_replicas()} but the "
@@ -395,7 +409,10 @@ class ElasticTrainer:
             )
         atomic_bsz = dataloader.current_atomic_bsz
         accum_steps = dataloader.current_accum_steps
-        if atomic_bsz not in self._calibrated:
+        rows = len(next(iter(host_batch.values())))
+        if rows < atomic_bsz * (accum_steps + 1):
+            atomic_bsz, accum_steps = rows, 0
+        elif atomic_bsz not in self._calibrated:
             self.calibrate_accum_time(host_batch, atomic_bsz, aux)
             self._calibrated.add(atomic_bsz)
         state, out = self.train_step(atomic_bsz, accum_steps)(
@@ -467,6 +484,7 @@ class TrainerCheckpoint(checkpoint.State):
             "progress": state.progress,
             "step": state.step,
             "seed": state.seed,
+            "group_ids": list(self._trainer._group_ids),
         }
 
     def snapshot(self) -> dict:
@@ -523,13 +541,28 @@ class TrainerCheckpoint(checkpoint.State):
         self._apply(_decode_meta(json.loads(data["meta"]), rebuild))
 
     def _apply(self, payload: dict) -> None:
-        device = self._trainer.device
+        trainer = self._trainer
+        device = trainer.device
+        saved_ids = payload.get("group_ids")
+        if (
+            saved_ids is not None
+            and max(saved_ids, default=0) > 0
+            and list(saved_ids) != trainer._group_ids
+        ):
+            raise ValueError(
+                "the checkpoint's parameter groups differ from this "
+                "trainer's param_group_fn"
+            )
         state = self._get_state()
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
-        restored = gns.GNSState(
-            **{k: v.to(device) for k, v in payload["gns"].items()},
-            prev_grad=[t.to(device) for t in payload["prev_grad"]],
+        # A checkpoint with one group seeds every group of this trainer.
+        restored = gns.normalize_groups(
+            gns.GNSState(
+                **{k: v.to(device) for k, v in payload["gns"].items()},
+                prev_grad=[t.to(device) for t in payload["prev_grad"]],
+            ),
+            trainer.num_param_groups,
         )
         new_state = replace(
             state,
@@ -540,7 +573,7 @@ class TrainerCheckpoint(checkpoint.State):
             host_step=int(payload["step"]),
         )
         self._set_state(new_state)
-        self._trainer._restored_state = new_state
+        trainer._restored_state = new_state
 
 
 def _encode_meta(obj, tensors: list):

@@ -32,6 +32,9 @@ flax                              port
 ``layer_i/attention/out/kernel``  ``layers.i.attention.out.weight``
 ``layer_i/ff_up/kernel``          ``layers.i.ff_up.weight``
 ``layer_i/ff_down/kernel``        ``layers.i.ff_down.weight``
+``layer_i/moe/router [d, E]``     ``layers.i.moe.router`` (as is)
+``layer_i/moe/w_up [E, d, f]``    ``layers.i.moe.w_up`` (as is)
+``layer_i/moe/w_down [E, f, d]``  ``layers.i.moe.w_down`` (as is)
 ================================  ===================================
 
 """
@@ -65,12 +68,16 @@ def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
         state[prefix + "attention.out.weight"] = _tensor(
             np.asarray(p["attention"]["out"]["kernel"]).T
         )
-        state[prefix + "ff_up.weight"] = _tensor(
-            np.asarray(p["ff_up"]["kernel"]).T
-        )
-        state[prefix + "ff_down.weight"] = _tensor(
-            np.asarray(p["ff_down"]["kernel"]).T
-        )
+        if "moe" in p:
+            for leaf in ("router", "w_up", "w_down"):
+                state[prefix + "moe." + leaf] = _tensor(p["moe"][leaf])
+        else:
+            state[prefix + "ff_up.weight"] = _tensor(
+                np.asarray(p["ff_up"]["kernel"]).T
+            )
+            state[prefix + "ff_down.weight"] = _tensor(
+                np.asarray(p["ff_down"]["kernel"]).T
+            )
         layer += 1
     return state
 

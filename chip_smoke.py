@@ -121,13 +121,46 @@ Phases (any failure exits non-zero before the result line):
       process is the servers' subreaper): none outlives the phase;
    d. the journal holds incarnation 0's and successor A's spans under
       one trace id; its per-phase medians are printed.
-9. result: the kernels line, the card line, then the device line. Each
+9. options: the LM's one-card options, each part a fresh job with the
+   flash launch counts reset just before and read just after it (no part
+   may launch the f32 kernel). First, the index-form MoE FFN (full width's
+   d and f, 8 experts) against its one-hot plain version on the card at
+   2048 tokens, token choice top-2 and expert choice: routing bit-equal,
+   outputs within 1e-5 of the largest; then
+   a. the full-width MoE LM (8 experts top-2 every second block, chunked
+      head 4096, flash, remat) through initialize_job ->
+      AdaptiveDataLoader -> run_step, 6 steps at (32, 0): finite losses,
+      sm90 launches 24 per step plus 96 for the calibration; the median
+      step, tokens/s, MFU through adaptdl_tpu_torch.flops (and by 6N +
+      12LdS), peak memory, the weighted aux loss and the share of dropped
+      (token, choice) pairs;
+   b. the chunked head against the dense head on the dense main-path LM:
+      4 bare train_step runs each at (32, 0) from AdaptiveBPTTLoader over
+      a flat corpus; peak memory, step time, and the first step's losses
+      within 2^-7 of the largest logit (the dense head rounds to bf16);
+   c. remat policies nothing_saveable, dots_with_no_batch_dims_saveable
+      and everything_saveable on the dense main-path LM: gradients within
+      2^-16 (relative to each tensor's largest) of today's remat, then 4
+      bare steps each: peak memory, step time, sm90 launches per step (24,
+      24, 12); two flash forwards of one input are bit-equal;
+   d. BERT MLM with 8 experts every second block under expert-choice
+      routing (the example's make_trainer and make_loader), 4 steps, aux 0;
+   e. the MoE LM's trainer (full width, depth 4) with the expert weights
+      in parameter group 1: GNS state of shape (2,), finite LR factors;
+      every parameter in group 0 is bit-equal to no groups after 3 steps;
+   f. tutorial step 5 on the card: one epoch, a save, and a restart that
+      restores both loaders (train and "eval-loader") and runs epoch 1
+      with its evaluation (accuracy > 0.5).
+10. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
    launches" its count on each rank of 5a, "rescaled_launches" in 5c,
    "supervised_launches" in phase 6, "zoo_launches" in each path of
-   phase 7 and "rescale_launches" in each incarnation of phase 8. The
+   phase 7, "rescale_launches" in each incarnation of phase 8 and
+   "options_launches" in each part of phase 9 (its MoE LM's steps and
+   calibration alone under "moe_lm_steps"; per bare step under each remat
+   policy under "remat_per_step"). The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
    own bound, plain version and SDPA on the same inputs; the f32 row's
    "bf16_input_ms" is the f32 kernel on the bf16 input.
@@ -2314,6 +2347,540 @@ def phase_rescale(kernel_rows, recorder):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 9: the LM's one-card options ---------------------------------------
+
+OPTIONS_JOB_STEPS = 6  # MoE LM steps after calibration
+OPTIONS_BARE_STEPS = 4  # bare train_step runs per head / policy (first warms up)
+OPTIONS_POLICIES = (
+    "nothing_saveable", "dots_with_no_batch_dims_saveable", "everything_saveable",
+)
+OPTIONS_GROUPS_LAYERS = 4  # depth of 9e's trainers (2 MoE blocks), full width
+MOE_CHECK_TOKENS = 2048  # tokens of the index-vs-one-hot check
+
+
+def _moe_lm_config(**kw):
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config
+
+    return dataclasses.replace(
+        lm_config(cpu=False, seq_len=512, flash=True, moe_experts=8, moe_top_k=2), **kw
+    )
+
+
+def options_moe_check(device):
+    """The index-form MoE FFN against its one-hot plain version on the
+    card, at the full width's d, f, 8 experts and the reduced token count
+    MOE_CHECK_TOKENS (the one-hot tensors are s x E x C floats): routing
+    bit-equal, outputs within 1e-5 of the largest output (float32
+    accumulation order; TF32 is off)."""
+    from adaptdl_tpu_torch.models import moe
+    from adaptdl_tpu_torch.models.transformer import MoEFFN
+
+    config = _moe_lm_config()
+    layer = MoEFFN(config)
+    with torch.no_grad():
+        layer.router.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(9))
+        for w in (layer.w_up, layer.w_down):
+            w.normal_(0.0, (w.shape[0] * w.shape[1]) ** -0.5,
+                      generator=torch.Generator().manual_seed(w.shape[1]))
+    layer = layer.to(device)
+    x = torch.randn(MOE_CHECK_TOKENS, config.d_model,
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    params = {"w_up": layer.w_up, "w_down": layer.w_down}
+    result = {}
+    with torch.no_grad():
+        for router, top_k in (("tokens", 2), ("experts", 1)):
+            cap = moe.capacity(router, 2.0, top_k, MOE_CHECK_TOKENS, 8)
+            routing = moe.route(x, layer.router, 8, cap, top_k, router)
+            if router == "experts":
+                dispatch, combine, _ = moe.expert_choice_routing_onehot(x, layer.router, 8, cap)
+            else:
+                dispatch, combine, _ = moe.routing_onehot(x, layer.router, 8, cap, top_k)
+            got_d, got_c = moe.onehot_from_routing(routing, MOE_CHECK_TOKENS, 8, cap)
+            check(torch.equal(got_d, dispatch) and torch.equal(got_c, combine),
+                  f"MoE {router} routing differs from the one-hot version")
+            kw = dict(top_k=top_k, router_type=router)
+            ref = moe.dense_switch_moe_reference(layer.router, params, x, **kw)
+            out = moe.dense_switch_moe(layer.router, params, x, **kw)
+            err = (out - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            ms = cuda_ms(lambda: moe.dense_switch_moe(layer.router, params, x, **kw), 5)
+            plain_ms = cuda_ms(
+                lambda: moe.dense_switch_moe_reference(layer.router, params, x, **kw), 5
+            )
+            print(
+                f"options: MoE FFN {router} top-{top_k} at {MOE_CHECK_TOKENS} tokens x "
+                f"{config.d_model} (C {cap}): routing bit-equal to one-hot, max|index - "
+                f"one-hot| {err:.3g} (tol 1e-5 x {scale:.3g}); {ms:.3f} ms against "
+                f"one-hot {plain_ms:.3f} ms"
+            )
+            check(torch.isfinite(out).all().item() and err <= 1e-5 * scale,
+                  f"MoE {router}: index form off its one-hot version by {err}")
+            result[router] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return result
+
+
+def _routing_report(model, tokens):
+    """(weighted aux, share of (token, choice) pairs dropped, share of
+    tokens no kept pair routes) of one forward, from the MoE blocks'
+    inputs captured by hooks."""
+    from adaptdl_tpu_torch.models import moe
+    from adaptdl_tpu_torch.models.transformer import MoEFFN, apply_with_moe_aux
+
+    cfg = model.config
+    seen = []
+    hooks = [
+        m.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+        for m in model.modules() if isinstance(m, MoEFFN)
+    ]
+    try:
+        with torch.no_grad():
+            _, aux = apply_with_moe_aux(model, tokens)
+            kept = total = unrouted = tokens_seen = 0
+            for x, layer in zip(seen, (m for m in model.modules() if isinstance(m, MoEFFN))):
+                flat = x.reshape(-1, cfg.d_model)
+                cap = moe.capacity(cfg.moe_router, cfg.moe_capacity_factor,
+                                   cfg.moe_top_k, flat.shape[0], cfg.moe_num_experts)
+                routing = moe.route(flat, layer.router, cfg.moe_num_experts, cap,
+                                    cfg.moe_top_k, cfg.moe_router)
+                kept += int(routing.kept.sum())
+                total += routing.kept.numel()
+                routed = torch.unique(routing.token[routing.kept]).numel()
+                unrouted += flat.shape[0] - routed
+                tokens_seen += flat.shape[0]
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(aux), 1.0 - kept / total, unrouted / tokens_seen
+
+
+def options_moe_lm(device):
+    """9a: the full-width MoE LM with the chunked head through
+    initialize_job -> AdaptiveDataLoader -> run_step."""
+    from adaptdl_tpu_torch import checkpoint, flops, metrics
+    from adaptdl_tpu_torch.data import AdaptiveDataLoader
+    from adaptdl_tpu_torch.examples.transformer_lm import synthetic_tokens
+    from adaptdl_tpu_torch.models import init_transformer
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-moe-")
+    try:
+        config = _moe_lm_config()
+        model = init_transformer(config, seed=0, device=device)
+        n_params = sum(p.numel() for p in model.parameters())
+        trainer = ElasticTrainer(
+            chunked_lm_loss_fn(4096), model, AdamW(model.parameters(), lr=3e-4),
+            init_batch_size=32, scaling_rule=AdamScale(), precondition="adam",
+            device=device,
+        )
+        holder = {"state": trainer.init_state()}
+        ckpt = trainer.make_checkpoint_state(
+            lambda: holder["state"], lambda s: holder.__setitem__("state", s)
+        )
+        check(not checkpoint.load_state(ckpt), "fresh run found a checkpoint")
+        metrics.ensure_checkpoint_registered()
+        dataset = synthetic_tokens(32 * (OPTIONS_JOB_STEPS + 2), 512, config.vocab_size)
+        loader = AdaptiveDataLoader(dataset, batch_size=32)
+        _build.reset_launches()
+        losses, seconds = _drive(trainer, holder, loader, OPTIONS_JOB_STEPS,
+                                 plan=[(32, 0)] * OPTIONS_JOB_STEPS)
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = 2 * config.num_layers  # forward + remat recompute
+        expected = per_step * (OPTIONS_JOB_STEPS + trainer.calibrate_repeats + 1)
+        check(launches.get(KERNEL_SM90, 0) == expected and not launches.get(KERNEL),
+              f"MoE LM launched {launches}, expected {expected} sm90 and 0 f32")
+        aux, dropped, unrouted = _routing_report(
+            model, torch.as_tensor(dataset["tokens"][:32, :-1], device=device)
+        )
+        step_s = _median(seconds[1:])
+        model_flops = flops.transformer_train_flops(config, 32, 512).total
+        peak_flops = flops.device_peak_flops(device)
+        mfu = flops.mfu(model_flops, step_s, device=device)
+        dense_mfu = None
+        dense_formula = (6 * n_params + 12 * config.num_layers * config.d_model * 512) * 32 * 512
+        if peak_flops:
+            dense_mfu = dense_formula / step_s / peak_flops
+        print(
+            f"options: MoE LM ({n_params / 1e6:.1f} M params, 8 experts top-2 every 2nd "
+            f"block, chunked head 4096): losses {[round(x, 4) for x in losses]}; step "
+            f"{step_s * 1e3:.1f} ms (median of steps 2-{OPTIONS_JOB_STEPS}, (32, 0) x 512), "
+            f"{32 * 512 / step_s:.0f} tokens/s, MFU {mfu} ({model_flops / 1e12:.3f} "
+            f"TFLOP/step by flops.py over peak {peak_flops} FLOP/s; 6N+12LdS counts "
+            f"{dense_formula / 1e12:.3f}, MFU {dense_mfu}), peak memory "
+            f"{peak / 2**30:.2f} GiB; aux {aux:.5f} (weighted), dropped (token, choice) "
+            f"pairs {dropped:.4f}, unrouted tokens {unrouted:.4f}; "
+            f"launches {launches}; step times ms {[round(s * 1e3, 1) for s in seconds]}"
+        )
+        check(all(math.isfinite(x) for x in (aux, dropped)), "MoE aux not finite")
+        return {
+            "launches": launches, "step_ms": step_s * 1e3, "mfu": mfu, "peak_gib": peak / 2**30,
+            "aux": aux, "dropped": dropped, "unrouted": unrouted,
+        }
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _bare_steps(trainer, batches):
+    """(losses, seconds, peak bytes, sm90 launches per step) of bare
+    train_step runs at (32, 0), the first a warm-up."""
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL_SM90
+
+    step = trainer.train_step(32, 0)
+    state = trainer.init_state()
+    losses, seconds = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    for batch in batches:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, m = step(state, trainer.to_device(batch))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    launches = _build.LAUNCHES[KERNEL_SM90] / len(batches)
+    return losses, seconds, torch.cuda.max_memory_allocated(), launches
+
+
+def _dense_lm_trainer(device, loss_fn, **config_kw):
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config
+    from adaptdl_tpu_torch.models import init_transformer
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    config = lm_config(cpu=False, seq_len=512, flash=True, **config_kw)
+    model = init_transformer(config, seed=0, device=device)
+    return ElasticTrainer(
+        loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
+        scaling_rule=AdamScale(), precondition="adam", device=device,
+    )
+
+
+def _window_lm_loss(chunked):
+    """The JAX example's loss over {"inputs", "targets"} windows: the
+    dense head (bf16 logits, F.cross_entropy) or the chunked one."""
+    import torch.nn.functional as F
+
+    from adaptdl_tpu_torch.models.transformer import apply_with_moe_aux
+    from adaptdl_tpu_torch.ops.chunked_xent import chunked_softmax_xent
+
+    def loss_fn(model, batch, generator=None):
+        out, aux = apply_with_moe_aux(model, batch["inputs"], return_hidden=chunked)
+        if chunked:
+            losses = chunked_softmax_xent(
+                out.reshape(-1, out.shape[-1]), model.embed.weight,
+                batch["targets"].reshape(-1), 4096,
+            )
+            return losses.mean() + aux
+        return F.cross_entropy(
+            out.reshape(-1, out.shape[-1]), batch["targets"].reshape(-1).long()
+        ) + aux
+
+    return loss_fn
+
+
+def options_heads(device):
+    """9b: the chunked head against the dense head on the main path's
+    dense LM, bare train_step runs at (32, 0) fed by AdaptiveBPTTLoader
+    over a synthetic flat corpus. The two losses of the first step (same
+    weights, same batch) differ by the heads' precision: the dense head
+    rounds both product operands and its output to bf16 (each at most
+    2^-9 relative), the chunked one multiplies a bf16 hidden by the
+    float32 table in float32, as the reference; the bound is 2^-7 of the
+    largest logit."""
+    import numpy as np
+
+    from adaptdl_tpu_torch import metrics
+    from adaptdl_tpu_torch.iterator import AdaptiveBPTTLoader
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-heads-")
+    try:
+        corpus = np.random.default_rng(0).integers(
+            0, 32000, 32 * 512 * OPTIONS_BARE_STEPS + 1
+        )
+        loader = AdaptiveBPTTLoader(corpus, batch_size=32, bptt=512, shuffle=False)
+        batches = []
+        for batch in loader:
+            batches.append(batch)
+        check(len(batches) == OPTIONS_BARE_STEPS and batches[0]["inputs"].shape == (32, 512),
+              f"BPTT loader yielded {len(batches)} batches")
+        result = {}
+        for name in ("dense", "chunked"):
+            trainer = _dense_lm_trainer(device, _window_lm_loss(name == "chunked"))
+            if name == "dense":
+                with torch.no_grad():
+                    first = trainer.to_device(batches[0])
+                    max_logit = trainer.model(first["inputs"]).abs().max().item()
+            losses, seconds, peak, launches = _bare_steps(trainer, batches)
+            result[name] = {"loss": losses[0], "step_ms": _median(seconds[1:]) * 1e3,
+                            "peak_gib": peak / 2**30, "launches": launches}
+            del trainer
+            gc_cuda()
+        diff = abs(result["chunked"]["loss"] - result["dense"]["loss"])
+        tol = 2.0**-7 * max_logit
+        print(
+            f"options: heads at (32, 0) x 512 (AdaptiveBPTTLoader): dense {result['dense']}, "
+            f"chunked 4096 {result['chunked']}; first-step |loss chunked - dense| "
+            f"{diff:.3g} (tol 2^-7 x max|logit| {max_logit:.3g} = {tol:.3g})"
+        )
+        check(diff <= tol, f"chunked head off the dense head by {diff}")
+        return result
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def options_remat(device):
+    """9c: per remat policy on the dense main-path LM, gradients against
+    today's remat on one batch, then bare steps (peak memory, step time,
+    sm90 launches per step: 24 where blocks are recomputed, 12 under
+    everything_saveable). The recompute runs the same kernels on the same
+    inputs, so the gradients agree to float32 reduction order at most:
+    each tensor within 2^-16 of its largest entry."""
+    from adaptdl_tpu_torch import metrics
+    from adaptdl_tpu_torch.examples.transformer_lm import synthetic_tokens
+    from adaptdl_tpu_torch.models import lm_loss_fn
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-remat-")
+    try:
+        # The flash forward is deterministic: a recompute equals the forward.
+        q, k, v = (torch.randn(384, 512, 64, generator=torch.Generator().manual_seed(i))
+                   .to(device, torch.bfloat16) for i in range(3))
+        a, b = (flash_attention_fwd(q, k, v) for _ in range(2))
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              "two flash forwards on one input differ")
+        data = synthetic_tokens(32 * OPTIONS_BARE_STEPS, 512, 32000)
+        batches = [{"tokens": data["tokens"][i * 32:(i + 1) * 32]}
+                   for i in range(OPTIONS_BARE_STEPS)]
+        result, reference = {}, None
+        for policy in (None,) + OPTIONS_POLICIES:
+            trainer = _dense_lm_trainer(device, lm_loss_fn, remat_policy=policy)
+            micro = trainer.to_device(batches[0])
+            _build.reset_launches()
+            loss = lm_loss_fn(trainer.model, micro)
+            grads = torch.autograd.grad(loss, list(trainer.model.parameters()))
+            grad_launches = dict(_build.LAUNCHES)
+            if policy is None:
+                reference = grads
+                del trainer, grads
+                gc_cuda()
+                continue
+            worst = max(
+                ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+                for g, r in zip(grads, reference)
+            )
+            del grads
+            losses, seconds, peak, launches = _bare_steps(trainer, batches)
+            layers = trainer.model.config.num_layers
+            expected = layers if policy == "everything_saveable" else 2 * layers
+            result[policy] = {
+                "step_ms": _median(seconds[1:]) * 1e3, "peak_gib": peak / 2**30,
+                "launches_per_step": launches, "grad_rel_err": worst,
+            }
+            print(f"options: remat {policy}: {result[policy]}, gradient launches "
+                  f"{grad_launches}")
+            check(launches == expected, f"{policy}: {launches} sm90 launches per step, "
+                  f"expected {expected}")
+            check(worst <= 2.0**-16, f"{policy}: gradients off today's remat by {worst}")
+            del trainer
+            gc_cuda()
+        return result
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def options_bert_experts(device):
+    """9d: BERT MLM with 8 experts every second block, expert-choice
+    routing, through the example's make_trainer and make_loader."""
+    from adaptdl_tpu_torch import checkpoint, metrics
+    from adaptdl_tpu_torch.examples import bert_mlm
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-bert-moe-")
+    try:
+        trainer, holder, ckpt = bert_mlm.make_trainer(
+            device, cpu=False, moe_experts=8, moe_router="experts"
+        )
+        checkpoint.load_state(ckpt)
+        metrics.ensure_checkpoint_registered()
+        cfg = trainer.model.config
+        check(cfg.moe_router == "experts" and not cfg.causal, f"BERT config {cfg}")
+        loader = bert_mlm.make_loader(cpu=False)
+        losses, seconds = _drive(trainer, holder, loader, 4)
+        aux, _, unrouted = _routing_report(
+            trainer.model,
+            torch.as_tensor(loader.dataset["tokens"][:32], device=device),
+        )
+        step_s = _median(seconds[1:])
+        peak = torch.cuda.max_memory_allocated()
+        print(
+            f"options: BERT MLM expert choice (8 experts every 2nd block): losses "
+            f"{[round(x, 4) for x in losses]}, step {step_s * 1e3:.1f} ms "
+            f"(({loader.current_atomic_bsz}, {loader.current_accum_steps}) x 512), peak "
+            f"memory {peak / 2**30:.2f} GiB, aux {aux} (expert choice: 0), tokens no "
+            f"expert took {unrouted:.4f}"
+        )
+        check(aux == 0.0, f"expert choice aux {aux}")
+        return {"step_ms": step_s * 1e3, "peak_gib": peak / 2**30}
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def options_groups(device):
+    """9e: the MoE LM's trainer (full width, depth OPTIONS_GROUPS_LAYERS)
+    with expert weights in group 1: GNS state of shape (2,), finite LR
+    factors; everything in group 0 is bit-equal to no groups."""
+    from adaptdl_tpu_torch import metrics
+    from adaptdl_tpu_torch.examples.transformer_lm import synthetic_tokens
+    from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale, RuleContext
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-groups-")
+    try:
+        config = _moe_lm_config(num_layers=OPTIONS_GROUPS_LAYERS)
+        data = synthetic_tokens(32 * 3, 512, 32000)
+        batches = [{"tokens": data["tokens"][i * 32:(i + 1) * 32]} for i in range(3)]
+
+        def run(group_fn):
+            model = init_transformer(config, seed=0, device=device)
+            trainer = ElasticTrainer(
+                lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4),
+                init_batch_size=32, scaling_rule=AdamScale(), precondition="adam",
+                device=device, param_group_fn=group_fn,
+            )
+            state, step = trainer.init_state(), trainer.train_step(16, 1)
+            for batch in batches:
+                state, m = step(state, trainer.to_device(batch))
+            factors = trainer.scaling_rule.lr_factor_groups(RuleContext(
+                scale=float(m["scale"]), batch_size=32, init_batch_size=32,
+                gns_state=state.gns, progress=state.progress,
+            ))
+            return trainer, state, factors
+
+        def experts(name, param):
+            return 1 if name.endswith(("moe.w_up", "moe.w_down")) else 0
+
+        trainer, state, factors = run(experts)
+        sqr = state.gns.sqr_biased
+        check(trainer.num_param_groups == 2 and tuple(sqr.shape) == (2,)
+              and torch.isfinite(factors).all().item() and factors.shape == (2,),
+              f"two groups: gns {tuple(sqr.shape)}, factors {factors}")
+        print(f"options: two groups (experts in group 1): LR factors "
+              f"{factors.tolist()}, raw sqr {sqr.tolist()}")
+        del trainer, state
+        gc_cuda()
+        runs = [run(fn)[:2] for fn in (None, lambda name, p: 0)]
+        (t0, s0), (t1, s1) = runs
+        _equal_states(t0.model, t0.optimizer, t1.model, t1.optimizer, "group 0")
+        g0, g1 = s0.gns.tensors(), s1.gns.tensors()
+        for key in g0:
+            pairs = zip(g0[key], g1[key]) if key == "prev_grad" else [(g0[key], g1[key])]
+            check(all(torch.equal(x, y) for x, y in pairs), f"group 0: gns.{key} differs")
+        print("options: everything in group 0 is bit-equal to no groups "
+              f"(3 steps at (16, 1), depth {OPTIONS_GROUPS_LAYERS})")
+        return {"factors": factors.tolist()}
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def options_tutorial(device):
+    """9f: tutorial step 5 on the card: one epoch, a save, then a
+    restart that restores both loaders and runs the next epoch with its
+    evaluation loop."""
+    from adaptdl_tpu_torch import checkpoint, epoch, guard, metrics
+    from adaptdl_tpu_torch.tutorial import mnist_step_5
+
+    ckpt_dir = _zoo_job("adaptdl-torch-smoke-tutorial-")
+    try:
+        first = mnist_step_5.main(["--epochs", "1"])
+        checkpoint.save_all_states()
+        metrics.join_fit()
+        for reset in (checkpoint._reset_registry, metrics._reset_state,
+                      epoch._reset_state, guard._reset_state):
+            reset()
+        os.environ["ADAPTDL_NUM_RESTARTS"] = "1"
+        try:
+            second = mnist_step_5.main(["--epochs", "2"])
+        finally:
+            del os.environ["ADAPTDL_NUM_RESTARTS"]
+        restored = {n for n in ("adaptdl_dataloader", "eval-loader")
+                    if n in checkpoint._loaded_from}
+        print(f"options: tutorial step 5: {first} then, restored {sorted(restored)}: {second}")
+        check([h["epoch"] for h in first] == [0] and [h["epoch"] for h in second] == [1],
+              f"tutorial epochs {first} {second}")
+        check(restored == {"adaptdl_dataloader", "eval-loader"}, f"restored {restored}")
+        check(second[0]["acc"] > 0.5, f"tutorial accuracy {second[0]['acc']}")
+        return {"acc": second[0]["acc"]}
+    finally:
+        metrics.join_fit()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_options(kernel_rows):
+    """Phase 9: the LM's one-card options, each part with the flash
+    launch counts reset just before and read just after it."""
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    start = time.perf_counter()
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    results = {"moe_check": options_moe_check(device)}
+    parts = {
+        "moe_lm": options_moe_lm, "heads": options_heads, "remat": options_remat,
+        "bert_experts": options_bert_experts, "groups": options_groups,
+        "tutorial": options_tutorial,
+    }
+    launches = {}
+    for name, run in parts.items():
+        part_start = time.perf_counter()
+        _build.reset_launches()
+        results[name] = run(device)
+        launches[name] = dict(_build.LAUNCHES)
+        print(f"options {name}: {time.perf_counter() - part_start:.1f} s, flash launches "
+              f"{launches[name]}")
+    for name in ("bert_experts", "tutorial"):
+        check(not any(launches[name].values()), f"{name} launched {launches[name]}")
+    check(not any(c.get(KERNEL, 0) for c in launches.values()),
+          f"phase 9 launched {KERNEL}: {launches}")
+    for row in kernel_rows:
+        sm90 = row["name"] == KERNEL_SM90
+        row["options_launches"] = {
+            # The MoE LM's steps and calibration alone (9a), then each
+            # part's whole count, and per bare step under each policy.
+            "moe_lm_steps": results["moe_lm"]["launches"].get(row["name"], 0),
+            **{n: c.get(row["name"], 0) for n, c in launches.items()},
+            "remat_per_step": {
+                p: r["launches_per_step"] if sm90 else 0
+                for p, r in results["remat"].items()
+            },
+        }
+    print(f"options: phase {time.perf_counter() - start:.1f} s")
+    return results
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -2353,6 +2920,7 @@ def smoke():
         phase_rescale(kernel_rows, recorder)
     finally:
         recorder.stop()
+    phase_options(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

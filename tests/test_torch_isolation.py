@@ -22,6 +22,14 @@ FORBIDDEN = {
 }
 
 
+# Modules of the MoE, chunked-head, loader-option and tutorial paths, which
+# the walk below must reach.
+NEW_MODULES = (
+    "adaptdl_tpu_torch.models.moe", "adaptdl_tpu_torch.ops.chunked_xent",
+    "adaptdl_tpu_torch.iterator", "adaptdl_tpu_torch.flops",
+) + tuple(f"adaptdl_tpu_torch.tutorial.mnist_step_{i}" for i in range(1, 6))
+
+
 def _port_sources():
     return sorted((REPO / "adaptdl_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"
@@ -35,6 +43,8 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(adaptdl_tpu_torch.__path__, "
         "'adaptdl_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for name in " + repr(NEW_MODULES) + ":\n"
+        "    assert name in sys.modules, name\n"
         "import chip_smoke\n"
         # A supervisor that answers 200 to everything, in a thread.
         "recorder = chip_smoke.SupervisorRecorder({'ns/job': ['slot-0']})\n"
@@ -98,14 +108,17 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "example", ["cifar_resnet18", "ncf", "dcgan", "bert_mlm", "linear_regression"]
+    "example",
+    ["cifar_resnet18", "ncf", "dcgan", "bert_mlm", "linear_regression"]
+    + [f"tutorial.mnist_step_{i}" for i in range(1, 6)],
 )
 def test_zoo_examples_refuse_to_run_without_cuda(monkeypatch, example):
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "1")
-    module = importlib.import_module(f"adaptdl_tpu_torch.examples.{example}")
+    package = "adaptdl_tpu_torch" if "." in example else "adaptdl_tpu_torch.examples"
+    module = importlib.import_module(f"{package}.{example}")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         module.main(["--epochs", "1"])
 

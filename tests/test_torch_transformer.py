@@ -118,5 +118,8 @@ def test_state_dict_covers_every_flax_leaf():
 
 
 def test_moe_config_is_rejected():
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TransformerConfig(moe_every_n=2, moe_num_experts=4)
+    # As the JAX model, the port refuses expert-choice routing on a causal
+    # model; token-choice MoE configs are accepted.
+    with pytest.raises(ValueError, match="not causally valid"):
+        TransformerConfig(moe_every_n=2, moe_num_experts=4, moe_router="experts")
+    assert TransformerConfig(moe_every_n=2, moe_num_experts=4).use_moe

@@ -366,8 +366,10 @@ def test_bert_mlm_example_runs_an_epoch(example_env):
     state = bert_mlm.main(["--cpu", "--epochs", "1", "--seq-len", "8"])
     assert int(state.step) == 4096 // 32
     assert not state.model.config.causal
-    with pytest.raises(NotImplementedError, match="moe-experts"):
-        bert_mlm.main(["--cpu", "--moe-experts", "4"])
+    # --moe-experts runs (tests/test_torch_lm_options.py); a router the JAX
+    # example does not take is refused.
+    with pytest.raises(SystemExit):
+        bert_mlm.main(["--cpu", "--moe-experts", "4", "--moe-router", "nope"])
 
 
 def test_linear_regression_example_converges(example_env):

@@ -27,3 +27,20 @@ def private_tempdir(tmp_path_factory):
             yield path
     finally:
         tempfile.tempdir = previous
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's torch work on one intra-op thread. Under
+    pytest-xdist every worker otherwise starts a thread per core, and the
+    workers' small CPU kernels then contend for the cores: a CPU epoch of
+    the LM example measured 10 s alone and 558 s beside five such
+    workers. Import it into a test module to apply it."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
