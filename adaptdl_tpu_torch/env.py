@@ -34,6 +34,16 @@ def _get_str(name: str, default: str | None = None) -> str | None:
     return value if value not in (None, "") else default
 
 
+def _get_opt_int(name: str) -> int | None:
+    value = os.environ.get(name)
+    return int(value) if value not in (None, "") else None
+
+
+def _get_opt_float(name: str) -> float | None:
+    value = os.environ.get(name)
+    return float(value) if value not in (None, "") else None
+
+
 def checkpoint_path() -> str | None:
     """Directory for elastic checkpoints, shared across restarts."""
     return _get_str("ADAPTDL_CHECKPOINT_PATH")
@@ -301,3 +311,78 @@ def preempt_backoff_after() -> int:
     """Consecutive unreachable polls before the listener backs off to
     the slow cadence; one reachable poll restores the base one."""
     return max(_get_int("ADAPTDL_PREEMPT_BACKOFF_AFTER", 12), 1)
+
+
+# ---- the control plane (``sched/``) -----------------------------------
+
+
+def watch_explain_topk() -> int:
+    """Losing candidates kept per allocator cycle's explain record."""
+    return max(_get_int("ADAPTDL_WATCH_EXPLAIN_TOPK", 3), 0)
+
+
+def lease_ttl() -> float:
+    """Seconds a worker's liveness lease stays valid without renewal
+    before the supervisor declares it dead, marks the job degraded and
+    withdraws its allocation (0 disables lease expiry)."""
+    return _get_float("ADAPTDL_LEASE_TTL", 120.0)
+
+
+def sched_state_dir() -> str | None:
+    """Directory of a durable cluster state (journal and snapshots)."""
+    return _get_str("ADAPTDL_SCHED_STATE_DIR")
+
+
+def alloc_commit_timeout() -> float:
+    """Seconds a newly published allocation has to prove itself (every
+    expected worker process of the new group registering or beating)
+    before the job rolls back to its last committed allocation and the
+    failing slots are struck (0 commits allocations at once)."""
+    return _get_float("ADAPTDL_ALLOC_COMMIT_TIMEOUT", 300.0)
+
+
+def slot_strike_limit() -> int:
+    """Consecutive failed-allocation strikes that quarantine a slot."""
+    return _get_int("ADAPTDL_SLOT_STRIKE_LIMIT", 3)
+
+
+def slot_quarantine_s() -> float:
+    """Seconds a struck-out slot stays quarantined before a probe."""
+    return _get_float("ADAPTDL_SLOT_QUARANTINE_S", 300.0)
+
+
+def sched_reconcile_window() -> float:
+    """Seconds after a recovery during which no lease expires."""
+    return _get_float("ADAPTDL_SCHED_RECONCILE_WINDOW", 30.0)
+
+
+def alloc_dirty_threshold() -> float:
+    """Fraction of dirty jobs past which the allocator runs a full
+    Pollux cycle instead of re-searching only the dirty jobs."""
+    return min(
+        max(_get_float("ADAPTDL_ALLOC_DIRTY_THRESHOLD", 0.25), 0.0), 1.0
+    )
+
+
+def alloc_full_every() -> int:
+    """A full Pollux cycle every Nth allocator cycle (1: always)."""
+    return max(_get_int("ADAPTDL_ALLOC_FULL_EVERY", 10), 1)
+
+
+def hazard_tau_s() -> float:
+    """Time constant of the per-slot-kind reclaim-hazard EWMA."""
+    return max(_get_float("ADAPTDL_HAZARD_TAU_S", 3600.0), 1.0)
+
+
+# Raw runner settings: None when unset; ``sched/config.py`` holds their
+# defaults.
+
+
+def allocator_interval() -> float | None:
+    """Seconds between Pollux cycles."""
+    return _get_opt_float("ADAPTDL_ALLOCATOR_INTERVAL")
+
+
+def max_worker_failures() -> int | None:
+    """Non-graceful worker failures tolerated before a job is Failed."""
+    return _get_opt_int("ADAPTDL_MAX_FAILURES")

@@ -10,6 +10,9 @@ estimator and the scaling rule, and one whose answer is known.
 
 Run on the card:   python -m adaptdl_tpu_torch.examples.linear_regression
 On the CPU:        python -m adaptdl_tpu_torch.examples.linear_regression --cpu
+
+``--steps`` and ``--report-dir`` bound a run under an elastic runner and
+report each incarnation (``examples/_report.py``).
 """
 
 from __future__ import annotations
@@ -80,20 +83,34 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--cpu", action="store_true")
     parser.add_argument("--epochs", type=int, default=10)
+    parser.add_argument("--steps", type=int, default=None)
+    parser.add_argument("--report-dir", type=str, default=None)
     args = parser.parse_args(argv)
 
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch import checkpoint, epoch, metrics
+    from adaptdl_tpu_torch.examples._report import RunReport
 
     device = adaptdl_tpu_torch.initialize_job(device="cpu" if args.cpu else "cuda")
     trainer, holder, ckpt = make_trainer(device)
     checkpoint.load_state(ckpt)
     metrics.ensure_checkpoint_registered()
     loader = make_loader()
-    for e in epoch.remaining_epochs_until(args.epochs):
-        for batch in loader:
-            holder["state"], m = trainer.run_step(holder["state"], batch, loader)
-        print(f"epoch {e}: loss={float(m['loss']):.5f}", flush=True)
+    report = RunReport(args.report_dir, args.steps, trainer.model)
+    report.begin(holder["state"])
+    try:
+        for e in epoch.remaining_epochs_until(args.epochs):
+            if report.done():
+                break
+            for batch in loader:
+                holder["state"], m = trainer.run_step(
+                    holder["state"], batch, loader
+                )
+                if report.note(holder["state"], m, loader):
+                    break
+            print(f"epoch {e}: loss={float(m['loss']):.5f}", flush=True)
+    finally:
+        report.write()
     w = trainer.model.w.detach().cpu().numpy()
     print("w:", w, "target:", TRUE_W)
     metrics.join_fit()

@@ -15,7 +15,8 @@ example: ``--chunked-xent N`` streams the output head in vocab chunks
 of N (``ops/chunked_xent.py``), ``--remat-policy`` names a
 jax.checkpoint_policies policy, and ``--moe-experts E --moe-top-k K``
 makes every second block a mixture of E experts (one expert shard).
-The JAX example's other flags (sequence/tensor/pipeline/expert
+``--steps`` and ``--report-dir`` bound a run under an elastic runner and
+report each incarnation (``examples/_report.py``). The JAX example's other flags (sequence/tensor/pipeline/expert
 sharding, ZeRO) are not ported yet and raise.
 """
 
@@ -68,6 +69,8 @@ def main(argv=None):
     parser.add_argument("--remat-policy", type=str, default=None)
     parser.add_argument("--moe-experts", type=int, default=0)
     parser.add_argument("--moe-top-k", type=int, default=1)
+    parser.add_argument("--steps", type=int, default=None)
+    parser.add_argument("--report-dir", type=str, default=None)
     args, unported = parser.parse_known_args(argv)
     if unported:
         raise NotImplementedError(
@@ -77,6 +80,7 @@ def main(argv=None):
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch import checkpoint, epoch, metrics
     from adaptdl_tpu_torch.data import AdaptiveDataLoader
+    from adaptdl_tpu_torch.examples._report import RunReport
     from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
     from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.optim import AdamW
@@ -118,15 +122,26 @@ def main(argv=None):
     loader.autoscale_batch_size(
         1024, local_bsz_bounds=(4, 128), gradient_accumulation=True
     )
-    for e in epoch.remaining_epochs_until(args.epochs):
-        for batch in loader:
-            holder["state"], m = trainer.run_step(
-                holder["state"], batch, loader
+    report = RunReport(args.report_dir, args.steps, model)
+    report.begin(holder["state"])
+    try:
+        for e in epoch.remaining_epochs_until(args.epochs):
+            if report.done():
+                break
+            for batch in loader:
+                holder["state"], m = trainer.run_step(
+                    holder["state"], batch, loader
+                )
+                if report.note(holder["state"], m, loader):
+                    break
+            print(
+                f"epoch {e}: loss={float(m['loss']):.4f} "
+                f"batch_size={loader.current_batch_size}",
+                flush=True,
             )
-        print(
-            f"epoch {e}: loss={float(m['loss']):.4f} "
-            f"batch_size={loader.current_batch_size}"
-        )
+    finally:
+        report.write()
+    metrics.join_fit()
 
 
 if __name__ == "__main__":

@@ -52,6 +52,27 @@ INJECTION_POINTS = {
     # preempt.notice SIMULATES a reclaim notice in the listener)
     "preempt.notice": "each listener poll for a reclaim notice",
     "preempt.drain_save": "before the urgent drain's blocking save",
+    # supervisor handlers (sched/supervisor.py; injected faults become 500s)
+    "sup.register.pre": "worker registration handler",
+    "sup.discover.pre": "rendezvous long-poll handler",
+    "sup.hints.pre": "sched-hints intake handler",
+    "sup.hints.get.pre": "sched-hints readback handler",
+    "sup.config.pre": "job-config snapshot handler",
+    "sup.heartbeat.pre": "heartbeat lease-renewal handler",
+    "sup.trace.pre": "worker trace-span intake handler",
+    "sup.trace.get.pre": "stitched per-job timeline handler",
+    "sup.preempt.pre": "preemption-notice intake handler",
+    "sup.handoff.pre": "handoff advertisement intake handler",
+    "sup.handoff.get.pre": "handoff discovery handler",
+    "sup.candidate.pre": "candidate-allocation readback handler",
+    "sup.status.pre": "operator status snapshot handler",
+    "sup.incident.pre": "numeric-incident intake handler",
+    # worker lifecycle (sched/local_runner.py, sched/multi_runner.py)
+    "runner.launch.pre": "before a worker subprocess launch",
+    "runner.supervise.poll": "each supervision poll cycle",
+    # transactional rescale (sched/state.py; an injected fault
+    # SUPPRESSES the commit signal so the epoch times out)
+    "alloc.commit_timeout": "before an allocation epoch commits",
 }
 
 

@@ -47,7 +47,8 @@ def exit_code(codes: list[int]) -> int:
     return 0 if all(c == 0 for c in codes) else 1
 
 
-def _free_port(host: str) -> int:
+def pick_unused_port(host: str = "127.0.0.1") -> int:
+    """A port nothing listens on right now (the OS picks it)."""
     with socket.socket() as s:
         s.bind((host, 0))
         return s.getsockname()[1]
@@ -57,7 +58,7 @@ def _rank_environments(base: dict) -> list[dict]:
     """One environment per replica of the job that ``base`` describes."""
     replicas = env.num_replicas()
     host = env.master_addr()
-    port = env.master_port() or _free_port(host)
+    port = env.master_port() or pick_unused_port(host)
     shared = {
         **base,
         "ADAPTDL_NUM_REPLICAS": str(replicas),

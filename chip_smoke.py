@@ -151,7 +151,44 @@ Phases (any failure exits non-zero before the result line):
    f. tutorial step 5 on the card: one epoch, a save, and a restart that
       restores both loaders (train and "eval-loader") and runs epoch 1
       with its evaluation (accuracy > 0.5).
-10. result: the kernels line, the card line, then the device line. Each
+10. control plane: the port's own scheduler on the card (it needs neither
+   JAX nor aiohttp), each job incarnation a fresh `python -m
+   adaptdl_tpu_torch.launch` of an example with --steps and --report-dir,
+   the kernels loaded from the cache on the share path:
+   a. LocalElasticRunner over two slots (both ranks share the one card
+      over gloo: the mechanism, not scaling) runs the full-width flash
+      LM (examples/transformer_lm.py --flash) under the port's
+      supervisor and a Pollux allocator cycling every 2 s. The job's
+      bounds are edited as a user edits them (validate_job_spec, then
+      ClusterState.update): max 1 at the start, min = max = 2 once its
+      hints arrive, min = max = 1 once the two-rank incarnation's hints
+      arrive. Checked: the allocator publishes each allocation and every
+      launch carries out the last one published; replica counts 1, 2, 1,
+      exits 143, 143, 0, the job Succeeded, never degraded; each
+      successor resumes at its predecessor's saved step with finite
+      losses; the two ranks end with equal parameters; each incarnation
+      posted accepted hints; sm90 launches > 0 and f32 launches 0 in
+      every incarnation. Printed: each Pollux cycle (time, mode,
+      allocation, speedups scored, ms), each rescale's seconds from the
+      spec edit to the publish, the SIGTERM, the exit 143 and the
+      successor's first step, the cycle's p50 and max ms, the hint and
+      heartbeat round trips as the job's span journal saw them (p50,
+      p99) and the median step at 1 and 2 ranks;
+   b. MultiJobRunner over two slots, co-scheduling that forces a
+      decision: linear regression (examples/linear_regression.py) starts
+      alone at min = max = 2 and holds both slots; once it posts hints,
+      the LM (min = max = 1) is submitted and linear regression's bounds
+      relaxed to 1..2 in one step, so Pollux must shrink it to place the
+      LM. Checked: both Succeeded with exit 0 and hints, every launch
+      carries out the last published allocation, linear regression ran
+      2 then 1 replicas (exit 143, then 0) and its first restart came
+      from the cycle that placed the LM, each incarnation resumed at the
+      saved step, while both ran each held a slot, linear regression
+      within 0.05 of its true weights, the LM's launches as in 10a.
+      Printed: every restart with the cycle that caused it, the seconds
+      from the LM's submit to the publish, the SIGTERM, the exit 143 and
+      each job's first step.
+11. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
@@ -160,7 +197,8 @@ Phases (any failure exits non-zero before the result line):
    phase 7, "rescale_launches" in each incarnation of phase 8 and
    "options_launches" in each part of phase 9 (its MoE LM's steps and
    calibration alone under "moe_lm_steps"; per bare step under each remat
-   policy under "remat_per_step"). The
+   policy under "remat_per_step") and "control_launches" on each rank of
+   each incarnation of 10a. The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
    own bound, plain version and SDPA on the same inputs; the f32 row's
    "bf16_input_ms" is the f32 kernel on the bf16 input.
@@ -2881,6 +2919,477 @@ def phase_options(kernel_rows):
     return results
 
 
+# -- phase 10: the control plane ------------------------------------------------
+
+CONTROL_JOB = "smoke/elastic-lm"
+CONTROL_STEPS = 50  # the 10a LM's step budget across its incarnations
+CO_LM_STEPS = 12  # 10b's LM
+CO_LINEAR_STEPS = 3000  # 10b's linear regression
+CONTROL_ENV = {
+    "ADAPTDL_FIT_INTERVAL": "2", "ADAPTDL_HEARTBEAT_INTERVAL": "1",
+    "OMP_NUM_THREADS": "4",
+}
+
+
+def _percentile(values, q):
+    values = sorted(values)
+    if not values:
+        return float("nan")
+    return values[min(int(math.ceil(q / 100 * len(values))) - 1, len(values) - 1)]
+
+
+def _reports(report_dir):
+    """Each incarnation's rank reports: {restarts: [report by rank]}."""
+    out = {}
+    for name in sorted(os.listdir(report_dir)):
+        if name.startswith("report-") and name.endswith(".json"):
+            with open(os.path.join(report_dir, name)) as f:
+                report = json.load(f)
+            out.setdefault(report["restarts"], []).append(report)
+    for ranks in out.values():
+        ranks.sort(key=lambda r: r["rank"])
+    return out
+
+
+def _journal(trace_dir, job):
+    from adaptdl_tpu_torch import trace
+
+    return trace.read_journal(
+        os.path.join(trace_dir, f"trace-{job.replace('/', '-')}.jsonl"))
+
+
+def _route_ms(records):
+    """The job's hint and heartbeat round trips as its ranks saw them
+    (the rpc.request spans of its span journal), ms by route, and the
+    accepted hint posts per incarnation."""
+    ms = {"hints": [], "heartbeat": []}
+    hints_ok = {}
+    for rec in records:
+        if rec["name"] != "rpc.request":
+            continue
+        route = rec["attrs"].get("endpoint", "").split("/", 1)[0]
+        if route in ms:
+            ms[route].append(rec["dur"] * 1e3)
+        if route == "hints" and rec["attrs"].get("status") == 200:
+            hints_ok[rec["inc"]] = hints_ok.get(rec["inc"], 0) + 1
+    return ms, hints_ok
+
+
+def _check_incarnations(reports, launches, what):
+    """Every launch's reports: the launched replica count, resumed at the
+    predecessor's saved step, finite losses, equal parameters across
+    ranks, sm90 launches > 0 and f32 launches 0 in every incarnation."""
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    check(sorted(reports) == list(range(len(launches))),
+          f"{what}: reports of incarnations {sorted(reports)}, "
+          f"launches {len(launches)}")
+    end = 0
+    for restarts, launch in enumerate(launches):
+        ranks = reports[restarts]
+        check(len(ranks) == launch["replicas"]
+              and all(r["replicas"] == launch["replicas"] for r in ranks),
+              f"{what}: incarnation {restarts} ran {len(ranks)} ranks, "
+              f"launched {launch['replicas']}")
+        check(all(r["start_step"] == end for r in ranks),
+              f"{what}: incarnation {restarts} resumed at "
+              f"{[r['start_step'] for r in ranks]}, saved {end}")
+        check(all(r["losses"] and r["losses_finite"] for r in ranks),
+              f"{what}: incarnation {restarts} losses not finite")
+        check(len({r["params_sha256"] for r in ranks}) == 1
+              and len({r["end_step"] for r in ranks}) == 1,
+              f"{what}: incarnation {restarts} ranks disagree")
+        for r in ranks:
+            check(r["launches"].get(KERNEL_SM90, 0) > 0
+                  and r["launches"].get(KERNEL, 0) == 0,
+                  f"{what}: incarnation {restarts} rank {r['rank']} launches "
+                  f"{r['launches']}")
+        end = ranks[0]["end_step"]
+    return end
+
+
+def _check_published(events, published, job, what):
+    """Every launch carries out the allocation the allocator published
+    last before it."""
+    launches = [e for e in events if e["event"] == "launch"]
+    for launch in launches:
+        before = [a for at, key, a in published if key == job and at <= launch["time"]]
+        check(before and before[-1] == launch["allocation"],
+              f"{what}: launch {launch} is not the published {before[-1:]}")
+    return launches
+
+
+def _print_cycles(allocator, job, start, state):
+    """Every Pollux decision: when, the allocation, the speedups scored,
+    the cycle's ms."""
+    from adaptdl_tpu_torch.sched.allocator import job_info_from_hints
+
+    for cycle in allocator.cycles:
+        explain = cycle["explain"] or {}
+        terms = (explain.get("jobs") or {}).get(job, {})
+        losers = [l["speedup"] for l in explain.get("losers") or []]
+        scored = (
+            f"speedup {terms.get('speedup')} (winner "
+            f"{(explain.get('winner') or {}).get('speedup')}, losers {losers})"
+            if terms.get("speedup") is not None
+            else "nothing dirty: the allocation kept, nothing scored"
+        )
+        print(f"pollux t={cycle['time'] - start:7.2f} s {cycle['mode']:<11} "
+              f"allocation {cycle['allocations'].get(job)} {scored} "
+              f"cycle {cycle['seconds'] * 1e3:.2f} ms")
+    record = state.get_job(job)
+    if record.hints:
+        info = job_info_from_hints(record.hints, record.spec, 0.0)
+        print(f"pollux {job}: speedup at 1 / 2 replicas from its last hints "
+              f"{info.speedup_fn(1, 1):.4f} / {info.speedup_fn(1, 2):.4f}")
+
+
+def _clean_environ():
+    """This process's environment without the ADAPTDL_* settings earlier
+    phases left (the share path stays: every incarnation loads its
+    kernels from the cache there)."""
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith("ADAPTDL_") or k == "ADAPTDL_SHARE_PATH"}
+
+
+def control_single(root):
+    """10a: one LM job under the port's LocalElasticRunner, 1 -> 2 -> 1."""
+    from adaptdl_tpu_torch.sched.local_runner import LocalElasticRunner
+    from adaptdl_tpu_torch.sched.validator import validate_job_spec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    reports_dir = os.path.join(root, "reports")
+    trace_dir = os.path.join(root, "trace")
+    runner = LocalElasticRunner(
+        os.path.join(here, "adaptdl_tpu_torch", "examples", "transformer_lm.py"),
+        num_chips=2, checkpoint_dir=os.path.join(root, "ckpt"),
+        job_name=CONTROL_JOB, max_replicas=1, allocator_interval=2.0,
+        extra_env=dict(CONTROL_ENV, ADAPTDL_TRACE_DIR=trace_dir),
+        term_grace_period=120.0,
+        script_args=["--flash", "--steps", str(CONTROL_STEPS),
+                     "--report-dir", reports_dir],
+    )
+    edits, errors, degraded = [], [], []
+    start = time.time()
+    done = threading.Event()
+
+    def edit(**bounds):
+        record = runner.state.get_job(CONTROL_JOB)
+        spec = dict(record.spec, **bounds)
+        validate_job_spec(spec)
+        runner.state.update(CONTROL_JOB, spec=spec)
+        edits.append((time.time(), bounds))
+
+    def wait(predicate, what, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while not predicate():
+            if done.is_set() or time.monotonic() > deadline:
+                raise RuntimeError(f"10a: gave up waiting for {what}")
+            if runner.state.get_job(CONTROL_JOB).degraded:
+                degraded.append(time.time())
+            time.sleep(0.1)
+
+    def drive():
+        try:
+            hints = lambda: runner.state.get_job(CONTROL_JOB).hints or {}  # noqa: E731
+            wait(lambda: hints(), "the first incarnation's hints")
+            edit(min_replicas=2, max_replicas=2)
+            wait(lambda: hints().get("maxProfiledReplicas", 0) >= 2,
+                 "the two-rank incarnation's hints")
+            edit(min_replicas=1, max_replicas=1)
+            wait(lambda: runner.state.get_job(CONTROL_JOB).status
+                 in ("Succeeded", "Failed"), "the end")
+        except Exception as exc:  # noqa: BLE001 - checked below
+            errors.append(exc)
+
+    editor = threading.Thread(target=drive, daemon=True)
+    editor.start()
+    try:
+        code = runner.run()
+    finally:
+        done.set()
+        editor.join(timeout=30)
+    record = runner.state.get_job(CONTROL_JOB)
+    check(not errors, f"10a: {errors}")
+    check(code == 0 and record.status == "Succeeded",
+          f"10a: runner returned {code}, job {record.status}")
+    check(not degraded and not record.degraded,
+          "10a: a lease expired (the job went degraded)")
+    launches = _check_published(runner.events, runner.allocator.published,
+                                CONTROL_JOB, "10a")
+    counts = [e["replicas"] for e in launches]
+    check(counts == [1, 2, 1], f"10a: launched replica counts {counts}")
+    exits = [e["code"] for e in runner.events if e["event"] == "exit"]
+    check(exits == [143, 143, 0], f"10a: exit codes {exits}")
+    reports = _reports(reports_dir)
+    end = _check_incarnations(reports, launches, "10a")
+    check(end == CONTROL_STEPS, f"10a: ended at step {end}")
+    check(record.hints is not None, "10a: no hints")
+    records = _journal(trace_dir, CONTROL_JOB)
+    ms, hints_ok = _route_ms(records)
+    check(sorted(hints_ok) == [0, 1, 2],
+          f"10a: accepted hint posts per incarnation {hints_ok}")
+    # The rescales: spec edit -> allocator publish -> SIGTERM -> exit 143
+    # -> the successor's first step.
+    signals = [e for e in runner.events if e["event"] == "signal"]
+    exit_times = [e["time"] for e in runner.events if e["event"] == "exit"]
+    rescales = []
+    for i, (edited, bounds) in enumerate(edits):
+        publish = next(at for at, key, a in runner.allocator.published
+                       if key == CONTROL_JOB and at >= edited)
+        successor = reports[i + 1][0]
+        # The successor's start from its journal: its ranks' first
+        # initialize_job (after the interpreter and imports) and its
+        # slowest rank's restore.
+        spans = [r for r in records if r["inc"] == i + 1]
+        init = min(r["ts"] for r in spans if r["name"] == "bootstrap.init")
+        restore = {}
+        for r in spans:
+            if r["name"] == "ckpt.restore":
+                restore[r["pid"]] = restore.get(r["pid"], 0.0) + r["dur"]
+        rescales.append({
+            "to": counts[i + 1],
+            "publish_s": publish - edited,
+            "sigterm_s": signals[i]["time"] - edited,
+            "exit143_s": exit_times[i] - edited,
+            "initialize_s": init - edited,
+            "restore_s": max(restore.values(), default=0.0),
+            "ready_s": successor["ready_wall"] - edited,
+            "first_step_s": successor["first_step_wall"] - edited,
+        })
+        r = rescales[-1]
+        print(f"10a rescale {counts[i]} -> {counts[i + 1]} ({bounds}): from the "
+              f"spec edit, publish {r['publish_s']:.2f} s, SIGTERM "
+              f"{r['sigterm_s']:.2f} s, exit 143 {r['exit143_s']:.2f} s, the "
+              f"successor's initialize_job {r['initialize_s']:.2f} s, ready "
+              f"(model built, checkpoint restored in {r['restore_s']:.2f} s) "
+              f"{r['ready_s']:.2f} s, its first step (calibration included) "
+              f"{r['first_step_s']:.2f} s")
+    _print_cycles(runner.allocator, CONTROL_JOB, start, runner.state)
+    cycle_ms = [c["seconds"] * 1e3 for c in runner.allocator.cycles]
+    step_ms = {}
+    for ranks in reports.values():
+        # Each incarnation's first step carries its calibration; the
+        # others are keyed by (replicas, atomic batch, accumulation steps).
+        for t, (atomic, accum) in list(zip(ranks[0]["step_s"],
+                                           ranks[0]["step_configs"]))[1:]:
+            key = f"{ranks[0]['replicas']}x({atomic},{accum})"
+            step_ms.setdefault(key, []).append(t * 1e3)
+    summary = {
+        "rescales": rescales,
+        "pollux_cycle_ms": {"p50": _percentile(cycle_ms, 50),
+                            "max": max(cycle_ms), "cycles": len(cycle_ms)},
+        "route_ms": {k: {"p50": _percentile(v, 50), "p99": _percentile(v, 99),
+                         "n": len(v)} for k, v in ms.items()},
+        "step_ms": {k: {"p50": _percentile(v, 50), "n": len(v)}
+                    for k, v in sorted(step_ms.items())},
+        "launches": {str(k): [r["launches"] for r in v] for k, v in reports.items()},
+        "ends": {str(k): v[0]["end_step"] for k, v in reports.items()},
+    }
+    print(f"10a: Pollux cycle ms p50 {summary['pollux_cycle_ms']['p50']:.2f} max "
+          f"{summary['pollux_cycle_ms']['max']:.2f} over {len(cycle_ms)} cycles; "
+          + "; ".join(f"{k} route ms p50 {v['p50']:.2f} p99 {v['p99']:.2f} (n {v['n']})"
+                      for k, v in summary["route_ms"].items())
+          + "; median step ms by replicas x (atomic batch, accum steps) "
+          + ", ".join(f"{k} {v['p50']:.1f} (n {v['n']})"
+                      for k, v in summary["step_ms"].items()))
+    return summary
+
+
+def _restart_causes(runner, start):
+    """Each restart of each job with its cause: the Pollux cycle that
+    published the allocation it was signalled for, and what that cycle
+    did to every job."""
+    cycles = list(runner.allocator.cycles)
+    causes = []
+    for name, events in runner.events.items():
+        for e in events:
+            if e["event"] != "signal":
+                continue
+            i = max(k for k, c in enumerate(cycles)
+                    if c["time"] <= e["time"]
+                    and c["allocations"].get(name) == e["allocation"])
+            moved = {
+                job: (cycles[i - 1]["allocations"].get(job, []) if i else [],
+                      alloc)
+                for job, alloc in cycles[i]["allocations"].items()
+                if not i or cycles[i - 1]["allocations"].get(job, []) != alloc
+            }
+            causes.append({"job": name, "signal_s": e["time"] - start,
+                           "cycle_s": cycles[i]["time"] - start,
+                           "mode": cycles[i]["mode"], "moved": moved})
+            print(f"10b restart of {name} (SIGTERM at t={e['time'] - start:.2f} s): "
+                  f"Pollux cycle {cycles[i]['cycle']} ({cycles[i]['mode']}, "
+                  f"t={cycles[i]['time'] - start:.2f} s, "
+                  f"{cycles[i]['seconds'] * 1e3:.2f} ms) moved "
+                  + ", ".join(f"{job} {len(old)} -> {len(new)}"
+                              for job, (old, new) in moved.items()))
+    return causes
+
+
+def control_multi(root):
+    """10b: co-scheduling that forces a decision. Linear regression holds
+    both slots; the LM arrives; Pollux shrinks linear regression to place
+    it."""
+    from adaptdl_tpu_torch.examples.linear_regression import TRUE_W
+    from adaptdl_tpu_torch.sched.allocator import job_info_from_hints
+    from adaptdl_tpu_torch.sched.multi_runner import JobSpec, MultiJobRunner
+    from adaptdl_tpu_torch.sched.validator import validate_job_spec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lm, linear = "smoke/co-lm", "smoke/co-linear"
+    lm_job = JobSpec(
+        lm, os.path.join(here, "adaptdl_tpu_torch", "examples", "transformer_lm.py"),
+        os.path.join(root, "ckpt-lm"), min_replicas=1, max_replicas=1,
+        extra_env=dict(CONTROL_ENV),
+        script_args=["--flash", "--steps", str(CO_LM_STEPS),
+                     "--report-dir", os.path.join(root, "rep-lm")])
+    linear_job = JobSpec(
+        linear, os.path.join(here, "adaptdl_tpu_torch", "examples", "linear_regression.py"),
+        os.path.join(root, "ckpt-linear"), min_replicas=2, max_replicas=2,
+        extra_env=dict(CONTROL_ENV, ADAPTDL_FIT_INTERVAL="0.5"),
+        script_args=["--epochs", "100000", "--steps", str(CO_LINEAR_STEPS),
+                     "--report-dir", os.path.join(root, "rep-linear")])
+    runner = MultiJobRunner([linear_job], num_chips=2, allocator_interval=1.0)
+    both, errors, submitted = [], [], []
+    done = threading.Event()
+    start = time.time()
+
+    def drive():
+        try:
+            deadline = time.monotonic() + 120
+            while runner.state.get_job(linear).hints is None:
+                if done.is_set() or time.monotonic() > deadline:
+                    raise RuntimeError("10b: linear regression posted no hints")
+                time.sleep(0.05)
+            record = runner.state.get_job(linear)
+            check(record.status == "Running" and len(record.allocation) == 2,
+                  f"10b: linear regression {record.status} on {record.allocation}")
+            spec = dict(record.spec, min_replicas=1)
+            validate_job_spec(spec)
+            # The submit and the edit in one step of the state: no
+            # allocator cycle sees one without the other.
+            with runner.state._cond:
+                runner.submit(lm_job)
+                runner.state.update(linear, spec=spec)
+            submitted.append(time.time())
+            record = runner.state.get_job(linear)
+            info = job_info_from_hints(record.hints, record.spec, 0.0)
+            print(f"10b: the LM submitted at t={submitted[0] - start:.2f} s; linear "
+                  f"regression's speedup at 1 / 2 replicas from its hints "
+                  f"{info.speedup_fn(1, 1):.4f} / {info.speedup_fn(1, 2):.4f}")
+            while not done.is_set():
+                allocs = [runner.state.get_allocation(j) for j in (lm, linear)]
+                statuses = [runner.state.get_job(j).status for j in (lm, linear)]
+                if statuses == ["Running", "Running"]:
+                    both.append([len(a) for a in allocs])
+                time.sleep(0.1)
+        except Exception as exc:  # noqa: BLE001 - checked below
+            errors.append(exc)
+
+    driver = threading.Thread(target=drive, daemon=True)
+    driver.start()
+    try:
+        codes = runner.run()
+    finally:
+        done.set()
+        driver.join(timeout=30)
+    check(not errors, f"10b: {errors}")
+    check(codes == {lm: 0, linear: 0}, f"10b: exit codes {codes}")
+    for job in (lm, linear):
+        record = runner.state.get_job(job)
+        check(record.status == "Succeeded" and record.hints is not None,
+              f"10b: {job} {record.status}, hints {record.hints is not None}")
+        _check_published(runner.events[job], runner.allocator.published,
+                         job, f"10b {job}")
+    causes = _restart_causes(runner, start)
+    linear_launches = [e for e in runner.events[linear] if e["event"] == "launch"]
+    counts = [e["replicas"] for e in linear_launches]
+    exits = [e["code"] for e in runner.events[linear] if e["event"] == "exit"]
+    check(counts[:2] == [2, 1] and exits == [143] * (len(counts) - 1) + [0],
+          f"10b: linear regression launched at {counts}, exits {exits}")
+    # The first restart is Pollux's: the cycle that shrank linear
+    # regression is the one that placed the LM.
+    first = next(c for c in causes if c["job"] == linear)
+    check(first["moved"].get(linear) == (["local"] * 2, ["local"])
+          and first["moved"].get(lm) == ([], ["local"]),
+          f"10b: linear regression's first restart came from {first}")
+    check(both and all(min(c) >= 1 for c in both),
+          f"10b: slots while both ran {both[:3]}")
+    lm_reports = _reports(os.path.join(root, "rep-lm"))
+    _check_incarnations(lm_reports, [e for e in runner.events[lm]
+                                     if e["event"] == "launch"], "10b LM")
+    linear_reports = _reports(os.path.join(root, "rep-linear"))
+    check(sorted(linear_reports) == list(range(len(counts))),
+          f"10b: linear regression reports {sorted(linear_reports)}")
+    end = 0
+    for restarts, ranks in sorted(linear_reports.items()):
+        check(len(ranks) == counts[restarts]
+              and all(r["start_step"] == end and r["losses_finite"] for r in ranks)
+              and len({r["params_sha256"] for r in ranks}) == 1,
+              f"10b: linear regression incarnation {restarts} ran {len(ranks)} ranks "
+              f"from {[r['start_step'] for r in ranks]}, saved {end}")
+        end = ranks[0]["end_step"]
+    check(end == CO_LINEAR_STEPS, f"10b: linear ended at {end}")
+    last = linear_reports[max(linear_reports)][0]
+    w_err = float(max(abs(a - b) for a, b in zip(last["small_params"]["w"], TRUE_W)))
+    check(w_err < 0.05, f"10b: linear regression max|w - w*| {w_err}")
+    # The forced rescale: the LM's submit -> the publish -> SIGTERM ->
+    # exit 143 -> linear regression's first step at one replica.
+    signal_at = next(e["time"] for e in runner.events[linear] if e["event"] == "signal")
+    exit_at = next(e["time"] for e in runner.events[linear] if e["event"] == "exit")
+    shrink = {
+        "publish_s": start + first["cycle_s"] - submitted[0],
+        "sigterm_s": signal_at - submitted[0],
+        "exit143_s": exit_at - submitted[0],
+        "linear_first_step_s": linear_reports[1][0]["first_step_wall"] - submitted[0],
+        "lm_first_step_s": lm_reports[0][0]["first_step_wall"] - submitted[0],
+    }
+    step_ms = {f"{counts[k]}x": _percentile([t * 1e3 for t in v[0]["step_s"][1:]], 50)
+               for k, v in sorted(linear_reports.items()) if len(v[0]["step_s"]) > 1}
+    restarts = {j: runner.restart_counts[j] for j in (lm, linear)}
+    print(f"10b: both Succeeded; linear regression launched at {counts}; from the LM's "
+          f"submit, publish {shrink['publish_s']:.2f} s, SIGTERM {shrink['sigterm_s']:.2f} s, "
+          f"exit 143 {shrink['exit143_s']:.2f} s, linear regression's first step at 1 "
+          f"{shrink['linear_first_step_s']:.2f} s, the LM's first step "
+          f"{shrink['lm_first_step_s']:.2f} s; slots while both ran {both[0]} "
+          f"({len(both)} samples); restarts {restarts}; linear regression median step ms "
+          f"{step_ms}, max|w - w*| {w_err:.4f}; LM losses "
+          f"{[round(x, 4) for x in lm_reports[max(lm_reports)][0]['losses'][-3:]]}")
+    return {"linear_launches": counts, "slots_while_both_ran": both[0],
+            "restarts": restarts, "causes": causes, "shrink": shrink,
+            "linear_step_ms": step_ms, "w_err": w_err}
+
+
+def phase_control(kernel_rows):
+    """Phase 10: the port's control plane on the card."""
+    from adaptdl_tpu_torch.ops import _build
+
+    start = time.perf_counter()
+    saved = dict(os.environ)
+    clean = _clean_environ()
+    os.environ.clear()
+    os.environ.update(clean)
+    root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-cp-")
+    try:
+        single = control_single(os.path.join(root, "a"))
+        print(f"control 10a: {time.perf_counter() - start:.1f} s")
+        multi = control_multi(os.path.join(root, "b"))
+        check(not _children(), f"processes left behind: {_children()}")
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+        shutil.rmtree(root, ignore_errors=True)
+    for row in kernel_rows:
+        row["control_launches"] = {
+            f"incarnation_{k}": [r.get(row["name"], 0) for r in v]
+            for k, v in single["launches"].items()
+        }
+    print(json.dumps({"control_plane": {"single": single, "multi": multi}}))
+    print(f"control: phase {time.perf_counter() - start:.1f} s")
+    _build.reset_launches()
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -2921,6 +3430,7 @@ def smoke():
     finally:
         recorder.stop()
     phase_options(kernel_rows)
+    phase_control(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 from adaptdl_tpu import checkpoint as jax_checkpoint
+from adaptdl_tpu import collective as jax_collective
 from adaptdl_tpu import faults as jax_faults
 from adaptdl_tpu import guard as jax_guard
 from adaptdl_tpu import metrics as jax_metrics
@@ -69,6 +70,9 @@ def _reset_both():
         guard._reset_state, faults.reset, rpc.reset_default_client,
         jax_guard._reset_state, jax_faults.reset, jax_metrics._reset_state,
         jax_rpc.reset_default_client,
+        # An iterated JAX loader leaves a one-process reducer behind,
+        # which processes forked by later tests would inherit.
+        jax_collective.teardown,
     ):
         reset()
     _signal.set_exit_flag(False)

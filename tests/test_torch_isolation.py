@@ -22,12 +22,24 @@ FORBIDDEN = {
 }
 
 
-# Modules of the MoE, chunked-head, loader-option and tutorial paths, which
-# the walk below must reach.
+# The control plane's modules (the port's copies of the JAX package's
+# sched/*), each of which must import without the JAX package or aiohttp.
+SCHED_MODULES = tuple(
+    f"adaptdl_tpu_torch.sched.{name}"
+    for name in (
+        "policy.utils", "policy.nsga2", "policy.speedup", "policy.pollux",
+        "validator", "config", "state", "http_server", "supervisor",
+        "allocator", "local_runner", "multi_runner",
+    )
+) + ("adaptdl_tpu_torch.sched.policy",)
+# Modules of the MoE, chunked-head, loader-option and tutorial paths and
+# the control plane, which the walk below must reach.
 NEW_MODULES = (
     "adaptdl_tpu_torch.models.moe", "adaptdl_tpu_torch.ops.chunked_xent",
     "adaptdl_tpu_torch.iterator", "adaptdl_tpu_torch.flops",
-) + tuple(f"adaptdl_tpu_torch.tutorial.mnist_step_{i}" for i in range(1, 6))
+) + tuple(
+    f"adaptdl_tpu_torch.tutorial.mnist_step_{i}" for i in range(1, 6)
+) + SCHED_MODULES
 
 
 def _port_sources():
@@ -58,6 +70,41 @@ def test_importing_the_port_loads_no_jax():
         "bootstrap.stop_heartbeat()\n"
         "recorder.stop()\n"
         "assert recorder.seen('ns/job', 'heartbeat')\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_control_plane_runs_without_jax_or_aiohttp():
+    """A fresh interpreter imports only the control plane, serves a job's
+    register and hints and runs one Pollux cycle: none of FORBIDDEN
+    loads."""
+    code = (
+        "import importlib, json, sys, urllib.request\n"
+        f"for name in {SCHED_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from adaptdl_tpu_torch.sched.allocator import Allocator\n"
+        "from adaptdl_tpu_torch.sched.policy import NodeInfo, PolluxPolicy\n"
+        "from adaptdl_tpu_torch.sched.state import ClusterState\n"
+        "from adaptdl_tpu_torch.sched.supervisor import Supervisor\n"
+        "state = ClusterState()\n"
+        "state.create_job('ns/job', {'max_replicas': 2})\n"
+        "sup = Supervisor(state)\n"
+        "url = sup.start()\n"
+        "req = urllib.request.Request(url + '/register/ns/job/0/0', "
+        "data=json.dumps({'address': 'h:1'}).encode(), method='PUT')\n"
+        "assert json.load(urllib.request.urlopen(req)) == {'ok': True}\n"
+        "alloc = Allocator(state, {'local': NodeInfo(resources={'tpu': 2})}, "
+        "policy=PolluxPolicy(pop_size=8, generations=2))\n"
+        "assert alloc.optimize_once() == {'ns/job': ['local']}\n"
+        "sup.stop()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -1,8 +1,10 @@
-"""The port as a job of the real JAX supervisor, and its guarded training
-path against the JAX trainer's.
+"""The port as a job of either control plane, the JAX supervisor's or the
+port's own, and its guarded training path against the JAX trainer's.
 
 Protocol, against ``Supervisor(ClusterState())`` started in this process
-(as tests/test_sched_services.py starts it):
+(as tests/test_sched_services.py starts it), each test run once against
+the JAX package's supervisor (``[jax]``) and once against the port's
+(``adaptdl_tpu_torch.sched``, ``[port]``):
 - two port ranks started by ``python -m adaptdl_tpu_torch.launch``
   register their own addresses and rendezvous through ``/discover``
   (the process group's host is the address rank 0 registered),
@@ -47,6 +49,7 @@ import jax.numpy as jnp
 import optax
 
 from adaptdl_tpu import checkpoint as jax_checkpoint
+from adaptdl_tpu import collective as jax_collective
 from adaptdl_tpu import faults as jax_faults
 from adaptdl_tpu import guard as jax_guard
 from adaptdl_tpu import metrics as jax_metrics
@@ -59,8 +62,8 @@ from adaptdl_tpu.models import TransformerConfig as JaxConfig
 from adaptdl_tpu.models import init_transformer as jax_init
 from adaptdl_tpu.parallel import create_mesh
 from adaptdl_tpu.scaling_rules import AdamScale as JaxAdamScale
-from adaptdl_tpu.sched.state import ClusterState
-from adaptdl_tpu.sched.supervisor import Supervisor
+from adaptdl_tpu.sched.state import ClusterState as JaxClusterState
+from adaptdl_tpu.sched.supervisor import Supervisor as JaxSupervisor
 from adaptdl_tpu.trainer import ElasticTrainer as JaxTrainer
 from adaptdl_tpu_torch import (
     _signal,
@@ -77,6 +80,8 @@ from adaptdl_tpu_torch.data import AdaptiveDataLoader
 from adaptdl_tpu_torch.goodput import GoodputFunction, PerfParams
 from adaptdl_tpu_torch.models import TransformerConfig, init_transformer, lm_loss_fn
 from adaptdl_tpu_torch.optim import AdamW
+from adaptdl_tpu_torch.sched.state import ClusterState as PortClusterState
+from adaptdl_tpu_torch.sched.supervisor import Supervisor as PortSupervisor
 from adaptdl_tpu_torch.scaling_rules import AdamScale
 from adaptdl_tpu_torch.trainer import ElasticTrainer
 from adaptdl_tpu_torch.weights import flax_to_state_dict
@@ -98,6 +103,22 @@ JOB_ENV = (
 )
 
 
+# The two control planes: (ClusterState, Supervisor) of each package.
+PLANES = {
+    "jax": (JaxClusterState, JaxSupervisor),
+    "port": (PortClusterState, PortSupervisor),
+}
+
+
+def _start_plane(plane, job):
+    """A cluster state with ``job`` and its supervisor, started."""
+    state_cls, supervisor_cls = PLANES[plane]
+    state = state_cls()
+    state.create_job(job, spec={"max_replicas": 8})
+    sup = supervisor_cls(state, lease_ttl=30.0)
+    return state, sup, sup.start()
+
+
 def _reset_all():
     bootstrap.stop_heartbeat()
     for reset in (
@@ -105,6 +126,9 @@ def _reset_all():
         guard._reset_state, faults.reset, rpc.reset_default_client,
         jax_guard._reset_state, jax_faults.reset, jax_metrics._reset_state,
         jax_rpc.reset_default_client,
+        # An iterated JAX loader leaves a one-process reducer behind,
+        # which processes forked by later tests would inherit.
+        jax_collective.teardown,
     ):
         reset()
     _signal.set_exit_flag(False)
@@ -119,14 +143,11 @@ def _isolated(monkeypatch):
     _reset_all()
 
 
-@pytest.fixture
-def supervisor(monkeypatch):
-    """The JAX supervisor with one job; the port's environment points
-    at it."""
-    state = ClusterState()
-    state.create_job(JOB, spec={"max_replicas": 8})
-    sup = Supervisor(state, lease_ttl=30.0)
-    url = sup.start()
+@pytest.fixture(params=sorted(PLANES))
+def supervisor(request, monkeypatch):
+    """Either package's supervisor with one job; the port's environment
+    points at it."""
+    state, sup, url = _start_plane(request.param, JOB)
     monkeypatch.setenv("ADAPTDL_SUPERVISOR_URL", url)
     monkeypatch.setenv("ADAPTDL_JOB_ID", JOB)
     yield state, url
@@ -143,16 +164,13 @@ def no_refit_threads(monkeypatch):
 # -- two ranks under the supervisor, through the launcher ----------------
 
 
-@pytest.fixture(scope="module")
-def guarded_run(tmp_path_factory):
+@pytest.fixture(scope="module", params=sorted(PLANES))
+def guarded_run(request, tmp_path_factory):
     """Two gloo ranks of tests/torch_replica_worker.py ``guarded`` under
-    the JAX supervisor: register, discover, heartbeats, hints, a save
+    either supervisor: register, discover, heartbeats, hints, a save
     every 2 steps, an injected NaN at observation 7."""
     out = tmp_path_factory.mktemp("guarded")
-    state = ClusterState()
-    state.create_job(GUARDED_JOB, spec={"max_replicas": 8})
-    sup = Supervisor(state, lease_ttl=30.0)
-    url = sup.start()
+    state, sup, url = _start_plane(request.param, GUARDED_JOB)
     try:
         run_env = {
             k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")
