@@ -10,7 +10,8 @@ picks one from the dtype and head_dim before the launch:
 - ``csrc/flash_attention_fwd_sm90.cu`` for bfloat16 with head_dim 64 or
   128: bf16 ``wgmma`` on the tensor cores, K/V staged by TMA.
 - ``csrc/flash_attention_fwd.cu`` for float32 and the other head dims
-  (multiples of 8 up to 128): f32 on the CUDA cores.
+  (multiples of 8 up to 128): TF32 ``mma.sync`` on the tensor cores,
+  each product split in three (3xTF32) so the result stays float32.
 
 Each kernel's note says what bounds it on the H100 and how its design
 answers that.

@@ -8,16 +8,23 @@ Phases (any failure exits non-zero before the result line):
 2. build: every kernel under adaptdl_tpu_torch/csrc, compiled in
    parallel (adaptdl_tpu_torch/ops/_build.py) into the kernel cache on a
    share path the whole run uses (ADAPTDL_SHARE_PATH, a temp dir); ptxas
-   registers, spills and each sm90 instance's shared memory.
+   registers, spills and shared memory of every instance (the f32
+   kernel's head_dim-64 instances must spill nothing).
 3. kernels vs plain: both flash forward kernels against their plain
    PyTorch version on the card -- the sm90 kernel (bf16, head_dim 64
    and 128) at the main path's shape, head_dim 128 and a ragged seq;
-   the f32 kernel at f32 and head_dim 40 -- with stated tolerances (a
-   per-element bound for the sm90 kernel, see sm90_bound) and a check of
-   which kernel each input reached; the flash gradient
-   (autograd Function) against dense autograd in f32 and bf16; times of
-   both kernels on the main path's bf16 input, the plain version and
-   one PyTorch library call computing the same function.
+   the f32 kernel (3xTF32 on the tensor cores) at f32 at the main shape,
+   S 512, head dims 8, 72 and 128 and a ragged seq at 120, and at bf16
+   head_dim 40 (ragged) and 96 -- with stated tolerances (a per-element
+   bound for the sm90 kernel, see sm90_bound) and a check of which kernel
+   each input reached; the flash gradient (autograd Function) against
+   dense autograd in f32 and bf16; times of both kernels on the main
+   path's bf16 input, of the f32 kernel on f32 and on bf16 at head_dim 40
+   and 96, each beside the plain version and one PyTorch library call
+   computing the same function; the device kernels f32 SDPA runs (a
+   torch.profiler window) and the card's mma.sync TF32 rate (a probe
+   kernel built here), against which the f32 kernel's 3xTF32 work has a
+   floor of its own.
 4. main path: the full-width transformer LM (12 x 768, 12 heads, seq
    512, vocab 32000, bf16) through initialize_job ->
    AdaptiveDataLoader -> ElasticTrainer.run_step, 10 steps at
@@ -200,8 +207,12 @@ Phases (any failure exits non-zero before the result line):
    policy under "remat_per_step") and "control_launches" on each rank of
    each incarnation of 10a. The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
-   own bound, plain version and SDPA on the same inputs; the f32 row's
-   "bf16_input_ms" is the f32 kernel on the bf16 input.
+   own bound (the f32 kernel's: 3xTF32 at TF32's peak), plain version and
+   SDPA on the same inputs; the f32 row's "bf16_input_ms" is the f32
+   kernel on the bf16 main-shape input, "bf16_d40"/"bf16_d96" its times
+   on bf16 at those head dims, "mma_sync_tflops" the probe's rate,
+   "mma_sync_floor_ms" the 3xTF32 work at that rate and
+   "library_kernels" the device kernels of f32 SDPA.
 """
 
 import ctypes
@@ -225,7 +236,39 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM tensor cores, dense
+PEAK_TF32_FLOPS = 495e12  # H100 SXM tensor cores, dense
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+# Rate probe: independent mma.sync m16n8k8 TF32 products, 16 accumulators a
+# warp, 4 blocks of 4 warps on every SM; no loads, no other instructions.
+MMA_PROBE_SOURCE = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void mma_probe(float* out, int iters) {
+  float acc[16][4] = {};
+  uint32_t a[4];
+  for (int i = 0; i < 4; ++i) a[i] = threadIdx.x * 7 + i;
+  const uint32_t b0 = threadIdx.x, b1 = threadIdx.x + 1;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(acc[c][0]), "+f"(acc[c][1]), "+f"(acc[c][2]), "+f"(acc[c][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+  }
+  float s = 0.f;
+  for (int c = 0; c < 16; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_probe_launch(void* out, int blocks, int iters, void* stream) {
+  mma_probe<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
 
 
 def check(cond, message):
@@ -297,13 +340,27 @@ def phase_build():
     check({KERNEL, KERNEL_SM90} <= set(built), "a flash library did not build")
     report = ptxas_report(_build.build_log(KERNEL))
     registers = {n: r["registers"] for n, r in report.items()}
-    main = [r for n, r in registers.items() if "13__nv_bfloat16Li64E" in n]
+    spilled = {
+        n: r["spill_bytes"] for n, r in report.items() if r["spill_bytes"]
+    }
+    f32_smem = _build.load(KERNEL).adaptdl_flash_attention_fwd_smem_bytes
+    f32_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    f32_smem.restype = ctypes.c_int
     print(
         f"build: {KERNEL}: {len(report)} kernel instances, "
-        f"{sum(r['spill_bytes'] > 0 for r in report.values())} spill; "
-        f"registers per thread {min(registers.values())}-"
-        f"{max(registers.values())}, bf16 head_dim 64: {main}"
+        f"{len(spilled)} spill {spilled}; registers per thread "
+        f"{min(registers.values())}-{max(registers.values())}"
     )
+    for name, r in sorted(report.items()):
+        head_dim = int(re.search(r"Li(\d+)E", name).group(1))
+        dtype = 1 if "bfloat16" in name else 0
+        print(
+            f"build: {KERNEL} {('f32', 'bf16')[dtype]} head_dim {head_dim}: "
+            f"{r['registers']} registers per thread, {r['spill_bytes']} bytes "
+            f"spilled, {f32_smem(head_dim, dtype)} bytes shared memory"
+        )
+        if head_dim == 64:
+            check(r["spill_bytes"] == 0, f"{KERNEL} head_dim 64 spills")
     lib = _build.load(KERNEL_SM90)
     smem = lib.adaptdl_flash_attention_fwd_sm90_smem_bytes
     smem.argtypes = [ctypes.c_int]
@@ -338,6 +395,60 @@ def sm90_bound(q, k, v, causal, ref, ref_lse):
     magnitude = ref.float().abs() + 2.0**-8 * w
     ulp = torch.exp2(torch.floor(torch.log2(magnitude.clamp_min(2.0**-126))) - 7)
     return 2.0**-8 * w + ulp
+
+
+def mma_sync_tf32_tflops():
+    """The card's rate for mma.sync m16n8k8 in TF32 (TFLOP/s), from
+    MMA_PROBE_SOURCE built with nvcc into a temporary directory."""
+    from adaptdl_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory(prefix="adaptdl-mma-probe-") as tmp:
+        src = os.path.join(tmp, "mma_probe.cu")
+        lib_path = os.path.join(tmp, "mma_probe.so")
+        with open(src, "w") as f:
+            f.write(MMA_PROBE_SOURCE)
+        subprocess.run(
+            [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-o", lib_path, src],
+            check=True, capture_output=True,
+        )
+        lib = ctypes.CDLL(lib_path)
+    fn = lib.mma_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    out = torch.empty(blocks * 128, device="cuda")
+
+    def launch():
+        err = fn(out.data_ptr(), blocks, iters,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"mma probe launch failed: CUDA error {err}")
+
+    ms = cuda_ms(launch, 3)
+    flops = 2 * 16 * 8 * 8 * 16 * iters * (blocks * 4)
+    return flops / (ms * 1e-3) / 1e12
+
+
+def device_kernels(fn, calls):
+    """{kernel name: device microseconds per call} of ``fn`` from a
+    torch.profiler window of ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    totals = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+            e, "is_user_annotation", False
+        ):
+            span = e.time_range.end - e.time_range.start
+            totals[e.name] = totals.get(e.name, 0.0) + span / calls
+    return totals
 
 
 def phase_flash():
@@ -420,10 +531,16 @@ def phase_flash():
     ):
         for causal in (True, False):
             through_wrapper(shape, torch.bfloat16, causal, block, KERNEL_SM90)
-    # f32 kernel: f32 at the main and a small shape, bf16 head_dim 40.
+    # f32 kernel: f32 at the main shape, at S 512 with a small bh, at the
+    # smallest and largest head dims and one that is not a power of two,
+    # a ragged seq; bf16 at head_dim 40 (ragged) and 96.
     for shape, dtype, block in (
         (main_shape, torch.float32, 128), ((8, 128, 64), torch.float32, 64),
+        ((8, 512, 64), torch.float32, 128), ((4, 256, 8), torch.float32, 128),
+        ((4, 256, 72), torch.float32, 128), ((4, 256, 128), torch.float32, 128),
+        ((3, 100, 120), torch.float32, 100),
         ((3, 100, 40), torch.bfloat16, 100),
+        ((4, 256, 96), torch.bfloat16, 128),
     ):
         for causal in (True, False):
             through_wrapper(shape, dtype, causal, block, KERNEL)
@@ -495,7 +612,7 @@ def phase_flash():
     f32_plain_ms = cuda_ms(lambda: flash_attention_reference(qf, kf, vf, True), 5)
 
     def sdpa(a, b, c):
-        a, b, c = (t.reshape(32, 12, 512, 64) for t in (a, b, c))
+        a, b, c = (t.reshape(32, 12, 512, -1) for t in (a, b, c))
         return lambda: F.scaled_dot_product_attention(a, b, c, is_causal=True)
 
     library_ms = cuda_ms(sdpa(q, k, v), 50)
@@ -503,14 +620,26 @@ def phase_flash():
     noncausal_ms = cuda_ms(
         lambda: _launch(KERNEL_SM90, q, k, v, False, None), 50
     )
+    f32_noncausal_ms = cuda_ms(
+        lambda: _launch(KERNEL, qf, kf, vf, False, None), 20
+    )
+    # Which kernels f32 SDPA runs (TF32 off): the f32 row's yardstick.
+    sdpa_kernels = device_kernels(sdpa(qf, kf, vf), 5)
+    print(
+        "f32 sdpa device kernels, us per call: "
+        + ("; ".join(f"{n} {us:.1f}" for n, us in sorted(
+            sdpa_kernels.items(), key=lambda kv: -kv[1]))
+           or "none seen by the profiler (not measured)")
+    )
+    mma_tflops = mma_sync_tf32_tflops()
     bh, seq, head_dim = main_shape
     # Visible (query, key) pairs under the causal mask; two products of
     # 2*D operations each.
     flops = 4 * head_dim * bh * seq * (seq + 1) / 2
 
-    def bound(element_bytes, peak_flops):
-        nbytes = 4 * bh * seq * head_dim * element_bytes + bh * seq * 4
-        by_flops = flops / peak_flops * 1e3
+    def bound(element_bytes, peak_flops, products=1, d=head_dim):
+        nbytes = 4 * bh * seq * d * element_bytes + bh * seq * 4
+        by_flops = products * flops * d / head_dim / peak_flops * 1e3
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         return nbytes, {
             "bound_ms": max(by_flops, by_bytes),
@@ -518,16 +647,40 @@ def phase_flash():
         }
 
     nbytes, bf16_bound = bound(2, PEAK_BF16_FLOPS)
-    f32_bytes, f32_bound = bound(4, PEAK_F32_FLOPS)
+    # The f32 kernel runs three TF32 products (3xTF32) per product.
+    f32_bytes, f32_bound = bound(4, PEAK_TF32_FLOPS, products=3)
+    _, f32_cuda_core_bound = bound(4, PEAK_F32_FLOPS)
+    mma_sync_floor_ms = 3 * flops / (mma_tflops * 1e12) * 1e3
     print(
         f"flash fwd times (causal {main_shape}): bf16: {KERNEL_SM90} "
         f"{ms:.4f} ms, non-causal {noncausal_ms:.4f} ms; {KERNEL} "
         f"{f32_kernel_bf16_ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa "
         f"{library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, "
-        f"bound {bf16_bound}. f32: {KERNEL} {f32_kernel_ms:.4f} ms; plain "
-        f"{f32_plain_ms:.4f} ms; sdpa {f32_library_ms:.4f} ms; "
-        f"{f32_bytes / 1e6:.2f} MB, bound {f32_bound}"
+        f"bound {bf16_bound}. f32: {KERNEL} {f32_kernel_ms:.4f} ms, "
+        f"non-causal {f32_noncausal_ms:.4f} ms; plain {f32_plain_ms:.4f} ms; "
+        f"sdpa {f32_library_ms:.4f} ms; {f32_bytes / 1e6:.2f} MB, 3xTF32 "
+        f"bound {f32_bound} (on the CUDA cores, as before: "
+        f"{f32_cuda_core_bound}); mma.sync TF32 rate {mma_tflops:.1f} TFLOP/s, "
+        f"3xTF32 at that rate {mma_sync_floor_ms:.4f} ms"
     )
+    # The f32 kernel's bf16 route at head dims the sm90 kernel does not
+    # take, beside the plain version and bf16 SDPA on the same inputs.
+    other_dims = {}
+    for d in (40, 96):
+        qo, ko, vo = qkv((bh, seq, d), torch.bfloat16)
+        before = _build.LAUNCHES[KERNEL]
+        flash_attention_fwd(qo, ko, vo, True, None, 128, 128)
+        check(_build.LAUNCHES[KERNEL] == before + 1,
+              f"bf16 head_dim {d} did not take {KERNEL}")
+        other_dims[f"bf16_d{d}"] = {
+            "ms": cuda_ms(lambda: _launch(KERNEL, qo, ko, vo, True, None), 20),
+            "plain_ms": cuda_ms(
+                lambda: flash_attention_reference(qo, ko, vo, True), 5
+            ),
+            "library_ms": cuda_ms(sdpa(qo, ko, vo), 20),
+            **bound(2, PEAK_BF16_FLOPS, d=d)[1],
+        }
+        print(f"{KERNEL} bf16 (causal {(bh, seq, d)}): {other_dims[f'bf16_d{d}']}")
     common = {
         "route": "cuda",
         "replaces": "adaptdl_tpu/ops/flash_attention.py:57",
@@ -541,7 +694,13 @@ def phase_flash():
         {"name": KERNEL, "source": f"adaptdl_tpu_torch/csrc/{KERNEL}.cu",
          "max_abs_err": errs[KERNEL], "ms": f32_kernel_ms,
          "plain_ms": f32_plain_ms, "library_ms": f32_library_ms,
-         "bf16_input_ms": f32_kernel_bf16_ms, **f32_bound, **common},
+         "bf16_input_ms": f32_kernel_bf16_ms,
+         "noncausal_ms": f32_noncausal_ms,
+         "mma_sync_tflops": mma_tflops,
+         "mma_sync_floor_ms": mma_sync_floor_ms,
+         "library_kernels": sorted(sdpa_kernels, key=sdpa_kernels.get,
+                                   reverse=True)[:3],
+         **other_dims, **f32_bound, **common},
     ]
 
 

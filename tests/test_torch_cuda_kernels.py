@@ -19,7 +19,9 @@ from adaptdl_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_reference,
 )
-from tests.torch_support import private_tempdir  # noqa: F401
+# By its own name (pytest puts tests/ on sys.path): on the card's machine
+# an installed package named "tests" hides this directory's.
+from torch_support import private_tempdir  # noqa: F401
 
 
 def _bf16_ulp(x):
@@ -104,14 +106,33 @@ def test_sm90_kernel_matches_plain(head_dim, seq, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "dtype, head_dim",
-    [("float32", 64), ("float32", 128), ("bfloat16", 40), ("bfloat16", 96)],
+    "shape, dtype",
+    [
+        ((2, 64, 64), "float32"),
+        ((2, 64, 128), "float32"),
+        ((2, 64, 40), "bfloat16"),
+        ((2, 64, 96), "bfloat16"),
+        ((8, 512, 64), "float32"),
+        ((4, 128, 8), "float32"),
+        ((4, 128, 72), "float32"),
+        ((4, 128, 128), "float32"),
+        ((3, 100, 40), "float32"),
+        ((3, 100, 120), "float32"),
+        ((3, 100, 120), "bfloat16"),
+        ((4, 128, 96), "bfloat16"),
+    ],
 )
-def test_other_inputs_take_the_f32_kernel(dtype, head_dim):
+@pytest.mark.parametrize("causal", [True, False])
+def test_other_inputs_take_the_f32_kernel(shape, dtype, causal):
+    """f32 and bf16 at head dims the sm90 kernel does not take reach the
+    f32 kernel, whose 3xTF32 products keep the float32 result: S 512 (the
+    main path's sequence), the smallest and largest head dims, one that is
+    not a power of two, ragged seqs."""
     dtype = getattr(torch, dtype)
-    (q, k, v), (out, lse), moved = _run((2, 64, head_dim), dtype, True, 64)
+    block = {512: 128, 128: 64, 100: 100, 64: 64}[shape[1]]
+    (q, k, v), (out, lse), moved = _run(shape, dtype, causal, block)
     assert moved == {KERNEL: 1}
-    ref, ref_lse = flash_attention_reference(q, k, v, True, None, 64, 64)
+    ref, ref_lse = flash_attention_reference(q, k, v, causal, None, block, block)
     scale = ref.float().abs().max().item()
     tol = 2e-5 if dtype == torch.float32 else _bf16_ulp(scale)
     assert (out.float() - ref.float()).abs().max().item() <= tol
