@@ -5,15 +5,21 @@ process group, one process per replica, with the address, port, rank
 and world size given explicitly. ``broadcast`` and ``allreduce_async``
 carry small Python objects (the dataloader's batch-size decision and its
 exit-flag agreement); ``allreduce_mean`` is the trainer's one gradient
-all-reduce point. With one replica (no process group) they are the
-identity; otherwise they go over the group. Every replica must call
-every collective in the same order.
+all-reduce point, and ``reduce_scatter_sum`` / ``all_gather_rows`` move
+the flat float32 rows of the ZeRO storage modes. With one replica they
+are the identity; otherwise they go over the group. Every replica must
+call every collective in the same order.
 
 ``allreduce_async`` returns before the peers answer, as the JAX
 ``Reducer`` does: its collective runs on one single-thread executor,
 over a gloo group of its own (made once), so that it never shares the
 default group's ordering with the training thread's all-reduce.
 ``teardown`` shuts the executor down with the groups.
+
+``TRAFFIC`` counts the bytes of the tensor collectives this rank joins
+(the full buffer of each all-reduce, all-gather and reduce-scatter, at
+more than one replica), by kind: ``examples/profile_step.py`` and
+``chip_smoke.py`` read it per step.
 """
 
 from __future__ import annotations
@@ -123,6 +129,14 @@ def allreduce_async(obj: Any, reduce_fn: Callable[[list], Any]) -> Future:
     return executor.submit(allreduce, obj, reduce_fn, group)
 
 
+TRAFFIC = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+
+
+def reset_traffic() -> None:
+    for kind in TRAFFIC:
+        TRAFFIC[kind] = 0
+
+
 def _ensure_async_group():
     """The background collective's executor and gloo group, made once.
     ``new_group`` is itself a collective: ``initialize`` makes the group
@@ -171,10 +185,84 @@ def allreduce_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     """Average each tensor across replicas, in place: the tensors are
     packed into one float32 buffer, reduced by one all-reduce, divided
     once and unpacked. The identity with one replica."""
-    if not initialized():
-        return tensors
-    flat = pack(tensors)
-    dist.all_reduce(flat)
-    flat.div_(dist.get_world_size())
-    unpack(flat, tensors)
+    if initialized():
+        allreduce_mean_packed(tensors)
     return tensors
+
+
+def allreduce_mean_packed(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """:func:`allreduce_mean`, returning the averaged flat buffer as
+    :func:`pack` laid it out (the ZeRO modes slice their row of the
+    gradient from it)."""
+    flat = pack(tensors)
+    if initialized():
+        dist.all_reduce(flat)
+        flat.div_(dist.get_world_size())
+        if dist.get_world_size() > 1:
+            TRAFFIC["all_reduce"] += flat.numel() * flat.element_size()
+    unpack(flat, tensors)
+    return flat
+
+
+def allreduce_sum(tensor: torch.Tensor) -> torch.Tensor:
+    """Sum a small tensor across replicas, in place; the identity with
+    one replica."""
+    if world_size() > 1:
+        dist.all_reduce(tensor)
+        TRAFFIC["all_reduce"] += tensor.numel() * tensor.element_size()
+    return tensor
+
+
+def _staged() -> bool:
+    """Whether collectives on a CUDA tensor go through a host buffer:
+    under gloo, the backend :func:`backend_for` picks when ranks share
+    a card."""
+    return dist.get_backend() == "gloo"
+
+
+def reduce_scatter_sum(flat: torch.Tensor) -> torch.Tensor:
+    """This rank's row of the sum over ranks of ``flat`` (float32,
+    ``[dp * shard]``): ``[shard]``, row ``rank``. The identity with one
+    replica. Under gloo the sum is one all-reduce of the host copy
+    followed by a slice (a call every PyTorch version's gloo has); under
+    NCCL it is ``reduce_scatter_tensor``."""
+    dp = world_size()
+    if dp == 1:
+        return flat
+    shard = flat.numel() // dp
+    rank = dist.get_rank()
+    TRAFFIC["reduce_scatter"] += flat.numel() * flat.element_size()
+    if _staged():
+        host = flat.detach().to("cpu", copy=True)
+        dist.all_reduce(host)
+        return host[rank * shard : (rank + 1) * shard].to(flat.device)
+    out = torch.empty(shard, dtype=flat.dtype, device=flat.device)
+    dist.reduce_scatter_tensor(out, flat.contiguous())
+    return out
+
+
+def all_gather_rows(row: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Every rank's ``row`` (float32, ``[shard]``) concatenated in rank
+    order: ``[dp * shard]``, written into ``out`` when given (``row``
+    may be ``out``'s own slice for this rank). The identity with one
+    replica (``row`` itself, or copied into ``out``). Under gloo the
+    gather runs on host copies, into a list of views of one host
+    buffer; under NCCL it is ``all_gather_into_tensor``."""
+    dp = world_size()
+    if out is None and dp == 1:
+        return row
+    if out is None:
+        out = torch.empty(dp * row.numel(), dtype=row.dtype, device=row.device)
+    if dp == 1:
+        if out.data_ptr() != row.data_ptr():
+            out.copy_(row.reshape(-1))
+        return out
+    TRAFFIC["all_gather"] += out.numel() * out.element_size()
+    if _staged():
+        host_row = row.detach().reshape(-1).to("cpu", copy=True)
+        host = torch.empty(out.numel(), dtype=row.dtype)
+        dist.all_gather(list(host.chunk(dp)), host_row)
+        out.copy_(host)
+        return out
+    dist.all_gather_into_tensor(out, row.detach().reshape(-1).contiguous())
+    return out

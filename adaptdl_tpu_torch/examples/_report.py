@@ -22,9 +22,13 @@ import math
 import os
 import time
 
+import torch
+
 
 class RunReport:
     def __init__(self, report_dir: str | None, steps: int | None, model):
+        """``model``: the module whose parameters the report hashes, or a
+        callable returning the name -> tensor tree."""
         self._dir = report_dir
         self._steps = steps
         self._model = model
@@ -75,7 +79,13 @@ class RunReport:
 
         digest = hashlib.sha256()
         small = {}
-        for name, param in sorted(self._model.named_parameters()):
+        # A callable gives the parameter tree (a ZeRO trainer's
+        # params_tree, a collective every rank reaches here).
+        if isinstance(self._model, torch.nn.Module):
+            named = self._model.named_parameters()
+        else:
+            named = self._model().items()
+        for name, param in sorted(named):
             values = param.detach().float().cpu().numpy()
             digest.update(name.encode())
             digest.update(values.tobytes())

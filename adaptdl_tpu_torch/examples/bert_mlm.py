@@ -110,15 +110,18 @@ def main(argv=None):
     metrics.ensure_checkpoint_registered()
     loader = make_loader(args.cpu, args.seq_len)
     for e in epoch.remaining_epochs_until(args.epochs):
+        # A successor resumed at an epoch's end steps none of it.
+        m = None
         for batch in loader:
             holder["state"], m = trainer.run_step(holder["state"], batch, loader)
-        print(
-            f"epoch {e}: mlm_loss={float(m['loss']):.4f} "
-            f"batch={loader.current_batch_size} "
-            f"(atomic={loader.current_atomic_bsz}, "
-            f"accum={loader.current_accum_steps})",
-            flush=True,
-        )
+        if m is not None:
+            print(
+                f"epoch {e}: mlm_loss={float(m['loss']):.4f} "
+                f"batch={loader.current_batch_size} "
+                f"(atomic={loader.current_atomic_bsz}, "
+                f"accum={loader.current_accum_steps})",
+                flush=True,
+            )
     metrics.join_fit()
     return holder["state"]
 

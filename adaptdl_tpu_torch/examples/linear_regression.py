@@ -102,13 +102,16 @@ def main(argv=None):
         for e in epoch.remaining_epochs_until(args.epochs):
             if report.done():
                 break
+            # A successor resumed at an epoch's end steps none of it.
+            m = None
             for batch in loader:
                 holder["state"], m = trainer.run_step(
                     holder["state"], batch, loader
                 )
                 if report.note(holder["state"], m, loader):
                     break
-            print(f"epoch {e}: loss={float(m['loss']):.5f}", flush=True)
+            if m is not None:
+                print(f"epoch {e}: loss={float(m['loss']):.5f}", flush=True)
     finally:
         report.write()
     w = trainer.model.w.detach().cpu().numpy()

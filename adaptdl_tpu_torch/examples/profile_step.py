@@ -11,7 +11,14 @@ most time.
 
 Run on the card:  python -m adaptdl_tpu_torch.examples.profile_step
 Options: --accum-steps A (0 or more; atomic batch 32 / (A + 1)); the LM
-example's --moe-experts, --moe-top-k, --chunked-xent and --remat-policy.
+example's --moe-experts, --moe-top-k, --chunked-xent, --remat-policy and
+its ZeRO flags --zero1, --zero3, --zero3-blocks (dense attention, as the
+example runs it). The line also gives the peak device memory of the
+timed steps (``torch.cuda.max_memory_allocated``, reset before them)
+and the bytes of this rank's collectives per step (``collective.TRAFFIC``).
+One rank of a multi-rank job: ``python -m adaptdl_tpu_torch.launch -m
+adaptdl_tpu_torch.examples.profile_step --zero3`` with
+ADAPTDL_NUM_REPLICAS set; each rank prints its line.
 """
 
 from __future__ import annotations
@@ -85,42 +92,59 @@ def main(argv=None):
     parser.add_argument("--moe-top-k", type=int, default=1)
     parser.add_argument("--chunked-xent", type=int, default=0)
     parser.add_argument("--remat-policy", type=str, default=None)
+    parser.add_argument("--zero1", action="store_true")
+    parser.add_argument("--zero3", action="store_true")
+    parser.add_argument("--zero3-blocks", action="store_true")
     args = parser.parse_args(argv)
     steps = 5  # timed, then traced
 
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch import trainer as trainer_mod
+    from adaptdl_tpu_torch import collective, env
     from adaptdl_tpu_torch.examples.transformer_lm import (
+        check_zero_flags,
         lm_config,
         synthetic_tokens,
     )
-    from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.models import init_transformer, init_zero3_lm, lm_loss_fn
     from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.ops.flash_attention import RANGE_BACKWARD
     from adaptdl_tpu_torch.optim import AdamW
     from adaptdl_tpu_torch.scaling_rules import AdamScale
 
+    args.flash = not args.zero3_blocks
+    check_zero_flags(args)
     device = adaptdl_tpu_torch.initialize_job(device="cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     seq_len, global_batch = 512, 32
-    atomic = global_batch // (args.accum_steps + 1)
+    replicas, rank = env.num_replicas(), env.replica_rank()
+    atomic = global_batch // (args.accum_steps + 1) // replicas
     config = lm_config(
-        cpu=False, seq_len=seq_len, flash=True, remat_policy=args.remat_policy,
+        cpu=False, seq_len=seq_len, flash=args.flash, remat_policy=args.remat_policy,
         moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
     )
-    model = init_transformer(config, seed=0, device=device)
+    if args.zero3_blocks:
+        loss_fn, model = init_zero3_lm(config, seed=0, device=device)
+    else:
+        model = init_transformer(config, seed=0, device=device)
+        loss_fn = (
+            chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
+            else lm_loss_fn
+        )
     trainer = trainer_mod.ElasticTrainer(
-        chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
-        else lm_loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
+        loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
         scaling_rule=AdamScale(), precondition="adam", device=device,
+        zero1=args.zero1, zero3=args.zero3,
+        zero3_blocks="blocks" if args.zero3_blocks else None,
     )
     state = trainer.init_state()
     tokens = synthetic_tokens(
         global_batch * 4, seq_len, config.vocab_size
     )["tokens"]
+    local = global_batch // replicas
     batches = [
-        trainer.to_device({"tokens": tokens[i : i + global_batch]})
+        trainer.to_device({"tokens": tokens[i + rank * local : i + (rank + 1) * local]})
         for i in range(0, len(tokens), global_batch)
     ]
     step = trainer.train_step(atomic, args.accum_steps)
@@ -132,12 +156,16 @@ def main(argv=None):
 
     run(3)  # warm-up: allocator, kernel library, cuBLAS heuristics
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    collective.reset_traffic()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     run(steps)
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / steps
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    traffic = {k: v / steps for k, v in collective.TRAFFIC.items()}
 
     activities = [
         torch.profiler.ProfilerActivity.CPU,
@@ -170,8 +198,12 @@ def main(argv=None):
                    "accum_steps": args.accum_steps, "dtype": "bfloat16",
                    "moe_experts": args.moe_experts, "moe_top_k": args.moe_top_k,
                    "chunked_xent": args.chunked_xent,
-                   "remat_policy": args.remat_policy},
+                   "remat_policy": args.remat_policy,
+                   "zero": trainer.zero_mode, "replicas": replicas,
+                   "rank": rank},
         "step_ms": step_ms,
+        "peak_memory_gib": peak_gib,
+        "collective_bytes_per_step": traffic,
         "tokens_per_s": global_batch * seq_len / (step_ms * 1e-3),
         "traced_window_ms_per_step": window_us * per_step,
         "device_busy_ms_per_step": busy_us * per_step,

@@ -16,8 +16,20 @@ of N (``ops/chunked_xent.py``), ``--remat-policy`` names a
 jax.checkpoint_policies policy, and ``--moe-experts E --moe-top-k K``
 makes every second block a mixture of E experts (one expert shard).
 ``--steps`` and ``--report-dir`` bound a run under an elastic runner and
-report each incarnation (``examples/_report.py``). The JAX example's other flags (sequence/tensor/pipeline/expert
-sharding, ZeRO) are not ported yet and raise.
+report each incarnation (``examples/_report.py``).
+
+ZeRO storage modes, as in the JAX example: ``--zero1`` shards the Adam
+moments over the replicas, ``--zero3`` the parameters too (it implies
+``--zero1``), and ``--zero3-blocks`` trains the per-layer ZeRO-3 LM
+(``models/zero3_lm.py``: one block gathered at a time, dense attention,
+so not with ``--flash``, MoE or ``--chunked-xent``). Two ranks on the
+CPU:
+
+    ADAPTDL_NUM_REPLICAS=2 python -m adaptdl_tpu_torch.launch \
+        -m adaptdl_tpu_torch.examples.transformer_lm --cpu --epochs 1 --zero3
+
+The JAX example's other flags (sequence/tensor/pipeline/expert
+sharding) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -57,6 +69,29 @@ def lm_config(
     )
 
 
+def check_zero_flags(args) -> None:
+    """The JAX example's composition rules for the ZeRO flags: zero3
+    implies zero1; zero3_blocks is a storage mode of its own, without
+    flash attention, MoE or the chunked head."""
+    if args.zero3_blocks:
+        assert not (args.zero1 or args.zero3), (
+            "--zero3-blocks is a storage mode of its own; drop "
+            "--zero1/--zero3"
+        )
+        assert not args.flash and args.moe_experts == 0 and args.chunked_xent == 0, (
+            "--zero3-blocks shards parameter storage over the data axis "
+            "and composes with data parallelism only (no --flash, MoE or "
+            "--chunked-xent)"
+        )
+    if args.zero3:
+        args.zero1 = True  # zero3 implies the zero1 constraints below
+    if args.zero1:
+        assert args.moe_experts == 0, (
+            "--zero1 shards optimizer state over the data axis and "
+            "composes with data parallelism only"
+        )
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--cpu", action="store_true")
@@ -71,17 +106,21 @@ def main(argv=None):
     parser.add_argument("--moe-top-k", type=int, default=1)
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--report-dir", type=str, default=None)
+    parser.add_argument("--zero1", action="store_true")
+    parser.add_argument("--zero3", action="store_true")
+    parser.add_argument("--zero3-blocks", action="store_true")
     args, unported = parser.parse_known_args(argv)
     if unported:
         raise NotImplementedError(
             f"flags not ported to adaptdl_tpu_torch yet: {unported}"
         )
+    check_zero_flags(args)
 
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch import checkpoint, epoch, metrics
     from adaptdl_tpu_torch.data import AdaptiveDataLoader
     from adaptdl_tpu_torch.examples._report import RunReport
-    from adaptdl_tpu_torch.models import init_transformer, lm_loss_fn
+    from adaptdl_tpu_torch.models import init_transformer, init_zero3_lm, lm_loss_fn
     from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.optim import AdamW
     from adaptdl_tpu_torch.scaling_rules import AdamScale
@@ -91,22 +130,38 @@ def main(argv=None):
         device="cpu" if args.cpu else "cuda"
     )
     seq_len = args.seq_len or (32 if args.cpu else 512)
-    flash = args.flash if args.flash is not None else not args.cpu
+    flash = (
+        args.flash if args.flash is not None
+        else not (args.cpu or args.zero3_blocks)
+    )
     config = lm_config(
         args.cpu, seq_len, flash, args.remat_policy, args.moe_experts,
         args.moe_top_k,
     )
-    model = init_transformer(config, seed=0, device=device)
+    if args.zero1 or args.zero3_blocks:
+        # The trainer refuses model axes under a ZeRO mode: advertise none.
+        metrics.set_topology_config(max_model_shards=1)
+    if args.zero3_blocks:
+        # Raw token rows through the per-block-gather layer loop.
+        loss_fn, model = init_zero3_lm(config, seed=0, device=device)
+    else:
+        model = init_transformer(config, seed=0, device=device)
+        loss_fn = (
+            chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
+            else lm_loss_fn
+        )
 
     trainer = ElasticTrainer(
-        chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
-        else lm_loss_fn,
+        loss_fn,
         model,
         AdamW(model.parameters(), lr=3e-4),
         init_batch_size=32,
         scaling_rule=AdamScale(),
         precondition="adam",
         device=device,
+        zero1=args.zero1,
+        zero3=args.zero3,
+        zero3_blocks="blocks" if args.zero3_blocks else None,
     )
     holder = {"state": trainer.init_state()}
     ckpt = trainer.make_checkpoint_state(
@@ -122,23 +177,29 @@ def main(argv=None):
     loader.autoscale_batch_size(
         1024, local_bsz_bounds=(4, 128), gradient_accumulation=True
     )
-    report = RunReport(args.report_dir, args.steps, model)
+    report = RunReport(
+        args.report_dir, args.steps,
+        trainer.params_tree if trainer.zero_mode else model,
+    )
     report.begin(holder["state"])
     try:
         for e in epoch.remaining_epochs_until(args.epochs):
             if report.done():
                 break
+            # A successor resumed at an epoch's end steps none of it.
+            m = None
             for batch in loader:
                 holder["state"], m = trainer.run_step(
                     holder["state"], batch, loader
                 )
                 if report.note(holder["state"], m, loader):
                     break
-            print(
-                f"epoch {e}: loss={float(m['loss']):.4f} "
-                f"batch_size={loader.current_batch_size}",
-                flush=True,
-            )
+            if m is not None:
+                print(
+                    f"epoch {e}: loss={float(m['loss']):.4f} "
+                    f"batch_size={loader.current_batch_size}",
+                    flush=True,
+                )
     finally:
         report.write()
     metrics.join_fit()

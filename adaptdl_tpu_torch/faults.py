@@ -52,6 +52,9 @@ INJECTION_POINTS = {
     # preempt.notice SIMULATES a reclaim notice in the listener)
     "preempt.notice": "each listener poll for a reclaim notice",
     "preempt.drain_save": "before the urgent drain's blocking save",
+    # sharded checkpoint (sharded_checkpoint.py: a fault leaves a fresh
+    # payload dir no complete checkpoint references)
+    "ckpt.sharded.payload": "each rank's row write into the versioned dir",
     # supervisor handlers (sched/supervisor.py; injected faults become 500s)
     "sup.register.pre": "worker registration handler",
     "sup.discover.pre": "rendezvous long-poll handler",

@@ -21,6 +21,12 @@ bias-corrected and decay per unit of batch scale (theta ** scale).
 
 Every function is a pure function of tensors with no host read, so the
 step never waits on the device: branches are ``torch.where``.
+
+Under the ZeRO storage modes: zero1 and zero3 keep the carry whole at
+one replica and an empty placeholder (:func:`empty_prev_grad`) at more,
+where ``count > 1`` never reads it; ``zero3_blocks`` keeps it in row
+layout (n/dp per rank) at any replica count, and its squared norms are
+:func:`rows_normsqr`, local row sums all-reduced.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 import torch
+
+from adaptdl_tpu_torch import collective
 
 VAR_FLOOR = 1e-6
 
@@ -81,6 +89,34 @@ def init(params, num_groups: int = 1) -> GNSState:
         ],
         prev_grad_valid=false(),
     )
+
+
+def empty_prev_grad(params) -> list:
+    """The differenced carry's placeholder under zero1 and zero3 at more
+    than one replica (and in their checkpoints): one ``(1,)`` zero per
+    parameter, never read."""
+    return [
+        torch.zeros((1,), dtype=torch.float32, device=p.device) for p in params
+    ]
+
+
+def is_placeholder(prev_grad, shapes) -> bool:
+    """Whether ``prev_grad`` is :func:`empty_prev_grad`'s layout for
+    parameters of ``shapes``."""
+    prev_grad = list(prev_grad)
+    return len(prev_grad) == len(shapes) and any(
+        tuple(t.shape) == (1,) and tuple(s) != (1,)
+        for t, s in zip(prev_grad, shapes)
+    )
+
+
+def rows_normsqr(tensors, precond=None) -> torch.Tensor:
+    """Squared norm, shape (1,), of a gradient held as disjoint rows on
+    each replica (``zero3_blocks``): the local sum of squares,
+    all-reduced (pad positions carry zeros)."""
+    tensors = list(tensors)
+    local = group_normsqr(tensors, [0] * len(tensors), 1, precond)
+    return collective.allreduce_sum(local)
 
 
 def normalize_groups(state: GNSState, num_groups: int) -> GNSState:
@@ -232,6 +268,7 @@ def update(
     precond=None,
     group_ids=None,
     num_groups: int = 1,
+    normsqr_fn=None,
 ) -> GNSState:
     """One GNS update after a synchronized optimizer step.
 
@@ -247,6 +284,8 @@ def update(
       precond: optional preconditioner list (Adam second moments).
       group_ids: parameter-aligned group assignment (default: all 0).
       num_groups: G.
+      normsqr_fn: ``(tensors, precond) -> (G,)`` squared norms in place
+        of the per-group sums (``rows_normsqr`` under zero3_blocks).
     """
     grads_mean = list(grads_mean)
     if group_ids is None:
@@ -254,6 +293,8 @@ def update(
     local_sqr_mean = local_sqr_mean.float().reshape(num_groups)
 
     def norm(tensors):
+        if normsqr_fn is not None:
+            return normsqr_fn(tensors, precond)
         return group_normsqr(tensors, group_ids, num_groups, precond)
 
     scale = accum_scale * num_microbatches

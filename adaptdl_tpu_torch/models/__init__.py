@@ -1,5 +1,5 @@
 """Models of the port: the transformer LM and the model zoo (SmallCNN,
-ResNet18, NeuMF, DCGAN), each with an init helper and a loss of the
+ResNet18, NeuMF, DCGAN) and the per-layer ZeRO-3 LM, each with an init helper and a loss of the
 trainer's ``loss_fn(model, batch, generator)`` form."""
 
 from adaptdl_tpu_torch.models.cnn import SmallCNN, cnn_loss_fn, init_cnn
@@ -19,6 +19,12 @@ from adaptdl_tpu_torch.models.transformer import (
     lm_loss_fn,
     mlm_loss_fn,
 )
+from adaptdl_tpu_torch.models.zero3_lm import (
+    Zero3LMParams,
+    init_zero3_lm,
+    zero3_lm_loss_fn,
+    zero3_lm_metric_fn,
+)
 
 __all__ = [
     "Discriminator",
@@ -28,6 +34,7 @@ __all__ = [
     "SmallCNN",
     "TransformerConfig",
     "TransformerLM",
+    "Zero3LMParams",
     "cnn_loss_fn",
     "discriminator_loss_fn",
     "init_cnn",
@@ -35,9 +42,12 @@ __all__ = [
     "init_ncf",
     "init_resnet18",
     "init_transformer",
+    "init_zero3_lm",
     "lm_loss_fn",
     "make_generator_step",
     "mlm_loss_fn",
     "ncf_loss_fn",
     "resnet_loss_fn",
+    "zero3_lm_loss_fn",
+    "zero3_lm_metric_fn",
 ]

@@ -24,6 +24,15 @@ tensor-``lr`` code paths of a particular PyTorch version. Adam's second
 moments stay reachable (:meth:`AdamW.second_moments`) for the trainer's
 Adam preconditioner of the gradient-noise statistics; an optimizer
 without them cannot be preconditioned that way.
+
+Under the trainer's ZeRO storage modes the optimizer steps flat rows:
+:meth:`_FactorOptimizer.rebind` moves it from the model's parameters
+onto this rank's ``[shard]`` parameter row (``[L, shard_b]`` and
+``[shard_o]`` under ``zero3_blocks``), its moments become rows of the
+same shape, and a factor may be a per-position tensor of the row's shape
+(each position's parameter group's factor). The arithmetic is the
+per-parameter update's, element by element, so at one replica a row
+update equals the per-parameter update bit for bit.
 """
 
 from __future__ import annotations
@@ -42,11 +51,25 @@ class _FactorOptimizer(torch.optim.Optimizer):
     def _update(self, p, g, group) -> torch.Tensor:
         raise NotImplementedError
 
+    def rebind(self, params: list[torch.Tensor]) -> None:
+        """Step ``params`` (the ZeRO modes' rows) instead of the
+        parameters this optimizer was built over: one param group, no
+        state yet."""
+        if len(self.param_groups) != 1:
+            raise ValueError(
+                "a ZeRO storage mode steps one flat row: the optimizer "
+                f"must have one param group, not {len(self.param_groups)}"
+            )
+        if self.state:
+            raise ValueError("rebind an optimizer before its first step")
+        self.param_groups[0]["params"] = list(params)
+
     @torch.no_grad()
     def step(self, lr_factors=None):
         """One update from ``p.grad``. ``lr_factors``: optional sequence
-        of scalar tensors aligned with :meth:`params`, each multiplying
-        that parameter's whole update."""
+        aligned with :meth:`params` of scalar tensors, or tensors of the
+        parameter's shape (per-position factors of a row), each
+        multiplying that parameter's whole update."""
         params = self.params()
         if lr_factors is None:
             lr_factors = [None] * len(params)

@@ -33,6 +33,7 @@ streams differ; only the port's own draws repeat.
 from __future__ import annotations
 
 import json
+import math
 import time
 from dataclasses import dataclass, replace
 from typing import Any, Callable
@@ -44,6 +45,7 @@ from torch.profiler import record_function
 from adaptdl_tpu_torch import checkpoint, collective, env, gns, guard, metrics
 from adaptdl_tpu_torch.device import resolve_device
 from adaptdl_tpu_torch.optim import SGD, AdamW
+from adaptdl_tpu_torch.parallel import zero3
 from adaptdl_tpu_torch.scaling_rules import RuleContext, ScalingRule
 
 # Profiler ranges of the step's three phases (examples/profile_step.py
@@ -91,6 +93,79 @@ def microbatch_generator(
     return generator
 
 
+class RowLayout:
+    """Where each rank's row of the parameters (and of every
+    parameter-shaped mirror: moments, the differenced carry) sits in the
+    flat canonical vector, the module's parameter order raveled.
+
+    Flat layout (``spec`` None; zero1 and zero3): the vector padded to
+    ``dp * shard`` and cut into ``dp`` rows. Block layout (``spec``, a
+    :class:`~adaptdl_tpu_torch.parallel.zero3.BlockSpec`; zero3_blocks):
+    a rank's ``[L, shard_b]`` block rows, then its ``[shard_o]`` row,
+    laid end to end. :meth:`segments` says which canonical ranges a
+    rank's row holds; the checkpoints gather and scatter by it."""
+
+    def __init__(self, names, shapes, spec=None):
+        self.names = list(names)
+        self.shapes = [tuple(s) for s in shapes]
+        self.numels = [math.prod(s) for s in self.shapes]
+        self.n = sum(self.numels)
+        self.spec = spec
+
+    def row_len(self, dp: int) -> int:
+        if self.spec is None:
+            return (self.n + (-self.n) % dp) // dp
+        shard_b, shard_o = zero3.shard_sizes(self.spec, dp)
+        return self.spec.num_blocks * shard_b + shard_o
+
+    def segments(self, rank: int, dp: int) -> list:
+        """``[(canonical_start, length, row_offset), ...]`` of rank
+        ``rank``'s row at ``dp`` replicas."""
+        if self.spec is not None:
+            return zero3.row_segments(self.spec, rank, dp)
+        shard = self.row_len(dp)
+        start = rank * shard
+        length = min(shard, self.n - start)
+        return [(start, length, 0)] if length > 0 else []
+
+    def gather(self, row: torch.Tensor) -> torch.Tensor:
+        """Every rank's row -> the flat canonical ``[n]`` vector (a new
+        tensor); a collective every rank joins."""
+        dp = collective.world_size()
+        width = self.row_len(dp)
+        gathered = collective.all_gather_rows(row.detach().reshape(-1).float())
+        if self.spec is None:
+            return gathered[: self.n].clone()
+        flat = torch.empty(self.n, dtype=torch.float32, device=row.device)
+        for r in range(dp):
+            for start, length, offset in self.segments(r, dp):
+                base = r * width + offset
+                flat[start : start + length] = gathered[base : base + length]
+        return flat
+
+    def row_from_flat(self, flat: torch.Tensor, rank: int, dp: int) -> torch.Tensor:
+        """This rank's row of a flat canonical vector (zeros in the
+        padding)."""
+        row = torch.zeros(self.row_len(dp), dtype=torch.float32, device=flat.device)
+        for start, length, offset in self.segments(rank, dp):
+            row[offset : offset + length] = flat[start : start + length]
+        return row
+
+    def tree(self, flat: torch.Tensor) -> dict:
+        """A flat canonical vector -> name -> view."""
+        out, off = {}, 0
+        for name, shape, k in zip(self.names, self.shapes, self.numels):
+            out[name] = flat[off : off + k].view(shape)
+            off += k
+        return out
+
+    def ravel(self, tree: dict) -> torch.Tensor:
+        """A tree with this layout's names -> the flat canonical vector."""
+        return torch.cat(
+            [torch.as_tensor(tree[name]).reshape(-1).float() for name in self.names]
+        )
+
+
 class ElasticTrainer:
     """Runs elastic data-parallel training steps.
 
@@ -122,11 +197,21 @@ class ElasticTrainer:
         kept per group (the optimizer's param groups of the reference).
         None puts every parameter in group 0.
 
+      zero1: shard the optimizer state over the replicas (flat rows).
+      zero3: shard the parameter storage too (implies ``zero1``).
+      zero3_blocks: the name of the layer-stacked family (``"blocks"``)
+        for per-layer ZeRO-3; ``loss_fn`` then takes a ``Zero3View``.
+        A storage mode of its own, with one parameter group.
+
+    Under a ZeRO mode the optimizer, built over ``model.parameters()``
+    as usual, is rebound to the mode's rows (:meth:`optim.
+    _FactorOptimizer.rebind`); the parameters must be float32.
+
     Each of ``ADAPTDL_NUM_REPLICAS`` replicas is one process of the
     job's process group (``initialize_job`` joins it), stepping on its
-    own block of each global batch. ``zero1``, ``zero3``,
-    ``zero3_blocks`` and a ``mesh`` belong to parallel modes not ported
-    yet and raise, as do sharded axes in the environment.
+    own block of each global batch. A ``mesh`` and sharded axes in the
+    environment (sequence, model, stage, expert) are not ported yet and
+    raise.
     """
 
     def __init__(
@@ -147,10 +232,10 @@ class ElasticTrainer:
         zero3_blocks: str | None = None,
         mesh=None,
     ):
-        if zero1 or zero3 or zero3_blocks is not None or mesh is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "zero1/zero3/zero3_blocks and device meshes are not "
-                "ported yet; the port runs the data-parallel step only"
+                "device meshes are not ported yet; the port runs data "
+                "parallelism (with the ZeRO storage modes) only"
             )
         sharded = {
             "ADAPTDL_SEQ_SHARDS": env.seq_shards(),
@@ -205,6 +290,26 @@ class ElasticTrainer:
                 "param_group_fn must assign contiguous group ids "
                 f"0..G-1; got {sorted(set(self._group_ids))}"
             )
+        self._names = [n for n, _ in named]
+        self._shapes = [tuple(p.shape) for _, p in named]
+        self.zero3_blocks = zero3_blocks
+        if zero3_blocks is not None:
+            if zero1 or zero3:
+                raise ValueError(
+                    "zero3_blocks is a storage mode of its own; do not "
+                    "combine with zero1/zero3"
+                )
+            if self.num_param_groups > 1:
+                raise ValueError(
+                    "zero3_blocks supports a single param group (the "
+                    "row layout has no per-position group table yet)"
+                )
+        self.zero3 = bool(zero3)
+        self.zero1 = bool(zero1) or self.zero3
+        self.num_replicas = num_replicas
+        self.layout = None
+        if self.zero1 or zero3_blocks is not None:
+            self._build_rows(model, optimizer, named)
         self.loss_fn = loss_fn
         self.model = model
         self.optimizer = optimizer
@@ -214,7 +319,6 @@ class ElasticTrainer:
         self.smoothing = smoothing
         self.seed = seed
         self.has_aux = has_aux
-        self.num_replicas = num_replicas
         metrics.set_active_topology()
         self._calibrated: set[int] = set()
         # One warm-up run plus this many timed runs per calibration.
@@ -226,12 +330,114 @@ class ElasticTrainer:
         # trainer set (what run_step hands back after a rollback).
         self._restored_state: TrainState | None = None
 
+    # ---- ZeRO storage: rows ------------------------------------------
+
+    def _build_rows(self, model, optimizer, named) -> None:
+        """Lay the parameters out as this rank's rows and rebind the
+        optimizer to them (zero1, zero3, zero3_blocks)."""
+        not_f32 = [n for n, p in named if p.dtype != torch.float32]
+        if not_f32:
+            raise ValueError(
+                f"the ZeRO storage modes keep float32 rows; {not_f32[:3]} "
+                "are not float32"
+            )
+        dp, rank = self.num_replicas, env.replica_rank()
+        self._rank = rank
+        if self.zero3_blocks is not None:
+            spec = zero3.block_spec(model, self.zero3_blocks)
+            self._spec = spec
+            self.layout = RowLayout(self._names, self._shapes, spec)
+            with torch.no_grad():
+                blocks_rows, other_rows = zero3.tree_to_rows(
+                    dict(named), self.zero3_blocks, spec, dp
+                )
+                self._blocks_row = blocks_rows[:, rank].contiguous().requires_grad_()
+                self._other_row = other_rows[rank].contiguous().requires_grad_()
+            self._rows = [self._blocks_row, self._other_row]
+            # The module's own parameters are never read again: only
+            # their shapes stay.
+            for _, p in named:
+                p.detach().untyped_storage().resize_(0)
+            self._params = self._rows
+        else:
+            self.layout = RowLayout(self._names, self._shapes)
+            shard = self.layout.row_len(dp)
+            full = torch.zeros(dp * shard, dtype=torch.float32, device=self.device)
+            with torch.no_grad():
+                off = 0
+                for (_, p), k in zip(named, self.layout.numels):
+                    full[off : off + k].copy_(p.detach().reshape(-1))
+                    p.data = full[off : off + k].view(p.shape)
+                    off += k
+            self._full = full
+            self._full_bytes = full.untyped_storage().nbytes()
+            row = full[rank * shard : (rank + 1) * shard]
+            self._row = row.clone() if self.zero3 else row
+            self._rows = [self._row]
+            # Per-position group ids, only where groups differ.
+            self._row_gids = None
+            if self.num_param_groups > 1:
+                gids = torch.cat([
+                    torch.full((k,), gid, dtype=torch.int64)
+                    for gid, k in zip(self._group_ids, self.layout.numels)
+                ] + [torch.zeros(dp * shard - self.layout.n, dtype=torch.int64)])
+                self._row_gids = gids[rank * shard : (rank + 1) * shard].to(self.device)
+            if self.zero3:
+                self._release()
+        optimizer.rebind(self._rows)
+
+    def _assemble(self) -> None:
+        """zero3: gather every rank's row into the parameter buffer the
+        module's parameters view."""
+        self._full.untyped_storage().resize_(self._full_bytes)
+        collective.all_gather_rows(self._row, out=self._full)
+
+    def _release(self) -> None:
+        """zero3: free the parameter buffer's storage (the module's
+        parameters keep their shapes)."""
+        self._full.untyped_storage().resize_(0)
+
+    def _row_vector(self, tensors) -> torch.Tensor:
+        """Tensors aligned with the rows -> this rank's row as one
+        vector."""
+        tensors = list(tensors)
+        if len(tensors) == 1:
+            return tensors[0].detach().reshape(-1)
+        return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+    def _split_row_vector(self, vec: torch.Tensor) -> list:
+        """Inverse of :meth:`_row_vector`: views shaped as the rows."""
+        out, off = [], 0
+        for row in self._rows:
+            out.append(vec[off : off + row.numel()].view(row.shape))
+            off += row.numel()
+        return out
+
+    @property
+    def zero_mode(self) -> str | None:
+        """The storage mode: "zero3_blocks", "zero3", "zero1", or None
+        (dense)."""
+        if self.zero3_blocks is not None:
+            return "zero3_blocks"
+        if self.zero3:
+            return "zero3"
+        return "zero1" if self.zero1 else None
+
     def init_state(self) -> TrainState:
         zero = torch.zeros((), device=self.device)
+        # The differenced carry: in rows under zero3_blocks, the empty
+        # placeholder under zero1/zero3 at more than one replica (where
+        # count > 1 never reads it), else parameter-shaped.
+        if self.zero3_blocks is not None:
+            carry = self._rows
+        elif self.zero1 and self.num_replicas > 1:
+            carry = gns.empty_prev_grad(list(self.model.parameters()))
+        else:
+            carry = list(self.model.parameters())
         return TrainState(
             model=self.model,
             optimizer=self.optimizer,
-            gns=gns.init(self._params, self.num_param_groups),
+            gns=gns.init(carry, self.num_param_groups),
             progress=zero.clone(),
             step=zero.to(torch.int64),
             seed=self.seed,
@@ -245,12 +451,17 @@ class ElasticTrainer:
         }
 
     def _precond(self):
+        """Adam's preconditioner, per parameter (dense), per row
+        (zero3_blocks: this rank's ``nu`` rows precondition its row
+        gradients), or per parameter from ``nu`` reassembled from its
+        rows (zero1, zero3)."""
         if self.precondition != "adam":
             return None
-        return [
-            torch.sqrt(torch.clamp(nu, min=0.0)) + 1e-8
-            for nu in self.optimizer.second_moments()
-        ]
+        nus = self.optimizer.second_moments()
+        if self.zero1:
+            flat = collective.all_gather_rows(nus[0])[: self.layout.n]
+            nus = list(self.layout.tree(flat).values())
+        return [torch.sqrt(torch.clamp(nu, min=0.0)) + 1e-8 for nu in nus]
 
     def train_step(self, atomic_bsz: int, accum_steps: int = 0) -> Callable:
         """``(state, batch[, aux]) -> (state, metrics)`` for this
@@ -260,87 +471,43 @@ class ElasticTrainer:
         reaches every microbatch's loss whole."""
 
         def step(state: TrainState, batch: dict, aux: Any = None):
-            return self._step(state, batch, atomic_bsz, accum_steps, aux)
+            if self.zero3_blocks is not None:
+                return self._step_z3b(state, batch, atomic_bsz, accum_steps, aux)
+            if not self.zero3:
+                return self._step(state, batch, atomic_bsz, accum_steps, aux)
+            self._assemble()
+            try:
+                return self._step(state, batch, atomic_bsz, accum_steps, aux)
+            finally:
+                self._release()
 
         return step
 
     def _loss(self, micro: dict, generator: torch.Generator, aux: Any):
+        params = self.model
+        if self.zero3_blocks is not None:
+            params = zero3.build_view(self._blocks_row, self._other_row, self._spec)
         if self.has_aux:
-            return self.loss_fn(self.model, micro, generator, aux)
-        return self.loss_fn(self.model, micro, generator)
+            return self.loss_fn(params, micro, generator, aux)
+        return self.loss_fn(params, micro, generator)
 
-    def _step(self, state: TrainState, batch: dict, atomic_bsz: int,
-              accum_steps: int, aux: Any = None):
-        num_micro = accum_steps + 1
-        count = self.num_replicas * num_micro
-        accum_scale = self.num_replicas * atomic_bsz / self.init_batch_size
-        scale = accum_scale * num_micro
-        batch_size = self.num_replicas * num_micro * atomic_bsz
-        precond = self._precond()
+    def _microbatches(self, batch, atomic_bsz, num_micro, state, aux, on_grads):
+        """Forward and backward of each microbatch in order; ``on_grads
+        (grads, loss)`` takes each one's float32 gradients."""
         rank = env.replica_rank()
-        grad_sum = None
-        lsqr_sum = torch.zeros(self.num_param_groups, device=self.device)
-        loss_sum = torch.zeros((), device=self.device)
-        with record_function(RANGE_MICROBATCHES):
-            for i in range(num_micro):
-                micro = {
-                    k: v[i * atomic_bsz : (i + 1) * atomic_bsz]
-                    for k, v in batch.items()
-                }
-                generator = microbatch_generator(
-                    self.device, state.seed, state.host_step, i, rank
-                )
-                loss = self._loss(micro, generator, aux)
-                grads = [
-                    g.float()
-                    for g in torch.autograd.grad(loss, self._params)
-                ]
-                lsqr_sum = lsqr_sum + gns.group_normsqr(
-                    grads, self._group_ids, self.num_param_groups, precond
-                )
-                loss_sum = loss_sum + loss.detach().float()
-                if grad_sum is None:
-                    grad_sum = grads
-                else:
-                    for acc, g in zip(grad_sum, grads):
-                        acc.add_(g)
-        with record_function(RANGE_STATISTICS):
-            grads = [g.div_(num_micro) for g in grad_sum]
-            local_sqr_mean = lsqr_sum / num_micro
-            loss = loss_sum / num_micro
-            # The one all-reduce point: gradients, with the two noise
-            # scalars and the loss riding along in one flat buffer.
-            collective.allreduce_mean(grads + [local_sqr_mean, loss])
-            new_gns = gns.update(
-                state.gns,
-                grads,
-                local_sqr_mean,
-                count=count,
-                accum_scale=accum_scale,
-                num_microbatches=num_micro,
-                smoothing=self.smoothing,
-                precond=precond,
-                group_ids=self._group_ids,
-                num_groups=self.num_param_groups,
+        for i in range(num_micro):
+            micro = {
+                k: v[i * atomic_bsz : (i + 1) * atomic_bsz]
+                for k, v in batch.items()
+            }
+            generator = microbatch_generator(
+                self.device, state.seed, state.host_step, i, rank
             )
-            step_gain = gns.gain(new_gns, scale)
-            ctx = RuleContext(
-                scale=scale,
-                batch_size=batch_size,
-                init_batch_size=self.init_batch_size,
-                gns_state=new_gns,
-                progress=state.progress,
-            )
-            lr_factor = self.scaling_rule.lr_factor(ctx)
-            group_factors = self.scaling_rule.lr_factor_groups(ctx)
-        with record_function(RANGE_OPTIMIZER):
-            for p, g in zip(self._params, grads):
-                p.grad = g
-            self.optimizer.step(
-                [group_factors[gid] for gid in self._group_ids]
-            )
-            for p in self._params:
-                p.grad = None
+            loss = self._loss(micro, generator, aux)
+            grads = [g.float() for g in torch.autograd.grad(loss, self._params)]
+            on_grads(grads, loss)
+
+    def _finish(self, state, new_gns, scale, batch_size, loss, step_gain, lr_factor):
         new_state = replace(
             state,
             gns=new_gns,
@@ -358,13 +525,444 @@ class ElasticTrainer:
             "scale": torch.tensor(scale, device=self.device),
         }
 
+    def _rule(self, state, new_gns, scale, batch_size):
+        ctx = RuleContext(
+            scale=scale,
+            batch_size=batch_size,
+            init_batch_size=self.init_batch_size,
+            gns_state=new_gns,
+            progress=state.progress,
+        )
+        return (
+            gns.gain(new_gns, scale),
+            self.scaling_rule.lr_factor(ctx),
+            self.scaling_rule.lr_factor_groups(ctx),
+        )
+
+    def _step(self, state: TrainState, batch: dict, atomic_bsz: int,
+              accum_steps: int, aux: Any = None):
+        """The data-parallel step (dense, zero1 and zero3)."""
+        num_micro = accum_steps + 1
+        count = self.num_replicas * num_micro
+        accum_scale = self.num_replicas * atomic_bsz / self.init_batch_size
+        scale = accum_scale * num_micro
+        batch_size = self.num_replicas * num_micro * atomic_bsz
+        precond = self._precond()
+        acc = {
+            "grads": None,
+            "lsqr": torch.zeros(self.num_param_groups, device=self.device),
+            "loss": torch.zeros((), device=self.device),
+        }
+
+        def on_grads(grads, loss):
+            acc["lsqr"] = acc["lsqr"] + gns.group_normsqr(
+                grads, self._group_ids, self.num_param_groups, precond
+            )
+            acc["loss"] = acc["loss"] + loss.detach().float()
+            if acc["grads"] is None:
+                acc["grads"] = grads
+            else:
+                for total, g in zip(acc["grads"], grads):
+                    total.add_(g)
+
+        with record_function(RANGE_MICROBATCHES):
+            self._microbatches(batch, atomic_bsz, num_micro, state, aux, on_grads)
+        with record_function(RANGE_STATISTICS):
+            grads = [g.div_(num_micro) for g in acc["grads"]]
+            local_sqr_mean = acc["lsqr"] / num_micro
+            loss = acc["loss"] / num_micro
+            # The one all-reduce point: gradients, with the two noise
+            # scalars and the loss riding along in one flat buffer
+            # (under zero1/zero3 with the row's padding before them).
+            if self.zero1:
+                pad = torch.zeros(
+                    self.layout.row_len(self.num_replicas) * self.num_replicas
+                    - self.layout.n, device=self.device,
+                )
+                flat = collective.allreduce_mean_packed(
+                    grads + [pad, local_sqr_mean, loss]
+                )
+            else:
+                collective.allreduce_mean(grads + [local_sqr_mean, loss])
+            new_gns = gns.update(
+                state.gns,
+                grads,
+                local_sqr_mean,
+                count=count,
+                accum_scale=accum_scale,
+                num_microbatches=num_micro,
+                smoothing=self.smoothing,
+                precond=precond,
+                group_ids=self._group_ids,
+                num_groups=self.num_param_groups,
+            )
+            step_gain, lr_factor, group_factors = self._rule(
+                state, new_gns, scale, batch_size
+            )
+        with record_function(RANGE_OPTIMIZER):
+            if self.zero1:
+                self._zero1_update(flat, group_factors)
+            else:
+                for p, g in zip(self._params, grads):
+                    p.grad = g
+                self.optimizer.step(
+                    [group_factors[gid] for gid in self._group_ids]
+                )
+                for p in self._params:
+                    p.grad = None
+        return self._finish(
+            state, new_gns, scale, batch_size, loss, step_gain, lr_factor
+        )
+
+    def _zero1_update(self, flat_grads: torch.Tensor, group_factors) -> None:
+        """Step this rank's row of the averaged flat gradient against the
+        row moments, each position by its group's factor; under zero1
+        gather every rank's updated row back into the parameters (under
+        zero3 the row is the stored parameter)."""
+        shard = self.layout.row_len(self.num_replicas)
+        start = self._rank * shard
+        self._row.grad = flat_grads[start : start + shard]
+        if self._row_gids is None:
+            factor = group_factors[0]
+        else:
+            factor = group_factors[self._row_gids]
+        self.optimizer.step([factor])
+        self._row.grad = None
+        if not self.zero3:
+            collective.all_gather_rows(self._row, out=self._full)
+
+    def _step_z3b(self, state: TrainState, batch: dict, atomic_bsz: int,
+                  accum_steps: int, aux: Any = None):
+        """The zero3_blocks step: the loss is differentiated with respect
+        to this rank's rows; each row gradient arrives as the sum over
+        ranks and divided by dp is the averaged gradient, so no gradient
+        all-reduce follows. The noise statistics count microbatches."""
+        dp = self.num_replicas
+        num_micro = accum_steps + 1
+        accum_scale = dp * atomic_bsz / self.init_batch_size
+        scale = accum_scale * num_micro
+        batch_size = dp * num_micro * atomic_bsz
+        precond = self._precond()
+        acc = {"grads": None, "lsqr": [], "loss": torch.zeros((), device=self.device)}
+
+        def on_grads(grads, loss):
+            grads = [g / dp for g in grads]
+            acc["lsqr"].append(gns.group_normsqr(grads, [0] * len(grads), 1, precond))
+            acc["loss"] = acc["loss"] + loss.detach().float()
+            if acc["grads"] is None:
+                acc["grads"] = grads
+            else:
+                for total, g in zip(acc["grads"], grads):
+                    total.add_(g)
+
+        with record_function(RANGE_MICROBATCHES):
+            self._microbatches(batch, atomic_bsz, num_micro, state, aux, on_grads)
+        with record_function(RANGE_STATISTICS):
+            # Each microbatch's global squared norm and the loss, in one
+            # all-reduce.
+            scalars = collective.allreduce_sum(
+                torch.cat(acc["lsqr"] + [acc["loss"].reshape(1)])
+            )
+            lsqr_sum = torch.zeros(1, device=self.device)
+            for i in range(num_micro):
+                lsqr_sum = lsqr_sum + scalars[i : i + 1]
+            loss = scalars[num_micro] / dp / num_micro
+            grads = [g / num_micro for g in acc["grads"]]
+            new_gns = gns.update(
+                state.gns,
+                grads,
+                lsqr_sum / num_micro,
+                count=num_micro,
+                accum_scale=accum_scale,
+                num_microbatches=num_micro,
+                smoothing=self.smoothing,
+                precond=precond,
+                group_ids=[0] * len(grads),
+                num_groups=1,
+                normsqr_fn=gns.rows_normsqr,
+            )
+            step_gain, lr_factor, group_factors = self._rule(
+                state, new_gns, scale, batch_size
+            )
+        with record_function(RANGE_OPTIMIZER):
+            for row, g in zip(self._rows, grads):
+                row.grad = g
+            self.optimizer.step([group_factors[0]] * len(self._rows))
+            for row in self._rows:
+                row.grad = None
+        return self._finish(
+            state, new_gns, scale, batch_size, loss, step_gain, lr_factor
+        )
+
+    def params_tree(self, state: TrainState | None = None) -> dict:
+        """A copy of the parameters as the name -> tensor tree, whatever
+        the storage layout: what evaluation, export and analysis should
+        read instead of the module's parameters, which zero3 and
+        zero3_blocks release between steps. Under zero3 and zero3_blocks
+        a collective every rank joins."""
+        if self.zero3_blocks is not None:
+            tree = zero3.assemble_tree(
+                self._blocks_row, self._other_row, self.zero3_blocks, self._spec
+            )
+        elif self.zero3:
+            tree = self.layout.tree(self.layout.gather(self._row))
+        else:
+            tree = dict(self.model.named_parameters())
+        return {n: p.detach().clone() for n, p in tree.items()}
+
+    def eval_step(self, metric_fn: Callable) -> Callable:
+        """``(state, batch) -> totals``: ``metric_fn(params, local_batch)``
+        runs without gradients on each replica's block, with what the
+        loss receives (the model; a ``Zero3View`` under zero3_blocks;
+        under zero3 the parameters assembled for the call), and returns
+        partial sums (name -> number or tensor); they are summed over the
+        replicas. Every rank calls it."""
+
+        def run(state: TrainState, batch: dict) -> dict:
+            with torch.no_grad():
+                if self.zero3:
+                    self._assemble()
+                try:
+                    if self.zero3_blocks is not None:
+                        params = zero3.build_view(
+                            self._blocks_row, self._other_row, self._spec
+                        )
+                    else:
+                        params = self.model
+                    out = metric_fn(params, batch)
+                finally:
+                    if self.zero3:
+                        self._release()
+            local = {k: torch.as_tensor(v).detach().cpu() for k, v in out.items()}
+            totals = collective.allreduce(
+                local, lambda parts: {k: sum(p[k] for p in parts) for k in parts[0]}
+            )
+            return totals
+
+        return run
+
+    # ---- the canonical checkpoint layout (ZeRO modes) ------------------
+
+    def _moment_keys(self) -> list:
+        """The optimizer's row-shaped state entries (``exp_avg``,
+        ``exp_avg_sq``; ``momentum_buffer``), once it has stepped."""
+        state = self.optimizer.state.get(self._rows[0]) or {}
+        return [k for k in state if k != "step"]
+
+    def row_families(self, state: TrainState) -> dict:
+        """This rank's row, as one vector, of every parameter-shaped
+        family the checkpoints keep: ``params``, each moment, and under
+        zero3_blocks the differenced carry ``prev_grad``."""
+        families = {"params": self._row_vector(self._rows)}
+        for key in self._moment_keys():
+            families[key] = self._row_vector(
+                [self.optimizer.state[row][key] for row in self._rows]
+            )
+        if self.zero3_blocks is not None:
+            families["prev_grad"] = self._row_vector(state.gns.prev_grad)
+        return families
+
+    def small_state(self, state: TrainState) -> dict:
+        """What the checkpoints keep beside the families: the noise
+        statistics, progress, step, seed, group ids and the optimizer's
+        step count."""
+        fields = state.gns.tensors()
+        fields.pop("prev_grad")
+        row_state = self.optimizer.state.get(self._rows[0]) or {}
+        return {
+            "gns": fields,
+            "progress": state.progress,
+            "step": state.step,
+            "seed": state.seed,
+            "group_ids": list(self._group_ids),
+            "param_names": list(self._names),
+            "layout": self.zero_mode or "dense",
+            "optimizer_step": row_state.get("step"),
+        }
+
+    def canonical_payload(self, state: TrainState) -> dict:
+        """The ZeRO modes' checkpoint payload in the canonical layout:
+        parameters as the plain tree (with the module's buffers), moments
+        as flat ``[n]`` vectors in parameter order, the carry empty
+        (zero1, zero3) or flat (zero3_blocks). A collective every rank
+        joins (one all-gather per family)."""
+        flat = {
+            key: self.layout.gather(row)
+            for key, row in self.row_families(state).items()
+        }
+        tree = dict(self.layout.tree(flat.pop("params")))
+        if self.zero3_blocks is None:
+            names = set(self._names)
+            tree.update(
+                (k, v) for k, v in self.model.state_dict().items() if k not in names
+            )
+            carry = gns.empty_prev_grad(list(self.model.parameters()))
+        else:
+            carry = [flat.pop("prev_grad")]
+        small = self.small_state(state)
+        step = small.pop("optimizer_step")
+        return {
+            "model": tree,
+            "optimizer": {
+                "flat_state": flat,
+                "scalar_state": {} if step is None else {"step": step},
+            },
+            "prev_grad": carry,
+            **small,
+        }
+
+    def _adopt_tree(self, tree: dict) -> dict:
+        """A checkpoint's parameter tree under this trainer's names: as
+        is, or (zero3_blocks) a dense LM's separate layers stacked."""
+        if set(tree) == set(self.layout.names):
+            return tree
+        if self.zero3_blocks is not None:
+            stacked = zero3.stack_layers(tree, self._spec)
+            if stacked is not None:
+                return stacked
+        raise ValueError(
+            "the checkpoint's parameters differ from this trainer's: "
+            f"{sorted(set(tree) ^ set(self.layout.names))[:4]}"
+        )
+
+    def install_rows(self, rows: dict, step) -> None:
+        """Install this rank's rows of each moment (family -> row vector
+        at this incarnation's replica count), the optimizer's step count
+        and the parameters: this rank's row, or under zero1 the whole
+        flat canonical vector (zero1 keeps every parameter). No
+        collective: each rank restores on its own."""
+        device = self.device
+        with torch.no_grad():
+            params = rows["params"].float().to(device)
+            if self.zero1 and not self.zero3:
+                self._full[: self.layout.n].copy_(params[: self.layout.n])
+            else:
+                for dst, src in zip(self._rows, self._split_row_vector(params)):
+                    dst.copy_(src)
+        for r in self._rows:
+            self.optimizer.state[r] = {}
+        moments = {k: v for k, v in rows.items() if k not in ("params", "prev_grad")}
+        for key, vec in moments.items():
+            parts = self._split_row_vector(vec.float().to(device))
+            for r, part in zip(self._rows, parts):
+                self.optimizer.state[r][key] = part.clone()
+        if moments and step is not None:
+            for r in self._rows:
+                self.optimizer.state[r]["step"] = (
+                    torch.as_tensor(step).float().to(device).clone()
+                )
+
+    def restored_carry(self, layout: str, prev_row, valid) -> tuple[list, torch.Tensor]:
+        """The differenced carry after a restore: zero3_blocks takes a
+        zero3_blocks checkpoint's carry (``prev_row``, this rank's row)
+        and re-primes after any other; zero1 and zero3 keep the
+        placeholder at more than one replica and re-prime at one."""
+        device = self.device
+        invalid = torch.zeros((), dtype=torch.bool, device=device)
+        if self.zero3_blocks is not None:
+            if layout == "zero3_blocks" and prev_row is not None:
+                carry = self._split_row_vector(prev_row.float().to(device))
+                return [c.clone() for c in carry], torch.as_tensor(valid).to(device)
+            return [torch.zeros_like(r) for r in self._rows], invalid
+        params = list(self.model.parameters())
+        if self.num_replicas > 1:
+            return gns.empty_prev_grad(params), torch.as_tensor(valid).to(device)
+        return [torch.zeros(p.shape, device=device) for p in params], invalid
+
+    def restore_payload(self, payload: dict) -> tuple[list, torch.Tensor]:
+        """Restore a checkpoint payload (canonical, or a dense trainer's)
+        into this ZeRO-mode trainer's rows and optimizer; returns the
+        differenced carry and its validity for this mode and replica
+        count."""
+        saved_names = payload.get("param_names") or list(payload["model"])
+        model_tree = payload["model"]
+        shapes = [tuple(model_tree[n].shape) for n in saved_names]
+        saved = RowLayout(saved_names, shapes)
+        dp, rank = self.num_replicas, self._rank
+
+        def row(values: dict) -> torch.Tensor:
+            flat = self.layout.ravel(self._adopt_tree(values))
+            return self.layout.row_from_flat(flat, rank, dp)
+
+        params = {n: model_tree[n] for n in saved_names}
+        rows = {"params": (
+            self.layout.ravel(self._adopt_tree(params))
+            if self.zero1 and not self.zero3 else row(params)
+        )}
+        opt = payload["optimizer"]
+        if "flat_state" in opt:
+            for key, flat in opt["flat_state"].items():
+                rows[key] = row(saved.tree(flat))
+            step = opt["scalar_state"].get("step")
+        else:
+            # A dense trainer's optimizer: one entry per parameter.
+            per = opt.get("state", {})
+            entries = [per[i] for i in sorted(per)]
+            keys = [k for k in (entries[0] if entries else {}) if k != "step"]
+            for key in keys:
+                rows[key] = row({n: e[key] for n, e in zip(saved_names, entries)})
+            step = entries[0].get("step") if entries else None
+        self.install_rows(rows, step)
+        layout = payload.get("layout") or "dense"
+        prev, valid = payload["prev_grad"], payload["gns"]["prev_grad_valid"]
+        if layout == "zero3_blocks":
+            return self.restored_carry(
+                layout, self.layout.row_from_flat(prev[0].float(), rank, dp), valid
+            )
+        if (
+            self.zero3_blocks is None and dp == 1 and layout == "dense"
+            and not gns.is_placeholder(prev, shapes)
+        ):
+            tree = self._adopt_tree(dict(zip(saved_names, prev)))
+            return (
+                [tree[n].float().to(self.device) for n in self.layout.names],
+                torch.as_tensor(valid).to(self.device),
+            )
+        return self.restored_carry(layout, None, valid)
+
+    def check_group_ids(self, saved_ids) -> None:
+        if (
+            saved_ids is not None
+            and max(saved_ids, default=0) > 0
+            and list(saved_ids) != self._group_ids
+        ):
+            raise ValueError(
+                "the checkpoint's parameter groups differ from this "
+                "trainer's param_group_fn"
+            )
+
+    def restored_state(self, state: TrainState, small: dict, carry, valid=None) -> TrainState:
+        """The TrainState a restore lands on: ``small``'s noise
+        statistics (one group seeds every group of this trainer),
+        progress, step and seed, with the differenced ``carry`` (and its
+        validity, when the restore decided it)."""
+        device = self.device
+        fields = {k: torch.as_tensor(v).to(device) for k, v in small["gns"].items()}
+        if valid is not None:
+            fields["prev_grad_valid"] = torch.as_tensor(valid).to(device)
+        restored = gns.normalize_groups(
+            gns.GNSState(**fields, prev_grad=carry), self.num_param_groups
+        )
+        step = torch.as_tensor(small["step"])
+        return replace(
+            state,
+            gns=restored,
+            progress=torch.as_tensor(small["progress"]).float().to(device),
+            step=step.to(torch.int64).to(device),
+            seed=small.get("seed", state.seed),
+            host_step=int(step),
+        )
+
     def calibrate_accum_time(
         self, host_batch: Any, atomic_bsz: int, aux: Any = None
     ) -> float:
         """Time one microbatch forward and backward with no gradient
         sync (the best of ``calibrate_repeats`` runs after a warm-up)
         and record it for the performance model. ``host_batch`` is this
-        process's block; one microbatch takes its share of it."""
+        process's block; one microbatch takes its share of it. Under
+        zero3 the parameters are assembled for the runs; under
+        zero3_blocks the runs differentiate with respect to the rows,
+        through the gathers the step runs."""
         local_rows = self.num_replicas * atomic_bsz // env.num_processes()
         micro = self.to_device(
             {k: v[:local_rows] for k, v in host_batch.items()}
@@ -378,14 +976,20 @@ class ElasticTrainer:
             grads = torch.autograd.grad(loss, self._params)
             return gns.normsqr(grads) + loss.detach()
 
-        run()
-        _sync(self.device)
-        best = float("inf")
-        for _ in range(self.calibrate_repeats):
-            start = time.perf_counter()
+        if self.zero3:
+            self._assemble()
+        try:
             run()
             _sync(self.device)
-            best = min(best, time.perf_counter() - start)
+            best = float("inf")
+            for _ in range(self.calibrate_repeats):
+                start = time.perf_counter()
+                run()
+                _sync(self.device)
+                best = min(best, time.perf_counter() - start)
+        finally:
+            if self.zero3:
+                self._release()
         metrics.profile_accum_time(atomic_bsz, best)
         return best
 
@@ -467,6 +1071,7 @@ class TrainerCheckpoint(checkpoint.State):
         self._get_state = get_state
         self._set_state = set_state
         self._host: list[torch.Tensor] = []
+        self._synced: dict | None = None
 
     @property
     def host_buffer_bytes(self) -> int:
@@ -475,6 +1080,17 @@ class TrainerCheckpoint(checkpoint.State):
 
     def _payload(self) -> dict:
         state = self._get_state()
+        trainer = self._trainer
+        if trainer.zero_mode is not None:
+            synced, self._synced = self._synced, None
+            if synced is not None:
+                return synced
+            if collective.world_size() > 1:
+                raise RuntimeError(
+                    "a ZeRO-mode checkpoint gathers its rows in sync(), "
+                    "which every rank runs before the snapshot"
+                )
+            return trainer.canonical_payload(state)
         fields = state.gns.tensors()
         return {
             "model": state.model.state_dict(),
@@ -484,8 +1100,20 @@ class TrainerCheckpoint(checkpoint.State):
             "progress": state.progress,
             "step": state.step,
             "seed": state.seed,
-            "group_ids": list(self._trainer._group_ids),
+            "group_ids": list(trainer._group_ids),
+            "param_names": list(trainer._names),
+            "layout": "dense",
         }
+
+    def sync(self) -> None:
+        """Every rank: under a ZeRO mode, join the gather of the rows to
+        the canonical layout, which rank 0's snapshot then copies (the
+        snapshot issues no collective)."""
+        if self._trainer.zero_mode is not None:
+            payload = self._trainer.canonical_payload(self._get_state())
+            # Only rank 0 snapshots it; the others joined the gather.
+            writes = env.replica_rank() == 0 and env.checkpoint_path() is not None
+            self._synced = payload if writes else None
 
     def snapshot(self) -> dict:
         tensors: list[torch.Tensor] = []
@@ -543,35 +1171,21 @@ class TrainerCheckpoint(checkpoint.State):
     def _apply(self, payload: dict) -> None:
         trainer = self._trainer
         device = trainer.device
-        saved_ids = payload.get("group_ids")
-        if (
-            saved_ids is not None
-            and max(saved_ids, default=0) > 0
-            and list(saved_ids) != trainer._group_ids
-        ):
-            raise ValueError(
-                "the checkpoint's parameter groups differ from this "
-                "trainer's param_group_fn"
-            )
+        trainer.check_group_ids(payload.get("group_ids"))
         state = self._get_state()
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
-        # A checkpoint with one group seeds every group of this trainer.
-        restored = gns.normalize_groups(
-            gns.GNSState(
-                **{k: v.to(device) for k, v in payload["gns"].items()},
-                prev_grad=[t.to(device) for t in payload["prev_grad"]],
-            ),
-            trainer.num_param_groups,
-        )
-        new_state = replace(
-            state,
-            gns=restored,
-            progress=payload["progress"].to(device),
-            step=payload["step"].to(device),
-            seed=payload.get("seed", state.seed),
-            host_step=int(payload["step"]),
-        )
+        valid = None
+        if trainer.zero_mode is not None:
+            carry, valid = trainer.restore_payload(payload)
+        else:
+            if payload.get("layout", "dense") != "dense":
+                raise ValueError(
+                    f"a {payload['layout']} checkpoint restores into a "
+                    "trainer of the ZeRO family, not a dense one"
+                )
+            state.model.load_state_dict(payload["model"])
+            state.optimizer.load_state_dict(payload["optimizer"])
+            carry = [t.to(device) for t in payload["prev_grad"]]
+        new_state = trainer.restored_state(state, payload, carry, valid)
         self._set_state(new_state)
         trainer._restored_state = new_state
 

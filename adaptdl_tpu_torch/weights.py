@@ -37,6 +37,13 @@ flax                              port
 ``layer_i/moe/w_down [E, f, d]``  ``layers.i.moe.w_down`` (as is)
 ================================  ===================================
 
+The per-layer ZeRO-3 LM (``init_zero3_lm``) stacks the same blocks
+under ``blocks``: :func:`flax_zero3_lm_to_state_dict` maps
+``blocks/<Block path> [L, ...]`` onto
+:class:`adaptdl_tpu_torch.models.Zero3LMParams`'s ``blocks.<name> [L,
+...]`` by the table above, layer by layer. :func:`flat_order_map` relates
+the two packages' flat canonical vectors (``ravel_pytree`` order there,
+parameter order here), so that flat moments can be compared.
 """
 
 from __future__ import annotations
@@ -46,7 +53,10 @@ import torch
 
 
 def _tensor(x) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, np.float32))
+    """float32, except float64 input, which stays exact (the index
+    arrays of :func:`flat_order_map`)."""
+    a = np.asarray(x)
+    return torch.tensor(a if a.dtype == np.float64 else a.astype(np.float32))
 
 
 def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
@@ -201,3 +211,80 @@ def discriminator_state_dict(params) -> dict[str, torch.Tensor]:
     state.update(group_norm(params["GroupNorm_1"], "norm3"))
     state.update(dense_after_nhwc_flatten(params["Dense_0"], "out", channels))
     return state
+
+
+def _unstack(tree, layer: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, layer) for k, v in tree.items()}
+    return np.asarray(tree)[layer]
+
+
+def flax_zero3_lm_to_state_dict(params) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of :class:`Zero3LMParams` for a flax
+    ``init_zero3_lm`` tree (``embed``, ``ln_f``, ``blocks`` stacked)."""
+    blocks = params["blocks"]
+    num_layers = int(np.asarray(_first_leaf(blocks)).shape[0])
+    dense = {"embed": params["embed"], "LayerNorm_0": params["ln_f"]}
+    for i in range(num_layers):
+        dense[f"layer_{i}"] = _unstack(blocks, i)
+    per_layer = flax_to_state_dict(dense)
+    names = {"embed.weight": None, "ln_f.scale": None}
+    stacked = {}
+    for name, value in per_layer.items():
+        if name in names:
+            stacked[name] = value
+            continue
+        _, index, rest = name.split(".", 2)
+        stacked.setdefault("blocks." + rest, [None] * num_layers)[int(index)] = value
+    # Zero3LMParams' order: the embedding, a Block's parameters, ln_f.
+    out = {"embed.weight": stacked["embed.weight"]}
+    for name in _BLOCK_ORDER:
+        out["blocks." + name] = torch.stack(stacked["blocks." + name])
+    out["ln_f.scale"] = stacked["ln_f.scale"]
+    return out
+
+
+_BLOCK_ORDER = (
+    "ln1.scale", "attention.qkv.weight", "attention.out.weight", "ln2.scale",
+    "ff_up.weight", "ff_down.weight",
+)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = tree[sorted(tree)[0]]
+    return tree
+
+
+def _flax_leaves(tree, path=()):
+    """``(path, array)`` in ``jax.flatten_util.ravel_pytree`` order:
+    dict keys sorted, depth first."""
+    if isinstance(tree, dict):
+        out = []
+        for key in sorted(tree):
+            out += _flax_leaves(tree[key], path + (key,))
+        return out
+    return [(path, np.asarray(tree))]
+
+
+def flat_order_map(params, convert, names) -> np.ndarray:
+    """Indices ``perm`` such that the port's flat canonical vector
+    (parameters ``names`` in order, raveled) is ``jax_flat[perm]`` for
+    the flax tree ``params`` and its ravel_pytree vector ``jax_flat``;
+    ``convert`` is the tree's converter to the port's names
+    (``flax_to_state_dict``, ``flax_zero3_lm_to_state_dict``)."""
+    leaves = _flax_leaves(params)
+    index, offset = {}, 0
+    for path, leaf in leaves:
+        index[path] = np.arange(offset, offset + leaf.size, dtype=np.float64).reshape(leaf.shape)
+        offset += leaf.size
+    tree: dict = {}
+    for path, value in index.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    ported = convert(tree)
+    return np.concatenate(
+        [ported[n].numpy().reshape(-1) for n in names]
+    ).astype(np.int64)

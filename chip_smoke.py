@@ -195,7 +195,36 @@ Phases (any failure exits non-zero before the result line):
       Printed: every restart with the cycle that caused it, the seconds
       from the LM's submit to the publish, the SIGTERM, the exit 143 and
       each job's first step.
-11. result: the kernels line, the card line, then the device line. Each
+11. ZeRO storage modes: the full-width LM (12 x 768, 12 heads, seq 512,
+   vocab 32000, bf16 compute, f32 params, remat, AdamW + AdamScale with
+   the Adam-preconditioned statistics) from the same weights under
+   dense and zero1 and zero3 (flash attention, the sm90 kernel), and
+   under zero3_blocks (the per-layer ZeRO-3 LM, plain attention as the
+   JAX example runs it) beside a dense run with plain attention, each
+   its own bare train_step runs on the same batches with the launch
+   counts reset just before and read just after (sm90: 24 per step, 0
+   under plain attention; the f32 kernel 0) and per-rank peak memory
+   (torch.cuda.max_memory_allocated) reset just before the steps:
+   a. one rank, a fresh process whose process group is NCCL at world
+      size 1, 4 steps at (32, 0): zero1 and zero3 held to the dense run,
+      zero3_blocks to the dense plain-attention run, parameters within
+      ZERO_PARAM_TOL of the largest and losses within ZERO_LOSS_RTOL
+      (bit-equal expected: the element arithmetic is the same);
+   b. two ranks on the one card over gloo (the launcher), 3 steps at
+      (16, 0) each: the ranks' parameters bit-equal, each mode held to
+      its dense reference as in 11a; per-rank resident and peak memory
+      and the median step (host-staged collectives: correctness and
+      memory, not a scaling figure);
+   c. rescale, for zero1 and zero3_blocks, each through TrainerCheckpoint
+      and through ShardedTrainerCheckpoint: two ranks (11b's launch, once
+      its modes are done) take 2 steps and save, the launcher exits 143,
+      a one-rank successor restores at the saved step with the saved
+      parameters (canonical checksums) and takes 2 steps with finite
+      losses; save and restore seconds.
+   Each process draws the seed-0 weights once per model kind (the dense
+   LM, the zero3 LM) through init_transformer / init_zero3_lm and loads
+   them into its later trainers.
+12. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
@@ -204,8 +233,9 @@ Phases (any failure exits non-zero before the result line):
    phase 7, "rescale_launches" in each incarnation of phase 8 and
    "options_launches" in each part of phase 9 (its MoE LM's steps and
    calibration alone under "moe_lm_steps"; per bare step under each remat
-   policy under "remat_per_step") and "control_launches" on each rank of
-   each incarnation of 10a. The
+   policy under "remat_per_step"), "control_launches" on each rank of
+   each incarnation of 10a and "zero_launches" in each mode of 11a and
+   on each rank of 11b. The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
    own bound (the f32 kernel's: 3xTF32 at TF32's peak), plain version and
    SDPA on the same inputs; the f32 row's "bf16_input_ms" is the f32
@@ -3549,6 +3579,422 @@ def phase_control(kernel_rows):
     _build.reset_launches()
 
 
+# -- phase 11: the ZeRO storage modes ---------------------------------------
+
+# (name, ElasticTrainer keyword arguments, flash attention): the dense
+# runs are the references, with the sm90 flash kernel for zero1/zero3 and
+# with the plain attention zero3_blocks runs, as the JAX example does.
+ZERO_MODES = {
+    "dense": ({}, True),
+    "zero1": ({"zero1": True}, True),
+    "zero3": ({"zero3": True}, True),
+    "dense_plain": ({}, False),
+    "zero3_blocks": ({"zero3_blocks": "blocks"}, False),
+}
+ZERO_REFERENCE = {"zero1": "dense", "zero3": "dense", "zero3_blocks": "dense_plain"}
+ZERO_SINGLE_STEPS = 4  # 11a, at (32, 0)
+ZERO_PAIR_STEPS = 3  # 11b, at (16, 0) on each of two ranks
+ZERO_RESCALE_STEPS = 2  # 11c: before the stop and after the restore
+ZERO_RESCALES = [
+    ("zero1", "trainer"), ("zero1", "sharded"),
+    ("zero3_blocks", "trainer"), ("zero3_blocks", "sharded"),
+]
+# The held tolerance of every mode against its dense reference (same
+# weights, same batches): the element arithmetic is the same, so the
+# parameters and losses are expected bit-equal; held to a maximum
+# parameter difference of ZERO_PARAM_TOL of the largest parameter and a
+# loss difference of ZERO_LOSS_RTOL.
+ZERO_PARAM_TOL = 1e-6
+ZERO_LOSS_RTOL = 1e-6
+
+
+# The seed-0 weights of each model kind, on the host: the first trainer of
+# a kind in a process is built by init_transformer / init_zero3_lm, the
+# later ones (the same weights) load them instead of drawing them again.
+_ZERO_WEIGHTS: dict = {}
+
+
+def zero_trainer(mode, device):
+    """The full-width LM trainer of ``mode`` (ZERO_MODES), from seed 0."""
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config
+    from adaptdl_tpu_torch.models import (
+        TransformerLM, Zero3LMParams, init_transformer, init_zero3_lm, lm_loss_fn,
+        zero3_lm_loss_fn,
+    )
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    kwargs, flash = ZERO_MODES[mode]
+    config = lm_config(cpu=False, seq_len=512, flash=flash)
+    kind = "blocks" if "zero3_blocks" in kwargs else "dense"
+    cached = _ZERO_WEIGHTS.get(kind)
+    if cached is None:
+        if kind == "blocks":
+            loss_fn, model = init_zero3_lm(config, seed=0, device=device)
+        else:
+            model, loss_fn = init_transformer(config, seed=0, device=device), lm_loss_fn
+        _ZERO_WEIGHTS[kind] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    else:
+        with torch.device("meta"):
+            model = Zero3LMParams(config) if kind == "blocks" else TransformerLM(config)
+        model.to_empty(device=device)
+        model.load_state_dict(cached)
+        loss_fn = zero3_lm_loss_fn(model) if kind == "blocks" else lm_loss_fn
+    return ElasticTrainer(
+        loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
+        scaling_rule=AdamScale(), precondition="adam", device=device, **kwargs,
+    )
+
+
+def zero_canonical(trainer, state):
+    """The parameters as one flat float32 vector in the zero3 LM's
+    canonical order (a dense LM's layers stacked), on the host."""
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config
+    from adaptdl_tpu_torch.models import Zero3LMParams
+    from adaptdl_tpu_torch.parallel import zero3
+
+    tree = trainer.params_tree(state)
+    with torch.device("meta"):
+        spec = zero3.block_spec(
+            Zero3LMParams(lm_config(cpu=False, seq_len=512, flash=False)), "blocks"
+        )
+    if set(tree) != set(spec.names):
+        tree = zero3.stack_layers(tree, spec)
+    return torch.cat([tree[n].detach().reshape(-1).float().cpu() for n in spec.names])
+
+
+def _bits_checksum(flat):
+    return int(flat.contiguous().view(torch.int32).sum(dtype=torch.int64))
+
+
+def zero_drive(mode, device, replicas, rank, steps, atomic):
+    """``steps`` bare train_step runs of ``mode`` at (atomic, 0) on this
+    rank's block of the same global batches of 32, the sm90 launch count
+    reset just before and read just after; per-rank peak memory reset
+    just before the steps. Returns the run's record and canonical
+    parameters."""
+    from adaptdl_tpu_torch import collective
+    from adaptdl_tpu_torch.examples.transformer_lm import synthetic_tokens
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    trainer = zero_trainer(mode, device)
+    state = trainer.init_state()
+    tokens = synthetic_tokens(32 * steps, 512, 32000)["tokens"]
+    local = 32 // replicas
+    batches = [
+        trainer.to_device({"tokens": tokens[i * 32 + rank * local : i * 32 + (rank + 1) * local]})
+        for i in range(steps)
+    ]
+    step = trainer.train_step(atomic, 0)
+    torch.cuda.synchronize(device)
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    collective.reset_traffic()
+    losses, seconds = [], []
+    for batch in batches:
+        torch.cuda.synchronize(device)
+        start = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - start)
+        losses.append(float(m["loss"]))
+    launches = {k: _build.LAUNCHES[k] for k in (KERNEL_SM90, KERNEL)}
+    traffic = {k: v / steps for k, v in collective.TRAFFIC.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    flat = zero_canonical(trainer, state)
+    check(all(math.isfinite(x) for x in losses), f"{mode}: losses {losses}")
+    record = {
+        "mode": mode, "losses": losses, "step_s": seconds,
+        "median_step_ms": _median(seconds) * 1e3,
+        "launches": launches, "traffic_bytes_per_step": traffic,
+        "resident_gib": resident / 2**30,
+        "peak_gib": peak / 2**30, "checksum": _bits_checksum(flat),
+        "grad_sqr": float(m["grad_sqr"]), "grad_var": float(m["grad_var"]),
+    }
+    del trainer, state, batches, step, m
+    gc_cuda()
+    return record, flat
+
+
+def zero_compare(records, flats):
+    """Each mode against its dense reference: the largest parameter
+    difference over the largest parameter and the largest relative loss
+    difference (0.0 when bit-equal), added to its record."""
+    for mode, ref in ZERO_REFERENCE.items():
+        if mode not in records:
+            continue
+        a, b = flats[mode], flats[ref]
+        param = float((a - b).abs().max() / b.abs().max())
+        loss = max(
+            abs(x - y) / abs(y)
+            for x, y in zip(records[mode]["losses"], records[ref]["losses"])
+        )
+        records[mode].update(
+            reference=ref, param_diff=param, loss_rdiff=loss,
+            bit_equal=bool(torch.equal(a, b)),
+        )
+
+
+def zero_worker(kind, root):
+    """Phase 11's processes: ``single`` (11a, one rank, NCCL at world
+    size 1), ``pair`` (11b, a rank of two over gloo, then 11c's two-rank
+    stop, which exits 143) and ``successor`` (11c's one rank)."""
+    import socket
+
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch import collective, env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kind == "single":
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        device = torch.device("cuda", 0)
+        backend = collective.initialize(
+            "127.0.0.1", port, rank=0, world_size=1, device=device,
+            local_world_size=1,
+        )
+        check(backend == "nccl", f"11a backend {backend}")
+        records, flats = {}, {}
+        try:
+            for mode in ZERO_MODES:
+                records[mode], flats[mode] = zero_drive(
+                    mode, device, 1, 0, ZERO_SINGLE_STEPS, 32
+                )
+        finally:
+            collective.teardown()
+        zero_compare(records, flats)
+        with open(os.path.join(root, "single.json"), "w") as f:
+            json.dump({"backend": backend, "records": records}, f)
+        return
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    rank, replicas = env.process_rank(), env.num_replicas()
+    if kind == "pair":
+        import torch.distributed as dist
+
+        records, flats = {}, {}
+        for mode in ZERO_MODES:
+            records[mode], flats[mode] = zero_drive(
+                mode, device, replicas, rank, ZERO_PAIR_STEPS, 32 // replicas
+            )
+        zero_compare(records, flats)
+        with open(os.path.join(root, f"pair-rank{rank}.json"), "w") as f:
+            json.dump({"backend": dist.get_backend(), "records": records}, f)
+        del flats
+        gc_cuda()
+        # 11c's two-rank half runs in the same launch and ends it (exit 143).
+        kind = "stop"
+    zero_rescale(kind, root, device, rank, replicas)
+
+
+def zero_rescale(kind, root, device, rank, replicas):
+    """11c: ``stop`` trains each scenario ZERO_RESCALE_STEPS steps at two
+    ranks, saves it (blocking) and records the canonical parameters, then
+    exits 143; ``successor`` restores each at one rank, holds it to the
+    record and trains ZERO_RESCALE_STEPS more."""
+    from adaptdl_tpu_torch import checkpoint
+    from adaptdl_tpu_torch.examples.transformer_lm import synthetic_tokens
+    from adaptdl_tpu_torch.sharded_checkpoint import ShardedTrainerCheckpoint
+
+    tokens = synthetic_tokens(32 * ZERO_RESCALE_STEPS, 512, 32000)["tokens"]
+    local = 32 // replicas
+    report = {}
+    for mode, kind_ckpt in ZERO_RESCALES:
+        tag = f"{mode}-{kind_ckpt}"
+        os.environ["ADAPTDL_CHECKPOINT_PATH"] = os.path.join(root, tag)
+        checkpoint._reset_registry()
+        trainer = zero_trainer(mode, device)
+        holder = {"state": trainer.init_state()}
+        args = ("zero-lm", trainer, lambda: holder["state"],
+                lambda s: holder.__setitem__("state", s))
+        ckpt = (ShardedTrainerCheckpoint(*args) if kind_ckpt == "sharded"
+                else trainer.make_checkpoint_state(args[2], args[3], name=args[0]))
+        start = time.perf_counter()
+        restored = checkpoint.load_state(ckpt)
+        restore_s = time.perf_counter() - start
+        check(restored == (kind == "successor"), f"11c {tag}: restored={restored}")
+        entry = {"restore_s": restore_s, "resumed_at": holder["state"].host_step}
+        if kind == "successor":
+            with open(os.path.join(root, "stop.json")) as f:
+                saved = json.load(f)[tag]
+            flat = zero_canonical(trainer, holder["state"])
+            check(
+                holder["state"].host_step == saved["step"]
+                and _bits_checksum(flat) == saved["checksum"],
+                f"11c {tag}: resumed at step {holder['state'].host_step} "
+                f"(saved {saved['step']}), parameters "
+                f"{'equal' if _bits_checksum(flat) == saved['checksum'] else 'differ'}",
+            )
+        step = trainer.train_step(local, 0)
+        losses = []
+        for i in range(ZERO_RESCALE_STEPS):
+            batch = {"tokens": tokens[i * 32 + rank * local : i * 32 + (rank + 1) * local]}
+            holder["state"], m = step(holder["state"], trainer.to_device(batch))
+            losses.append(float(m["loss"]))
+        check(all(math.isfinite(x) for x in losses), f"11c {tag}: losses {losses}")
+        entry["losses"] = losses
+        if kind == "stop":
+            start = time.perf_counter()
+            checkpoint.save_all_states()
+            entry["save_s"] = time.perf_counter() - start
+            entry["step"] = holder["state"].host_step
+            entry["checksum"] = _bits_checksum(zero_canonical(trainer, holder["state"]))
+        report[tag] = entry
+        ckpt.unregister()
+        del trainer, holder, ckpt, step
+        gc_cuda()
+    if rank == 0:
+        with open(os.path.join(root, f"{kind}.json"), "w") as f:
+            json.dump(report, f)
+    if kind == "stop":
+        raise SystemExit(143)
+
+
+def phase_zero(kernel_rows):
+    """Phase 11: the ZeRO storage modes on the card."""
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-zero-")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")}
+
+    def run(kind, replicas, restarts=0, launcher=True):
+        run_env = dict(
+            base, ADAPTDL_NUM_REPLICAS=str(replicas),
+            ADAPTDL_NUM_RESTARTS=str(restarts),
+            ADAPTDL_SHARE_PATH=os.environ["ADAPTDL_SHARE_PATH"],
+        )
+        cmd = [os.path.join(here, "chip_smoke.py"), "--zero-worker", kind, root]
+        if launcher:
+            cmd = ["-m", "adaptdl_tpu_torch.launch"] + cmd
+        t0 = time.perf_counter()
+        code = subprocess.run(
+            [sys.executable, *cmd], cwd=here, env=run_env, timeout=900,
+        ).returncode
+        return code, time.perf_counter() - t0
+
+    def load(tag):
+        with open(os.path.join(root, f"{tag}.json")) as f:
+            return json.load(f)
+
+    per_pass = 12 * 2  # the sm90 kernel: forward + remat recompute per block
+    try:
+        code, wall = run("single", 1, launcher=False)
+        check(code == 0, f"11a exited {code}")
+        single = load("single")["records"]
+        for mode, rec in single.items():
+            flash = ZERO_MODES[mode][1]
+            want = per_pass * ZERO_SINGLE_STEPS if flash else 0
+            check(
+                rec["launches"][KERNEL_SM90] == want and rec["launches"][KERNEL] == 0,
+                f"11a {mode}: launches {rec['launches']}, expected {want} sm90",
+            )
+        for mode in ZERO_REFERENCE:
+            rec = single[mode]
+            check(
+                rec["param_diff"] <= ZERO_PARAM_TOL and rec["loss_rdiff"] <= ZERO_LOSS_RTOL,
+                f"11a {mode} against {rec['reference']}: parameters "
+                f"{rec['param_diff']:.3g}, losses {rec['loss_rdiff']:.3g}",
+            )
+        print("zero 11a (one rank, NCCL at world size 1, (32, 0), "
+              f"{ZERO_SINGLE_STEPS} steps each, {wall:.1f} s):")
+        for mode, rec in single.items():
+            against = (
+                f"; against {rec['reference']}: parameters {rec['param_diff']:.3g} "
+                f"of the largest, losses {rec['loss_rdiff']:.3g}"
+                f"{' (bit-equal)' if rec['bit_equal'] else ''}"
+                if "reference" in rec else ""
+            )
+            print(
+                f"  {mode}: losses {rec['losses']}, median step "
+                f"{rec['median_step_ms']:.1f} ms, resident "
+                f"{rec['resident_gib']:.2f} GiB, peak {rec['peak_gib']:.2f} GiB, "
+                f"sm90 launches {rec['launches'][KERNEL_SM90]}{against}"
+            )
+
+        code, wall = run("pair", 2)
+        # The launch goes on to 11c's two-rank stop, which exits 143.
+        check(code == 143, f"11b and 11c's stop exited {code}, expected 143")
+        pair = [load(f"pair-rank{r}") for r in (0, 1)]
+        check([p["backend"] for p in pair] == ["gloo", "gloo"], "11b backends")
+        print(f"zero 11b (two ranks on the one card over gloo, (16, 0) each, "
+              f"{ZERO_PAIR_STEPS} steps per mode; correctness and per-rank "
+              f"memory, not a scaling figure; with 11c's stop {wall:.1f} s):")
+        for mode in ZERO_MODES:
+            recs = [p["records"][mode] for p in pair]
+            check(
+                recs[0]["checksum"] == recs[1]["checksum"]
+                and recs[0]["losses"] == recs[1]["losses"],
+                f"11b {mode}: the two ranks' parameters differ",
+            )
+            flash = ZERO_MODES[mode][1]
+            want = per_pass * ZERO_PAIR_STEPS if flash else 0
+            check(
+                all(r["launches"][KERNEL_SM90] == want and r["launches"][KERNEL] == 0
+                    for r in recs),
+                f"11b {mode}: launches {[r['launches'] for r in recs]}",
+            )
+            if mode in ZERO_REFERENCE:
+                check(
+                    recs[0]["param_diff"] <= ZERO_PARAM_TOL
+                    and recs[0]["loss_rdiff"] <= ZERO_LOSS_RTOL,
+                    f"11b {mode} against {recs[0]['reference']}: parameters "
+                    f"{recs[0]['param_diff']:.3g}, losses {recs[0]['loss_rdiff']:.3g}",
+                )
+            against = (
+                f"; against {recs[0]['reference']}: parameters "
+                f"{recs[0]['param_diff']:.3g}, losses {recs[0]['loss_rdiff']:.3g}"
+                f"{' (bit-equal)' if recs[0]['bit_equal'] else ''}"
+                if mode in ZERO_REFERENCE else ""
+            )
+            traffic = ", ".join(
+                f"{k} {v / 1e6:.1f}"
+                for k, v in recs[0]["traffic_bytes_per_step"].items()
+            )
+            print(
+                f"  {mode}: ranks bit-equal; collectives per step (MB) {traffic}; "
+                f"losses {recs[0]['losses']}; per-rank "
+                f"resident {recs[0]['resident_gib']:.2f} / {recs[1]['resident_gib']:.2f} "
+                f"GiB, peak {recs[0]['peak_gib']:.2f} / {recs[1]['peak_gib']:.2f} GiB; "
+                f"median step {recs[0]['median_step_ms']:.1f} / "
+                f"{recs[1]['median_step_ms']:.1f} ms; sm90 launches "
+                f"{[r['launches'][KERNEL_SM90] for r in recs]}{against}"
+            )
+
+        code, wall_succ = run("successor", 1, restarts=1)
+        check(code == 0, f"11c: the one-rank successor exited {code}")
+        stop, succ = load("stop"), load("successor")
+        print(f"zero 11c (2 ranks -> exit 143 -> 1 rank; successor "
+              f"{wall_succ:.1f} s):")
+        for tag in stop:
+            print(
+                f"  {tag}: saved at step {stop[tag]['step']} in "
+                f"{stop[tag]['save_s']:.2f} s; restored at step "
+                f"{succ[tag]['resumed_at']} in {succ[tag]['restore_s']:.2f} s, "
+                f"parameters equal to the saved ones; losses after "
+                f"{succ[tag]['losses']}"
+            )
+        for row in kernel_rows:
+            name = row["name"]
+            row["zero_launches"] = {
+                "single": {m: r["launches"][name] for m, r in single.items()},
+                "pair": {m: [p["records"][m]["launches"][name] for p in pair]
+                         for m in ZERO_MODES},
+            }
+        print(json.dumps({"zero": {
+            "single": single,
+            "pair": [p["records"] for p in pair],
+            "rescale": {"stop": stop, "successor": succ},
+        }}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"zero: phase {time.perf_counter() - start:.1f} s")
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -3559,6 +4005,9 @@ def main():
         return
     if sys.argv[1:] == ["--nccl-check"]:
         nccl_world_one()
+        return
+    if sys.argv[1:2] == ["--zero-worker"]:
+        zero_worker(*sys.argv[2:4])
         return
     # The kernel cache lives on the share path (ops/_build.py): phase 2
     # builds into it, and every later process (phase 5's ranks, phase 8's
@@ -3590,6 +4039,7 @@ def smoke():
         recorder.stop()
     phase_options(kernel_rows)
     phase_control(kernel_rows)
+    phase_zero(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

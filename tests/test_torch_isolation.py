@@ -197,5 +197,5 @@ def test_unported_job_settings_raise(monkeypatch):
     monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "2")
     with pytest.raises(NotImplementedError, match="multi-replica"):
         adaptdl_tpu_torch.initialize_job(device="cpu")
-    with pytest.raises(NotImplementedError, match="--zero1"):
-        transformer_lm.main(["--cpu", "--zero1"])
+    with pytest.raises(NotImplementedError, match="--seq-shards"):
+        transformer_lm.main(["--cpu", "--seq-shards", "2"])

@@ -214,8 +214,8 @@ def test_unported_modes_raise(monkeypatch):
         TransformerConfig(**SIZES, dtype=torch.float32), device="cpu"
     )
     opt = AdamW(model.parameters(), lr=1e-3)
-    with pytest.raises(NotImplementedError, match="zero1"):
-        ElasticTrainer(lm_loss_fn, model, opt, 4, zero1=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="meshes"):
+        ElasticTrainer(lm_loss_fn, model, opt, 4, mesh=object(), device="cpu")
     monkeypatch.setenv("ADAPTDL_SEQ_SHARDS", "2")
     with pytest.raises(NotImplementedError, match="sharded axes"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, device="cpu")
