@@ -16,6 +16,13 @@
    predecessor's handoff manifest on a side thread;
 5. for a job of several replicas, joins the process group.
 
+A warm successor (``ADAPTDL_WARMUP=1``, ``sched/warmup.py``) skips steps
+2-4 before its hold: its liveness would commit the new allocation epoch
+while the incumbent still trains, and no peer has drained yet for a
+prefetch to find. Its ranks join the process group on the launcher's
+rendezvous address, and :func:`start_deferred_liveness` registers them
+and starts the heartbeats once the runner's ``go`` arrives.
+
 It adopts ``ADAPTDL_TRACEPARENT`` first and opens the
 ``restart.first_step`` span, which the first profiled step closes. The
 kernel libraries' cache on the share path is placed by
@@ -76,22 +83,19 @@ def _local_address() -> str:
         return coordinator.rsplit(":", 1)[0] if coordinator else env.master_addr()
 
 
-def _discover_peers() -> dict[int, str] | None:
-    """Register with the supervisor and wait for every process of this
-    restart group; returns rank -> address, or None when there is no
-    supervisor or a single process. Both calls ride the resilient client:
-    a supervisor blip is retried within a deadline. Re-registration is
-    idempotent (keyed by group and rank), and a 404 is retried too: after
-    a supervisor restart the job record returns a moment later."""
+def _register() -> bool:
+    """Register this rank with the supervisor (``PUT /register``); False
+    when there is no supervisor or a single process. Rides the resilient
+    client: a supervisor blip is retried within a deadline.
+    Re-registration is idempotent (keyed by group and rank), and a 404 is
+    retried too: after a supervisor restart the job record returns a
+    moment later."""
     url = env.supervisor_url()
     job = env.job_id()
     if not url or not job or env.num_processes() <= 1:
-        return None
-    group = env.num_restarts()
-    rank = env.process_rank()
-    client = rpc.default_client()
-    client.put(
-        f"{url}/register/{job}/{group}/{rank}",
+        return False
+    rpc.default_client().put(
+        f"{url}/register/{job}/{env.num_restarts()}/{env.process_rank()}",
         # The process count is the supervisor's commit quorum for a
         # pending allocation epoch.
         json={"address": _local_address(), "processes": env.num_processes()},
@@ -101,6 +105,18 @@ def _discover_peers() -> dict[int, str] | None:
         deadline=_REGISTER_DEADLINE,
         retry_statuses=rpc.RETRY_STATUSES + (404,),
     ).raise_for_status()
+    return True
+
+
+def _discover_peers() -> dict[int, str] | None:
+    """Register and wait for every process of this restart group; returns
+    rank -> address, or None when there is no supervisor or a single
+    process."""
+    if not _register():
+        return None
+    url, job = env.supervisor_url(), env.job_id()
+    group = env.num_restarts()
+    client = rpc.default_client()
     response = client.get(
         f"{url}/discover/{job}/{group}",
         params={"replicas": env.num_processes()},
@@ -161,6 +177,24 @@ def stop_heartbeat(timeout: float | None = 5.0) -> None:
 
 _prefetch_thread: threading.Thread | None = None
 _restart_span_armed = False
+# True while a warm successor's supervisor traffic waits for its go.
+_liveness_deferred = False
+
+
+def start_deferred_liveness() -> None:
+    """A warm successor's go: register this rank (its process group
+    already formed) and start the heartbeats and the preemption listener
+    that ``initialize_job`` deferred. A no-op when nothing was deferred."""
+    global _liveness_deferred
+    if not _liveness_deferred:
+        return
+    _liveness_deferred = False
+    try:
+        _register()
+    except Exception:  # noqa: BLE001 - the heartbeats prove liveness too
+        LOG.exception("registration after the warm cutover failed")
+    start_heartbeat()
+    preemption.ensure_listener()
 
 
 def _at_exit() -> None:
@@ -187,7 +221,7 @@ def initialize_job(device="cuda") -> torch.device:
 
 
 def _initialize(device) -> torch.device:
-    global _prefetch_thread
+    global _prefetch_thread, _liveness_deferred
     replicas, processes = env.num_replicas(), env.num_processes()
     if replicas != processes:
         raise NotImplementedError(
@@ -208,27 +242,30 @@ def _initialize(device) -> torch.device:
     if not env.num_replicas_is_set():
         env.set_num_replicas(1)
     peers = None
-    if not collective.initialized():
-        try:
-            peers = _discover_peers()
-        except Exception:  # noqa: BLE001 - rendezvous falls back to env
-            LOG.exception(
-                "supervisor discovery failed; using the launcher's "
-                "coordinator address"
+    if env.warmup_flag():
+        _liveness_deferred = True
+    else:
+        if not collective.initialized():
+            try:
+                peers = _discover_peers()
+            except Exception:  # noqa: BLE001 - rendezvous falls back to env
+                LOG.exception(
+                    "supervisor discovery failed; using the launcher's "
+                    "coordinator address"
+                )
+        start_heartbeat()
+        preemption.ensure_listener()
+        if (
+            env.handoff_enabled() and env.num_restarts() > 0
+            and (_prefetch_thread is None or not _prefetch_thread.is_alive())
+        ):
+            # A planned rescale's successor: discover the peer and fetch
+            # its manifest while the rest of start-up runs.
+            _prefetch_thread = threading.Thread(
+                target=handoff.prefetch,
+                name="adaptdl-torch-handoff-prefetch", daemon=True,
             )
-    start_heartbeat()
-    preemption.ensure_listener()
-    if (
-        env.handoff_enabled() and env.num_restarts() > 0
-        and (_prefetch_thread is None or not _prefetch_thread.is_alive())
-    ):
-        # A planned rescale's successor: discover the peer and fetch its
-        # manifest while the rest of start-up runs.
-        _prefetch_thread = threading.Thread(
-            target=handoff.prefetch, name="adaptdl-torch-handoff-prefetch",
-            daemon=True,
-        )
-        _prefetch_thread.start()
+            _prefetch_thread.start()
     if processes > 1 and not collective.initialized():
         # The host is rank 0's discovered address; the port comes from
         # the environment, so every rank agrees on it.

@@ -34,8 +34,10 @@ flight; every save, load and rollback joins it first, and so does the
 interpreter's exit. A save's good-marker candidacy starts at its
 snapshot, and the marker lands only once its write has completed.
 
-A load first asks the predecessor's shard server (``handoff``) and then
-reads storage; ``_loaded_from`` records where each state came from.
+A load first holds a warm successor until its cutover
+(``sched/warmup.py``), then asks the predecessor's shard server
+(``handoff``) and then reads storage; ``_loaded_from`` records where
+each state came from. The guard's rollback never holds.
 Delta saves are not part of the port.
 """
 
@@ -54,6 +56,7 @@ import time
 from typing import IO, Any
 
 from adaptdl_tpu_torch import collective, env, faults, handoff, trace
+from adaptdl_tpu_torch.sched import warmup
 
 LOG = logging.getLogger(__name__)
 
@@ -583,6 +586,12 @@ def load_state(
     if root is None:
         return False
     if not prefer_good:
+        # The warm successor's hold point: everything before this line
+        # (start-up, model and trainer build) ran while the incumbent
+        # still trained; maybe_hold prefetches the peer's chunks, marks
+        # the process ready and blocks until the runner's cutover (or
+        # exits 143 on a discard). A normal launch falls through.
+        warmup.maybe_hold()
         # The peer first, before joining a write in flight: its chunks
         # are the final save's, and waiting for storage would put the
         # write back on the path the handoff exists to avoid. Chunks are

@@ -263,6 +263,54 @@ def handoff_timeout_s() -> float:
     return max(_get_float("ADAPTDL_HANDOFF_TIMEOUT_S", 10.0), 0.1)
 
 
+def handoff_diff_enabled() -> bool:
+    """Whether handoff pulls are differential: chunks whose sha256
+    already sits in the warm-up prefetch cache are reused instead of
+    fetched again (``ADAPTDL_HANDOFF_DIFF``; on by default). A sha
+    mismatch fetches the chunk, so the restored bytes are the same
+    either way; off pins the full pull."""
+    knob = os.environ.get("ADAPTDL_HANDOFF_DIFF", "on")
+    return knob.lower() in ("on", "1", "true", "yes")
+
+
+def warmup_enabled() -> bool:
+    """Whether the runners warm a successor speculatively for a planned
+    rescale: when the allocator's published candidate matches the new
+    launch config, the successor is started (imports, model build,
+    chunk prefetch) before the incumbent is signalled
+    (``ADAPTDL_WARMUP_ENABLED``; off by default). Any failure falls
+    back to the cold planned path."""
+    knob = os.environ.get("ADAPTDL_WARMUP_ENABLED", "")
+    return knob.lower() in ("on", "1", "true", "yes")
+
+
+def warmup_flag() -> bool:
+    """Set by the runner in a warm successor's environment
+    (``ADAPTDL_WARMUP=1``): the process prepares, marks the ready file
+    and holds before its restore until the runner writes the cutover
+    file."""
+    knob = os.environ.get("ADAPTDL_WARMUP", "")
+    return knob.lower() in ("on", "1", "true", "yes")
+
+
+def warmup_ready_file() -> str | None:
+    """Path the warm successor writes once warm (runner-provided)."""
+    return _get_str("ADAPTDL_WARMUP_READY_FILE")
+
+
+def warmup_cutover_file() -> str | None:
+    """Path the runner writes at cutover (``go``) or discard
+    (``abort``); the held successor polls it."""
+    return _get_str("ADAPTDL_WARMUP_CUTOVER_FILE")
+
+
+def warmup_deadline_s() -> float:
+    """Longest the runner waits for a warm successor to be ready before
+    it discards it and rescales cold; also bounds (six times over, at
+    least 60 s) how long a held successor waits for the verdict."""
+    return max(_get_float("ADAPTDL_WARMUP_DEADLINE_S", 20.0), 0.1)
+
+
 def compile_cache_knob() -> str:
     """Raw kernel-cache knob (``ADAPTDL_COMPILE_CACHE``): a path places
     the cache, ``off``/``0``/``false``/``none`` disables it, empty means
@@ -354,6 +402,15 @@ def slot_quarantine_s() -> float:
 def sched_reconcile_window() -> float:
     """Seconds after a recovery during which no lease expires."""
     return _get_float("ADAPTDL_SCHED_RECONCILE_WINDOW", 30.0)
+
+
+def journal_group_commit_s() -> float:
+    """Group-commit window of the cluster state's journal: appends
+    within it share one deferred fsync (each is still written and
+    flushed before its mutation applies, so a killed supervisor loses
+    nothing; a power loss may cost one window). 0, the default, fsyncs
+    every record."""
+    return max(_get_float("ADAPTDL_JOURNAL_GROUP_COMMIT_S", 0.0), 0.0)
 
 
 def alloc_dirty_threshold() -> float:

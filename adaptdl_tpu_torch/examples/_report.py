@@ -8,10 +8,15 @@ under an elastic runner is bounded whatever its replica counts.
 stopped for a rescale (exit 143): the step it resumed at, the steps and
 losses it took, the wall time and the loader's (atomic batch,
 accumulation steps) of each, the wall clock when it was ready to step
-(its checkpoint loaded) and at its first step's end, its flash-kernel
-launches by kernel, a SHA-256 of its parameters (equal on every rank of
-a data-parallel group) and the values of its small parameters (at most
-16 elements). A runner's caller reads these to check each rescale.
+(its checkpoint loaded), at its first step's end and at its last
+step's end, its flash-kernel launches by kernel, a SHA-256 of its
+parameters (equal on every rank of a data-parallel group), the values of
+its small parameters (at most 16 elements), the bytes its handoff
+fetched and reused, and its warm-up hold, the facts the ``warmup.hold``
+span carries: its verdict (``go`` for a warm successor adopted at a
+cutover, null without a hold; a discarded one exits before it reports)
+and the seconds it held. A runner's caller reads these to check each
+rescale.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ class RunReport:
         self._step = 0
         self._ready_wall = time.time()
         self._first_step_wall: float | None = None
+        self._last_step_wall: float | None = None
 
     def begin(self, state) -> None:
         """Call once the checkpoint is loaded: the step resumed at."""
@@ -54,8 +60,9 @@ class RunReport:
         """Record one step (and ``loader``'s batch configuration for it);
         True once the step budget is spent."""
         self._step = int(state.host_step)
+        self._last_step_wall = time.time()
         if self._first_step_wall is None:
-            self._first_step_wall = time.time()
+            self._first_step_wall = self._last_step_wall
         if self._dir:
             self._losses.append(float(metrics["loss"]))
             now = time.perf_counter()
@@ -74,8 +81,9 @@ class RunReport:
     def write(self) -> None:
         if not self._dir:
             return
-        from adaptdl_tpu_torch import env
+        from adaptdl_tpu_torch import env, handoff
         from adaptdl_tpu_torch.ops import _build
+        from adaptdl_tpu_torch.sched import warmup
 
         digest = hashlib.sha256()
         small = {}
@@ -91,6 +99,7 @@ class RunReport:
             digest.update(values.tobytes())
             if values.size <= 16:
                 small[name] = values.ravel().tolist()
+        hold = warmup.hold_info()
         report = {
             "restarts": env.num_restarts(),
             "rank": env.replica_rank(),
@@ -106,6 +115,10 @@ class RunReport:
             "small_params": small,
             "ready_wall": self._ready_wall,
             "first_step_wall": self._first_step_wall,
+            "last_step_wall": self._last_step_wall,
+            "handoff": handoff.fetch_stats(),
+            "hold_verdict": hold["verdict"],
+            "hold_s": hold["seconds"],
         }
         os.makedirs(self._dir, exist_ok=True)
         path = os.path.join(

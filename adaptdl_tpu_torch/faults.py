@@ -76,6 +76,15 @@ INJECTION_POINTS = {
     # transactional rescale (sched/state.py; an injected fault
     # SUPPRESSES the commit signal so the epoch times out)
     "alloc.commit_timeout": "before an allocation epoch commits",
+    # durable cluster state (sched/journal.py)
+    "sched.journal_write": "before a journal record is appended",
+    "sched.snapshot_write": "before a state snapshot replaces the old",
+    "sched.recovery_replay": "before recovery reads snapshot and journal",
+    # speculative warm-up (sched/warmup.py, handoff.warm_prefetch; each
+    # falls back to the cold planned rescale)
+    "warmup.spawn": "before a warm successor is started",
+    "warmup.cutover": "before the go verdict is written",
+    "warmup.prefetch": "before the warm chunk prefetch",
 }
 
 

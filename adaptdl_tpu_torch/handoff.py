@@ -36,9 +36,15 @@ immediate predecessor. Fetches share one deadline
 its rank and the successor's replica count) once it is finished with the
 peer, restored or not, and the server stops when every rank has.
 
-The JAX module's row-part range pulls and its differential mode serve
-resharding successors; the port's data-parallel state is whole on every
-rank, and they are not part of it.
+A warm successor (``sched/warmup.py``) pulls the incumbent's chunks
+into a warm cache before its final drain (:func:`warm_prefetch`); the
+restore then reuses every cached chunk whose sha256 still matches the
+final manifest and fetches only the rest (the differential pull,
+``ADAPTDL_HANDOFF_DIFF``; ``fetch_stats()["reused"]`` counts its bytes).
+
+The JAX module's row-part range pulls serve resharding successors; the
+port's data-parallel state is whole on every rank, and they are not
+part of it.
 """
 
 from __future__ import annotations
@@ -391,25 +397,51 @@ _source_url: str | None = None  # guarded-by: _manifest_lock
 _manifest: dict | None = None  # guarded-by: _manifest_lock
 _manifest_url: str | None = None  # guarded-by: _manifest_lock
 _unavailable = False  # guarded-by: _manifest_lock (sticky)
-_fetch_stats = {"bytes": 0, "seconds": 0.0}
+_fetch_stats = {"bytes": 0, "seconds": 0.0, "reused": 0}
 _states_applied: set[str] = set()
+# The warm successor's chunk cache, ``{state: {chunk_id: (sha, bytes)}}``,
+# filled by warm_prefetch before the incumbent's final drain. A cached
+# chunk is reused only while its sha matches the final manifest, so a
+# stale cache degrades to the full pull with the same bytes.
+_warm_cache: dict[str, dict[str, tuple[str, bytes]]] = {}  # guarded-by: _manifest_lock
 
 
 def _reset_client_state() -> None:
-    """Forget the manifest and the sticky verdict (tests)."""
+    """Forget the manifest, the sticky verdict and the warm cache
+    (tests)."""
     global _source_url, _manifest, _manifest_url, _unavailable
     with _manifest_lock:
         _source_url = None
         _manifest = None
         _manifest_url = None
         _unavailable = False
-    _fetch_stats.update(bytes=0, seconds=0.0)
+        _warm_cache.clear()
+    _fetch_stats.update(bytes=0, seconds=0.0, reused=0)
     _states_applied.clear()
 
 
 def fetch_stats() -> dict:
-    """Bytes and seconds this process's handoff moved so far."""
+    """Bytes fetched, seconds spent and bytes reused from the warm cache
+    by this process's handoff so far."""
     return dict(_fetch_stats)
+
+
+def _warm_chunks(name: str, sha_table: dict) -> dict[str, bytes]:
+    """The warm-cache chunks of ``name`` whose sha256 still matches the
+    authoritative manifest's: exactly the chunks a differential pull
+    may skip. Empty with ``ADAPTDL_HANDOFF_DIFF`` off or nothing
+    cached."""
+    if not env.handoff_diff_enabled():
+        return {}
+    with _manifest_lock:
+        cached = _warm_cache.get(name)
+        if not cached:
+            return {}
+        return {
+            cid: data
+            for cid, (sha, data) in cached.items()
+            if sha is not None and sha == sha_table.get(cid)
+        }
 
 
 def set_source(url: str | None) -> None:
@@ -544,14 +576,19 @@ def _fetch_chunk(url: str, name: str, chunk_id: str, deadline: float) -> bytes:
 
 def _fetch_state_chunks(
     url: str, name: str, entry: dict, deadline: float
-) -> list[tuple[str, bytes]]:
+) -> tuple[list[tuple[str, bytes]], int, int]:
     """One state's chunks in order, each checked against the manifest's
-    sha256, fetched and hashed on ``_FETCH_THREADS`` threads (socket
-    reads and sha256 release the interpreter lock); raises on any
-    failure."""
+    sha256; returns ``(chunks, fetched_bytes, reused_bytes)``. A chunk
+    whose sha sits in the warm cache is reused (the differential pull);
+    the rest are fetched and hashed on ``_FETCH_THREADS`` threads
+    (socket reads and sha256 release the interpreter lock). Raises on
+    any failure."""
     sha_table = entry.get("sha") or {}
+    cached = _warm_chunks(name, sha_table)
 
     def fetch(cid: str) -> tuple[str, bytes]:
+        if cid in cached:
+            return cid, cached[cid]
         data = _fetch_chunk(url, name, cid, deadline)
         if chunk_sha(data) != sha_table.get(cid):
             raise ValueError(f"handoff chunk {name}/{cid} failed sha256")
@@ -560,7 +597,9 @@ def _fetch_state_chunks(
     with ThreadPoolExecutor(
         max_workers=_FETCH_THREADS, thread_name_prefix="adaptdl-torch-handoff"
     ) as pool:
-        return list(pool.map(fetch, entry["order"]))
+        chunks = list(pool.map(fetch, entry["order"]))
+    reused = sum(len(data) for cid, data in chunks if cid in cached)
+    return chunks, sum(len(data) for _, data in chunks) - reused, reused
 
 
 def _signal_done(url: str) -> None:
@@ -579,6 +618,45 @@ def prefetch() -> bool:
     """Discover the peer and fetch its manifest ahead of the restore
     (bootstrap's side thread). Best effort."""
     return _ensure_manifest() is not None
+
+
+def warm_prefetch(url: str | None = None) -> int:
+    """A warm successor's chunk prefetch: pull the peer's current
+    manifest and every chunk it lists into the warm cache, so that the
+    restore after the cutover fetches only the chunks that changed
+    before the incumbent's final drain. It leaves the restore path's
+    manifest and its sticky verdict alone: the cached chunks are
+    provisional (the restore fetches the authoritative manifest and
+    reuses a chunk only on a sha match), and a failed speculation must
+    not spoil the real restore. Returns the bytes cached; best effort,
+    any failure keeps what was cached so far."""
+    if url is None:
+        url = discover_url()
+    if url is None:
+        return 0
+    total = 0
+    try:
+        faults.maybe_fail("warmup.prefetch")
+        with trace.span("warmup.prefetch") as attrs:
+            manifest = _fetch_manifest(url, env.handoff_timeout_s())
+            if manifest is None:
+                return 0
+            deadline = time.monotonic() + env.handoff_timeout_s()
+            for name, entry in manifest.items():
+                chunks, nbytes, reused = _fetch_state_chunks(
+                    url, name, entry, deadline
+                )
+                sha_table = entry.get("sha") or {}
+                with _manifest_lock:
+                    _warm_cache[name] = {
+                        cid: (sha_table.get(cid), data) for cid, data in chunks
+                    }
+                total += nbytes + reused
+            attrs["bytes"] = total
+            attrs["states"] = len(manifest)
+    except Exception:  # noqa: BLE001 - speculation is best effort
+        LOG.debug("warm prefetch from %s failed", url, exc_info=True)
+    return total
 
 
 def mark_unavailable() -> None:
@@ -607,9 +685,11 @@ def try_restore(state) -> bool:
     t0 = time.monotonic()
     try:
         with trace.span("handoff.fetch", state=state.name) as attrs:
-            chunks = _fetch_state_chunks(url, state.name, entry, deadline)
-            nbytes = sum(len(data) for _, data in chunks)
+            chunks, nbytes, reused = _fetch_state_chunks(
+                url, state.name, entry, deadline
+            )
             attrs["bytes"] = nbytes
+            attrs["reused"] = reused
             with trace.span("handoff.restore", state=state.name):
                 if [cid for cid, _ in chunks] == [RAW_CHUNK]:
                     state.load(io.BytesIO(chunks[0][1]))
@@ -626,6 +706,7 @@ def try_restore(state) -> bool:
         return False
     elapsed = time.monotonic() - t0
     _fetch_stats["bytes"] += nbytes
+    _fetch_stats["reused"] += reused
     _fetch_stats["seconds"] += elapsed
     _states_applied.add(state.name)
     from adaptdl_tpu_torch import metrics

@@ -14,6 +14,11 @@ SIGINT to every rank as SIGTERM, the graceful-preemption signal, and
 waits for all of them. It exits with :func:`exit_code` of theirs. Should
 a rank fail (exit other than 0 or 143), the others could wait forever in
 a collective, so the launcher kills them after a short grace.
+
+A warm successor's launcher (``ADAPTDL_WARMUP_READY_FILE`` set, see
+``sched/warmup.py``) gives rank r the ready path ``<ready>.r`` and writes
+``<ready>`` itself once every rank's exists: the runner reads one ready
+file that means every rank holds. All ranks read the one cutover file.
 """
 
 from __future__ import annotations
@@ -67,14 +72,31 @@ def _rank_environments(base: dict) -> list[dict]:
         # Every rank of this launcher shares its host.
         "ADAPTDL_NUM_NODES": base.get("ADAPTDL_NUM_NODES") or "1",
     }
+    ready = env.warmup_ready_file()
     return [
         {
             **shared,
             "ADAPTDL_REPLICA_RANK": str(rank),
             "ADAPTDL_PROCESS_RANK": str(rank),
+            **(
+                {"ADAPTDL_WARMUP_READY_FILE": f"{ready}.{rank}"}
+                if ready else {}
+            ),
         }
         for rank in range(replicas)
     ]
+
+
+def _mark_ready_when_every_rank_is(ready: str, replicas: int) -> bool:
+    """Write ``ready`` once every rank's ``ready.r`` exists; True once
+    written."""
+    if not all(os.path.exists(f"{ready}.{r}") for r in range(replicas)):
+        return False
+    tmp = f"{ready}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write("ready")
+    os.replace(tmp, ready)
+    return True
 
 
 def _returncode(proc: subprocess.Popen) -> int:
@@ -98,11 +120,14 @@ def run(argv: list[str]) -> int:
     }
     codes: list[int] = []
     kill_at = None
+    ready = env.warmup_ready_file()
     try:
         for rank_env in _rank_environments(dict(os.environ)):
             procs.append(subprocess.Popen([sys.executable, *argv], env=rank_env))
         running = list(procs)
         while running:
+            if ready and _mark_ready_when_every_rank_is(ready, len(procs)):
+                ready = None
             for proc in [p for p in running if p.poll() is not None]:
                 running.remove(proc)
                 codes.append(_returncode(proc))

@@ -201,6 +201,11 @@ class ThreadedHttpServer:
     def url(self) -> str:
         return f"http://{self._host}:{self._port}"
 
+    @property
+    def port(self) -> int:
+        """The bound port (the requested one before :meth:`start`)."""
+        return self._port
+
     def stop(self) -> None:
         self.on_stop()
         if self._server is not None:

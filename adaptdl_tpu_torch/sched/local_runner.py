@@ -5,7 +5,8 @@ the port's supervisor (hints, heartbeats, rendezvous) and Pollux
 allocator over one ``"local"`` node of ``num_chips`` slots. It is a
 ``multi_runner.MultiJobRunner`` over that one job, whose job loop
 launches, rescales (SIGTERM, exit 143, relaunch at the new replica
-count) and retries it.
+count, or the cutover to a warm successor) and retries it; with
+``state_dir`` its cluster state is journaled and recovered.
 
 Usage (the script takes the card unless given its own ``--cpu``)::
 
@@ -50,6 +51,7 @@ class LocalElasticRunner:
         preemptible: bool = True,
         handoff: bool | None = None,
         script_args=(),
+        state_dir: str | None = None,
     ):
         self.job_name = job_name
         job = JobSpec(
@@ -62,7 +64,7 @@ class LocalElasticRunner:
         self._runner = MultiJobRunner(
             [job], num_chips, allocator_interval=allocator_interval,
             max_failures=max_failures, term_grace_period=term_grace_period,
-            pop_size=pop_size, generations=generations,
+            pop_size=pop_size, generations=generations, state_dir=state_dir,
         )
 
     @property
@@ -95,6 +97,10 @@ class LocalElasticRunner:
     @property
     def failures(self) -> int:
         return self._runner.failures[self.job_name]
+
+    def restart_control_plane(self) -> dict[str, dict]:
+        """See ``MultiJobRunner.restart_control_plane``."""
+        return self._runner.restart_control_plane()
 
     def run(self) -> int:
         """Run the job to completion; returns the final exit code."""

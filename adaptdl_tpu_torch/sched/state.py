@@ -16,9 +16,18 @@ back to its last committed allocation, the failing slots earn a strike,
 and ``ADAPTDL_SLOT_STRIKE_LIMIT`` consecutive strikes quarantine a slot
 until a timed probe (``ADAPTDL_SLOT_QUARANTINE_S``).
 
-Not ported yet (ROADMAP Queue 1): the write-ahead journal and recovery
-(``state_dir`` raises; the op records above are what a journal would
-append), the tenant migration half and the watch store.
+**Durability** (``state_dir`` or ``ADAPTDL_SCHED_STATE_DIR``): every op
+record is appended to a write-ahead journal (``sched/journal.py``) and
+fsynced before it applies, with a periodic snapshot. A fresh state on the
+same directory recovers the job table by replaying them, then opens a
+reconciliation window (``ADAPTDL_SCHED_RECONCILE_WINDOW``): recovered
+leases get grace deadlines and pending epochs fresh commit deadlines, so
+live workers reattach before anything expires. The files are the JAX
+package's, byte for byte, so either package recovers what the other wrote.
+
+Not ported yet (ROADMAP Queue 1): the tenant migration half (the reshard
+``pending`` and ``moved`` tables and the op-log stream: the snapshot
+carries them empty) and the watch store.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 from adaptdl_tpu_torch import env, faults, trace
+from adaptdl_tpu_torch.sched.journal import StateJournal
 
 LOG = logging.getLogger(__name__)
 
@@ -319,6 +329,7 @@ class ClusterState:
         slot_strike_limit: int | None = None,
         slot_quarantine_s: float | None = None,
         reconcile_window: float | None = None,
+        snapshot_every: int = 256,
         hazard_tau_s: float | None = None,
         clock=None,
     ):
@@ -419,27 +430,205 @@ class ClusterState:
         # allocator re-places the job DURING the notice window instead
         # of waiting out its cycle interval.
         self._alloc_kick = 0  # guarded-by: _cond
-        # Recovery bookkeeping (no journal yet: nothing is ever
-        # recovered, so these stay at their initial values; /status
-        # reports them as the JAX supervisor does).
+        # Durability / recovery bookkeeping. ``_replaying`` is true only
+        # inside recovery's replay loop: replayed ops are history and
+        # must not record trace events or spans again.
+        self._last_seq = 0  # guarded-by: _cond
         self._replaying = False  # guarded-by: _cond
         self._reconcile_until = 0.0  # guarded-by: _cond
         self._recoveries = 0  # guarded-by: _cond
         self._last_recovery_s: float | None = None  # guarded-by: _cond
         self._torn_records = 0  # guarded-by: _cond
+        # Assigned once, before any other thread can hold a reference
+        # to this state: mutators then only read it (under _cond).
+        self._journal: StateJournal | None = None
         if state_dir is None:
             state_dir = env.sched_state_dir()
         if state_dir:
-            raise NotImplementedError(
-                "a durable cluster state (state_dir / "
-                "ADAPTDL_SCHED_STATE_DIR) is not ported to "
-                "adaptdl_tpu_torch yet: the journal and its recovery "
-                "are ROADMAP Queue 1 item 8"
+            self._journal = StateJournal(
+                state_dir, snapshot_every=snapshot_every
             )
+            self._recover()
 
     @property
     def alloc_commit_timeout(self) -> float:
         return self._commit_timeout
+
+    # -- write-ahead journal -------------------------------------------
+
+    def _journal_append(self, op: dict) -> None:  # holds-lock: _cond
+        """Durably journal one mutation BEFORE it is applied. Rotates
+        snapshot and journal first when due: every earlier mutation is
+        applied by then, so the snapshot is consistent and this op lands
+        in the fresh journal. A no-op without ``state_dir``."""
+        if self._journal is None:
+            return
+        if self._journal.snapshot_due():
+            self._journal.write_snapshot(self._snapshot_payload_locked())
+        self._last_seq = self._journal.append(op)
+
+    def _snapshot_payload_locked(self) -> dict:  # holds-lock: _cond
+        """The JAX package's snapshot, key for key (its reshard tables,
+        which the port does not carry, empty)."""
+        return {
+            "version": 1,
+            "jobs": {
+                key: _job_to_dict(record)
+                for key, record in self._jobs.items()
+            },
+            "submitted_total": self._submitted_total,
+            "completions": {
+                status: [count, total]
+                for status, (count, total) in self._completions.items()
+            },
+            "slot_strikes": dict(self._slot_strikes),
+            "quarantined": sorted(self._quarantined),
+            "rollbacks": dict(self._rollbacks),
+            "recoveries": self._recoveries,
+            "draining_slots": sorted(self._draining_slots),
+            "hazard": {
+                kind: [rate, last_ts]
+                for kind, (rate, last_ts) in self._hazard.items()
+            },
+            "preempt_notices": dict(self._preempt_notices),
+            "incidents": {
+                "counts": dict(self._incident_counts),
+                "slot_data": {
+                    slot: list(datas)
+                    for slot, datas in self._incident_slot_data.items()
+                },
+                "data_slots": {
+                    data: list(slots)
+                    for data, slots in self._incident_data_slots.items()
+                },
+            },
+            "reshard": {"pending": {}, "moved": {}},
+        }
+
+    def _load_snapshot_locked(self, snapshot: dict) -> None:  # holds-lock: _cond
+        self._submitted_total = int(snapshot.get("submitted_total", 0))
+        self._completions = {
+            status: (int(count), float(total))
+            for status, (count, total) in (
+                snapshot.get("completions") or {}
+            ).items()
+        }
+        self._slot_strikes = {
+            slot: int(n)
+            for slot, n in (snapshot.get("slot_strikes") or {}).items()
+        }
+        self._rollbacks = {
+            key: int(n)
+            for key, n in (snapshot.get("rollbacks") or {}).items()
+        }
+        # Placeholder deadlines, re-armed by _recover (monotonic stamps
+        # died with the old process).
+        self._quarantined = {
+            slot: 0.0 for slot in snapshot.get("quarantined") or []
+        }
+        self._draining_slots = {
+            slot: 0.0 for slot in snapshot.get("draining_slots") or []
+        }
+        self._recoveries = int(snapshot.get("recoveries", 0))
+        # The hazard EWMA is wall-clock anchored: it survives as-is.
+        self._hazard = {
+            kind: (float(rate), float(last_ts))
+            for kind, (rate, last_ts) in (
+                snapshot.get("hazard") or {}
+            ).items()
+        }
+        self._preempt_notices = {
+            kind: int(n)
+            for kind, n in (snapshot.get("preempt_notices") or {}).items()
+        }
+        incidents = snapshot.get("incidents") or {}
+        self._incident_counts = {
+            str(kind): int(n)
+            for kind, n in (incidents.get("counts") or {}).items()
+        }
+        self._incident_slot_data = {
+            str(slot): [str(d) for d in datas]
+            for slot, datas in (incidents.get("slot_data") or {}).items()
+        }
+        self._incident_data_slots = {
+            str(data): [str(s) for s in slots]
+            for data, slots in (incidents.get("data_slots") or {}).items()
+        }
+        reshard = snapshot.get("reshard") or {}
+        if reshard.get("pending") or reshard.get("moved"):
+            LOG.warning(
+                "the snapshot holds tenant-migration tables, which the "
+                "port does not carry; dropping them"
+            )
+        for key, payload in (snapshot.get("jobs") or {}).items():
+            self._jobs[key] = _job_from_dict(payload)
+
+    def _recover(self) -> None:
+        """Rebuild state from snapshot and journal, then open the
+        reconciliation window: recovered leases get grace deadlines and
+        pending epochs fresh commit deadlines, so live workers can
+        reattach before any expiry or rollback verdict is reached."""
+        start = self._clock.monotonic()
+        snapshot, records, torn = self._journal.load()
+        with self._cond:
+            if snapshot is not None:
+                self._load_snapshot_locked(snapshot)
+            self._replaying = True
+            try:
+                for op in records:
+                    try:
+                        self._apply_locked(op, start)
+                    except Exception:  # noqa: BLE001 - prefix recovery
+                        LOG.exception(
+                            "skipping unreplayable journal record %r", op
+                        )
+            finally:
+                self._replaying = False
+            self._torn_records = torn
+            self._last_seq = self._journal.last_seq
+            now = self._clock.monotonic()
+            if self._jobs:
+                self._reconcile_until = now + self._reconcile_window
+            grace = max(self._reconcile_window, 1.0)
+            for record in self._jobs.values():
+                for rank in list(record.leases):
+                    record.leases[rank] = now + grace
+                if record.alloc_state == "pending":
+                    record.alloc_deadline = (
+                        now
+                        + max(self._commit_timeout, 0.0)
+                        + self._reconcile_window
+                    )
+                    record.alloc_fresh = set()
+                if record.draining:
+                    record.drain_deadline = now + env.preempt_notice_s()
+            # Quarantine and drain clocks did not survive the restart:
+            # re-arm full fresh windows (a struck-out slot stays benched,
+            # a slot mid-drain is still about to vanish).
+            self._quarantined = {
+                slot: now + self._quarantine_s for slot in self._quarantined
+            }
+            self._draining_slots = {
+                slot: now + env.preempt_notice_s()
+                for slot in self._draining_slots
+            }
+            if snapshot is not None or records:
+                op = {"op": "recovered"}
+                self._journal_append(op)
+                self._apply_locked(op, now)
+            self._last_recovery_s = self._clock.monotonic() - start
+            self._cond.notify_all()
+
+    def last_journal_seq(self) -> int:
+        """The newest stamped journal seq (0 without a journal)."""
+        with self._cond:
+            return self._last_seq
+
+    def close(self) -> None:
+        """Sync and close the journal (a pending group commit included).
+        The state stays readable; a later mutation reopens the file."""
+        if self._journal is not None:
+            self._journal.close()
 
     # -- replay/apply layer (shared by live mutators and recovery) -----
 
@@ -982,6 +1171,7 @@ class ClusterState:
         except faults.InjectedFault:
             return
         op = {"op": "alloc_commit", "key": record.key}
+        self._journal_append(op)
         self._apply_commit_locked(op, self._clock.monotonic())
 
     # -- mutators (each builds an op record) ----------------------------
@@ -998,6 +1188,7 @@ class ClusterState:
                 "spec": dict(spec or {}),
                 "ts": self._clock.time(),
             }
+            self._journal_append(op)
             record = self._apply_create_locked(op, self._clock.monotonic())
             self._cond.notify_all()
             return record
@@ -1007,6 +1198,7 @@ class ClusterState:
             if key not in self._jobs:
                 return
             op = {"op": "remove_job", "key": key}
+            self._journal_append(op)
             self._apply_remove_locked(op, self._clock.monotonic())
             self._cond.notify_all()
 
@@ -1019,6 +1211,7 @@ class ClusterState:
                 "fields": fields,
                 "ts": self._clock.time(),
             }
+            self._journal_append(op)
             self._apply_update_locked(op, self._clock.monotonic())
             self._cond.notify_all()
 
@@ -1043,6 +1236,7 @@ class ClusterState:
                 "url": str(url),
                 "group": int(group),
             }
+            self._journal_append(op)
             self._apply_handoff_locked(op, self._clock.monotonic())
             self._cond.notify_all()
             return True
@@ -1096,6 +1290,7 @@ class ClusterState:
             }
             if trace_parent:
                 op["trace_parent"] = trace_parent
+            self._journal_append(op)
             self._apply_candidate_locked(op, self._clock.monotonic())
             self._cond.notify_all()
             return True
@@ -1176,6 +1371,7 @@ class ClusterState:
                 "key": key,
                 "batch_config": dict(batch_config),
             }
+            self._journal_append(op)
             self._apply_retune_locked(op, self._clock.monotonic())
             self._cond.notify_all()
             return True
@@ -1205,6 +1401,7 @@ class ClusterState:
             }
             if processes:
                 op["processes"] = int(processes)
+            self._journal_append(op)
             accepted = self._apply_register_locked(
                 op, self._clock.monotonic()
             )
@@ -1238,6 +1435,9 @@ class ClusterState:
                 return False
             if group is not None and group < record.group:
                 return True
+            durable = (
+                group is not None and group > record.group
+            ) or (ttl > 0 and rank not in record.leases)
             op = {
                 "op": "lease",
                 "key": key,
@@ -1246,6 +1446,8 @@ class ClusterState:
             }
             if group is not None:
                 op["group"] = group
+            if durable:
+                self._journal_append(op)
             self._apply_lease_locked(op, self._clock.monotonic())
             self._maybe_commit_locked(record)
             return True
@@ -1284,6 +1486,7 @@ class ClusterState:
                     "ranks": stale,
                     "withdraw": not record.degraded,
                 }
+                self._journal_append(op)
                 self._apply_lease_expiry_locked(op, now)
                 expired.extend((key, rank) for rank in stale)
                 # Countable sweep signal (the Grafana per-shard lease
@@ -1327,6 +1530,7 @@ class ClusterState:
                     "key": key,
                     "strikes": strikes,
                 }
+                self._journal_append(op)
                 self._apply_rollback_locked(op, now)
                 rolled.append(key)
             if rolled:
@@ -1403,6 +1607,7 @@ class ClusterState:
                 op["rank"] = int(rank)
             if trace_parent:
                 op["trace_parent"] = trace_parent
+            self._journal_append(op)
             self._apply_preempt_locked(op, now)
             # Wake the allocator NOW: re-placement must overlap the
             # drain, not wait out the optimization interval.
@@ -1467,6 +1672,7 @@ class ClusterState:
                 op["slot"] = slot
             if action:
                 op["action"] = str(action)
+            self._journal_append(op)
             blame = self._apply_incident_locked(op, now)
             # Wake the allocator NOW: a freshly quarantined slot's
             # occupant must be re-placed off it, not wait out the

@@ -24,6 +24,16 @@ JSON bodies, so either control plane drives either job side:
   bounded, de-duplicated store per job) and the stitched timeline.
 - ``GET /healthz``, ``GET /status``.
 
+Durability: with a journaled ``ClusterState`` (``state_dir``) every
+mutating request fsyncs its journal record under the state's condition
+before it applies, as the JAX supervisor's executor threads do. Each
+request runs on a thread of its own, so another request waits at most
+for that one fsync, and a ``/discover`` long poll holds the condition
+only while it tests its predicate. A supervisor restarted on the same
+``state_dir`` recovers the job table; its workers' re-registrations and
+beats land in the same restart group, and no lease expires and no epoch
+rolls back within the reconciliation window.
+
 Liveness: each worker rank holds a lease of ``lease_ttl`` seconds; a
 sweeper thread expires stale leases (the job is marked degraded and its
 allocation withdrawn for re-placement) and rolls back allocation epochs

@@ -74,7 +74,9 @@ Phases (any failure exits non-zero before the result line):
    (nan_grad, rollback) reaches the supervisor; e) 5 more steps with
    finite losses; f) the sm90 launches per step as in phase 4, none of
    the f32 kernel. Prints the hint-post latency, the rollback's restore
-   seconds and the phase's median step time against phase 4's.
+   seconds, the phase's median step time against phase 4's, and the
+   profile entries the fit reads (mean calibration and optimizer-step
+   time per atomic batch) beside the measured step.
 7. model zoo: each path through the port's entry points on the card,
    a fresh job each (registries reset, its own checkpoint dir), with the
    flash launch counts reset just before and read just after (none of
@@ -195,6 +197,29 @@ Phases (any failure exits non-zero before the result line):
       Printed: every restart with the cycle that caused it, the seconds
       from the LM's submit to the publish, the SIGTERM, the exit 143 and
       each job's first step.
+   c. 10a's job and edits (step budget 200: the incumbent steps on
+      through each warm-up window) with the warm successor
+      (ADAPTDL_WARMUP_ENABLED, ADAPTDL_WARMUP_DEADLINE_S=120), the peer
+      handoff (ADAPTDL_HANDOFF) and a journaled cluster state
+      (ADAPTDL_SCHED_STATE_DIR). While the job trains at one rank, the
+      runner's supervisor, allocator and state are stopped, a fresh state
+      recovers from the journal and is served on the same port. Checked:
+      the recovered job, allocation and candidate equal those before, no
+      restart count or group moved, the lease reattached within the
+      reconciliation window and a hint was accepted after it; both
+      rescales adopted warm (events warm_spawn, warm_ready, signal, exit,
+      launch, cutover; no discard; every successor rank's hold verdict
+      go), each successor resumed at its predecessor's drain step with
+      finite losses, sm90 launches in every incarnation and none of the
+      f32 kernel, as in 10a. Printed: the restart (recovery ms, journal
+      records replayed, torn records, reattach and first-hint seconds);
+      each rescale's seconds from the edit to the publish, the warm
+      spawn, ready, SIGTERM, exit 143, go and the successor's first step,
+      its restore (seconds; bytes pulled and reused by the differential
+      pull) and hold; the stall (the incumbent's last step to the
+      successor's first) beside 10a's; the incumbent's median step while
+      the successor warmed against before; the hint and heartbeat round
+      trips with the journal against 10a's. 10a also prints its stall.
 11. ZeRO storage modes: the full-width LM (12 x 768, 12 heads, seq 512,
    vocab 32000, bf16 compute, f32 params, remat, AdamW + AdamScale with
    the Adam-preconditioned statistics) from the same weights under
@@ -234,7 +259,8 @@ Phases (any failure exits non-zero before the result line):
    "options_launches" in each part of phase 9 (its MoE LM's steps and
    calibration alone under "moe_lm_steps"; per bare step under each remat
    policy under "remat_per_step"), "control_launches" on each rank of
-   each incarnation of 10a and "zero_launches" in each mode of 11a and
+   each incarnation of 10a, "control_warm_launches" of 10c, and
+   "zero_launches" in each mode of 11a and
    on each rank of 11b. The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
    own bound (the f32 kernel's: 3xTF32 at TF32's peak), plain version and
@@ -1763,6 +1789,23 @@ def phase_supervised(kernel_rows, recorder, main_step_s):
             f"fitted model predicts {predicted:.1f} samples/s, measured "
             f"{32 / step_s:.1f}",
         )
+        # The fit's inputs beside the measured step: each profile entry's
+        # mean compute-only calibration (accum) and mean optimizer-step
+        # time (optim, the step less its modelled microbatches).
+        entries = []
+        for key, e in sorted(metrics.current_state().profile.items()):
+            accum = e.accum_time_sum / e.accum_count if e.accum_count else None
+            optim = e.optim_time_sum / e.optim_count if e.optim_count else None
+            entries.append(
+                f"replicas {key[1]} atomic {key[-1]}: accum "
+                + (f"{accum * 1e3:.1f} ms (n {e.accum_count})"
+                   if accum is not None else "none")
+                + ", optim "
+                + (f"{optim * 1e3:.1f} ms (n {e.optim_count})"
+                   if optim is not None else "none")
+            )
+        print(f"supervised: profile entries {'; '.join(entries)}; measured "
+              f"step at (32, 0) {step_s * 1e3:.1f} ms")
         latency = sorted(dt for _, dt in posts)
         print(
             f"supervised: {len(beats)} heartbeats, {len(hints)} hint posts "
@@ -3164,6 +3207,22 @@ def _route_ms(records):
     return ms, hints_ok
 
 
+def _stall(reports, restarts):
+    """Seconds from the predecessor's last completed step (its slowest
+    rank's) to the successor's first (its slowest rank's)."""
+    return (max(r["first_step_wall"] for r in reports[restarts])
+            - max(r["last_step_wall"] for r in reports[restarts - 1]))
+
+
+def _step_walls(report):
+    """The wall clock at the end of each of a report's steps."""
+    walls, at = [], report["ready_wall"]
+    for seconds in report["step_s"]:
+        at += seconds
+        walls.append(at)
+    return walls
+
+
 def _check_incarnations(reports, launches, what):
     """Every launch's reports: the launched replica count, resumed at the
     predecessor's saved step, finite losses, equal parameters across
@@ -3345,6 +3404,7 @@ def control_single(root):
             "restore_s": max(restore.values(), default=0.0),
             "ready_s": successor["ready_wall"] - edited,
             "first_step_s": successor["first_step_wall"] - edited,
+            "stall_s": _stall(reports, i + 1),
         })
         r = rescales[-1]
         print(f"10a rescale {counts[i]} -> {counts[i + 1]} ({bounds}): from the "
@@ -3353,7 +3413,8 @@ def control_single(root):
               f"successor's initialize_job {r['initialize_s']:.2f} s, ready "
               f"(model built, checkpoint restored in {r['restore_s']:.2f} s) "
               f"{r['ready_s']:.2f} s, its first step (calibration included) "
-              f"{r['first_step_s']:.2f} s")
+              f"{r['first_step_s']:.2f} s; stall (the incumbent's last step to "
+              f"the successor's first) {r['stall_s']:.2f} s")
     _print_cycles(runner.allocator, CONTROL_JOB, start, runner.state)
     cycle_ms = [c["seconds"] * 1e3 for c in runner.allocator.cycles]
     step_ms = {}
@@ -3383,6 +3444,264 @@ def control_single(root):
           + ", ".join(f"{k} {v['p50']:.1f} (n {v['n']})"
                       for k, v in summary["step_ms"].items()))
     return summary
+
+
+# 10c: 10a's job and edits with the warm successor, the peer handoff and
+# a journaled cluster state. The warm-up deadline is set explicitly: the
+# JAX package's default (20 s) is shorter than the port's successor takes
+# to reach its hold on this card (see the printed spawn -> ready).
+CONTROL_WARM_JOB = "smoke/warm-lm"
+# The incumbent steps on through each warm-up window (at one rank about
+# five steps a second), so 10c's budget is larger than 10a's: the job
+# must still be training when the second edit lands.
+CONTROL_WARM_STEPS = 200
+WARM_ENV = {
+    "ADAPTDL_WARMUP_ENABLED": "1", "ADAPTDL_HANDOFF": "1",
+    "ADAPTDL_WARMUP_DEADLINE_S": "120",
+}
+# The restart's record fields that must survive it unchanged.
+RESTART_FIELDS = (
+    "spec", "allocation", "topology", "batch_config", "status", "group",
+    "restarts", "committed_allocation", "committed_topology", "alloc_epoch",
+    "alloc_state", "candidate_allocation", "candidate_topology",
+    "candidate_batch_config", "candidate_epoch", "workers", "lease_ranks",
+    "degraded", "failures",
+)
+
+
+def _restart_supervisor(runner, state_dir, wait):
+    """Stop the runner's supervisor, allocator and cluster state while the
+    job trains, recover a fresh state from the journal and serve it on the
+    same port; returns what the restart did."""
+    from adaptdl_tpu_torch import env
+    from adaptdl_tpu_torch.sched.state import _job_to_dict
+
+    def fields(full):
+        return {k: full[k] for k in RESTART_FIELDS}
+
+    before = fields(_job_to_dict(runner.state.get_job(CONTROL_WARM_JOB)))
+    restarts = runner.restarts
+    hints = dict(runner.state.get_job(CONTROL_WARM_JOB).hints)
+    url, seq = runner.supervisor.url, runner.state.last_journal_seq()
+    with open(os.path.join(state_dir, "journal.jsonl")) as f:
+        replayed = sum(1 for _ in f)
+    start = time.monotonic()
+    recovered = runner.restart_control_plane()
+    restart_s = time.monotonic() - start
+    after = fields(recovered[CONTROL_WARM_JOB])
+    info = runner.state.recovery_info()
+    window = env.sched_reconcile_window()
+    # A recovered lease holds a grace deadline of the window; the first
+    # heartbeat after the restart renews it for the lease TTL.
+    wait(lambda: runner.state.get_job(CONTROL_WARM_JOB).leases.get(0, 0.0)
+         - time.monotonic() > window + 1.0, "the lease's reattach", window)
+    reattach_s = time.monotonic() - start
+    wait(lambda: runner.state.get_job(CONTROL_WARM_JOB).hints != hints,
+         "a hint accepted after the restart", 60.0)
+    hint_s = time.monotonic() - start
+    record = runner.state.get_job(CONTROL_WARM_JOB)
+    check(after == before, f"10c: the restart changed the job {before} -> {after}")
+    check(runner.restarts == restarts and record.restarts == before["restarts"]
+          and record.group == before["group"] and not record.degraded,
+          f"10c: the restart moved the job: restarts {runner.restarts} "
+          f"(was {restarts}), group {record.group}, degraded {record.degraded}")
+    check(runner.supervisor.url == url, "10c: the supervisor moved")
+    check(info["recoveries"] == 1 and info["tornRecords"] == 0,
+          f"10c: recovery {info}")
+    check(reattach_s < window, f"10c: reattach after {reattach_s:.2f} s")
+    out = {
+        "at": time.time(), "restart_s": restart_s,
+        "recovery_s": info["lastRecoveryS"], "replayed_records": replayed,
+        "torn_records": info["tornRecords"], "journal_seq": seq,
+        "reattach_s": reattach_s, "first_hint_s": hint_s,
+    }
+    print(f"10c supervisor restart at one rank: down and recovered in "
+          f"{restart_s * 1e3:.1f} ms (recovery {info['lastRecoveryS'] * 1e3:.2f} ms, "
+          f"{replayed} journal records replayed at seq {seq}, "
+          f"{info['tornRecords']} torn); the lease reattached after "
+          f"{reattach_s:.2f} s (window {window:.0f} s), the first hint was "
+          f"accepted after {hint_s:.2f} s; job, allocation and candidate "
+          f"unchanged, restarts {runner.restarts}, group {record.group}",
+          flush=True)
+    return out
+
+
+def _median_ms(values):
+    return _percentile([v * 1e3 for v in values], 50) if values else float("nan")
+
+
+def control_warm(root, single):
+    """10c: the 10a job with the warm successor and a journaled state."""
+    from adaptdl_tpu_torch.sched.local_runner import LocalElasticRunner
+    from adaptdl_tpu_torch.sched.validator import validate_job_spec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    reports_dir = os.path.join(root, "reports")
+    trace_dir = os.path.join(root, "trace")
+    state_dir = os.path.join(root, "sched")
+    os.environ.update(WARM_ENV, ADAPTDL_SCHED_STATE_DIR=state_dir)
+    runner = LocalElasticRunner(
+        os.path.join(here, "adaptdl_tpu_torch", "examples", "transformer_lm.py"),
+        num_chips=2, checkpoint_dir=os.path.join(root, "ckpt"),
+        job_name=CONTROL_WARM_JOB, max_replicas=1, allocator_interval=2.0,
+        extra_env=dict(CONTROL_ENV, ADAPTDL_TRACE_DIR=trace_dir),
+        term_grace_period=120.0,
+        script_args=["--flash", "--steps", str(CONTROL_WARM_STEPS),
+                     "--report-dir", reports_dir],
+    )
+    edits, errors, degraded, published, restart = [], [], [], [], {}
+    start = time.time()
+    done = threading.Event()
+
+    def edit(**bounds):
+        record = runner.state.get_job(CONTROL_WARM_JOB)
+        spec = dict(record.spec, **bounds)
+        validate_job_spec(spec)
+        runner.state.update(CONTROL_WARM_JOB, spec=spec)
+        edits.append((time.time(), bounds))
+
+    def wait(predicate, what, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while not predicate():
+            if done.is_set() or time.monotonic() > deadline:
+                raise RuntimeError(f"10c: gave up waiting for {what}")
+            if runner.state.get_job(CONTROL_WARM_JOB).degraded:
+                degraded.append(time.time())
+            time.sleep(0.1)
+
+    def drive():
+        try:
+            hints = lambda: runner.state.get_job(CONTROL_WARM_JOB).hints or {}  # noqa: E731
+            wait(lambda: hints(), "the first incarnation's hints")
+            published.extend(runner.allocator.published)
+            restart.update(_restart_supervisor(runner, state_dir, wait))
+            edit(min_replicas=2, max_replicas=2)
+            wait(lambda: hints().get("maxProfiledReplicas", 0) >= 2,
+                 "the two-rank incarnation's hints")
+            edit(min_replicas=1, max_replicas=1)
+            wait(lambda: runner.state.get_job(CONTROL_WARM_JOB).status
+                 in ("Succeeded", "Failed"), "the end")
+        except Exception as exc:  # noqa: BLE001 - checked below
+            errors.append(exc)
+
+    editor = threading.Thread(target=drive, daemon=True)
+    editor.start()
+    try:
+        code = runner.run()
+    finally:
+        done.set()
+        editor.join(timeout=30)
+    published.extend(runner.allocator.published)
+    record = runner.state.get_job(CONTROL_WARM_JOB)
+    check(not errors, f"10c: {errors}")
+    check(code == 0 and record.status == "Succeeded",
+          f"10c: runner returned {code}, job {record.status}")
+    check(not degraded and not record.degraded,
+          "10c: a lease expired (the job went degraded)")
+    launches = _check_published(runner.events, published, CONTROL_WARM_JOB, "10c")
+    counts = [e["replicas"] for e in launches]
+    check(counts == [1, 2, 1], f"10c: launched replica counts {counts}")
+    kinds = [e["event"] for e in runner.events]
+    check(kinds == ["launch"] + ["warm_spawn", "warm_ready", "signal", "exit",
+                                 "launch", "cutover"] * 2 + ["exit"],
+          f"10c: events {kinds} (both rescales adopted warm, no discard)")
+    exits = [e["code"] for e in runner.events if e["event"] == "exit"]
+    check(exits == [143, 143, 0], f"10c: exit codes {exits}")
+    reports = _reports(reports_dir)
+    end = _check_incarnations(reports, launches, "10c")
+    check(end == CONTROL_WARM_STEPS, f"10c: ended at step {end}")
+    for restarts in (1, 2):
+        check(all(r["hold_verdict"] == "go" for r in reports[restarts]),
+              f"10c: incarnation {restarts} was not adopted warm: hold "
+              f"verdicts {[r['hold_verdict'] for r in reports[restarts]]}")
+    records = _journal(trace_dir, CONTROL_WARM_JOB)
+    ms, hints_ok = _route_ms(records)
+    check(sorted(hints_ok) == [0, 1, 2],
+          f"10c: accepted hint posts per incarnation {hints_ok}")
+    after_restart = [
+        r for r in records if r["name"] == "rpc.request" and r["inc"] == 0
+        and r["attrs"].get("endpoint", "").startswith("hints")
+        and r["attrs"].get("status") == 200 and r["ts"] > restart["at"]
+    ]
+    check(after_restart, "10c: no hint accepted after the supervisor restart")
+
+    def at(kind, i):
+        return [e["time"] for e in runner.events if e["event"] == kind][i]
+
+    rescales = []
+    for i, (edited, bounds) in enumerate(edits):
+        publish = next(t for t, key, a in published
+                       if key == CONTROL_WARM_JOB and t >= edited)
+        successor, incumbent = reports[i + 1], reports[i][0]
+        spans = [r for r in records if r["inc"] == i + 1]
+        restore = {}
+        for r in spans:
+            if r["name"] in ("ckpt.restore", "handoff.fetch"):
+                restore[r["pid"]] = restore.get(r["pid"], 0.0) + r["dur"]
+        walls = _step_walls(incumbent)
+        spawn, signal_at = at("warm_spawn", i), at("signal", i)
+        before = [t for w, t in zip(walls[1:], incumbent["step_s"][1:]) if w < spawn]
+        inside = [t for w, t in zip(walls, incumbent["step_s"])
+                  if spawn <= w <= signal_at]
+        rescales.append({
+            "to": counts[i + 1],
+            "publish_s": publish - edited,
+            "warm_spawn_s": spawn - edited,
+            "ready_s": at("warm_ready", i) - edited,
+            "spawn_to_ready_s": at("warm_ready", i) - spawn,
+            "sigterm_s": signal_at - edited,
+            "exit143_s": at("exit", i) - edited,
+            "go_s": at("cutover", i) - edited,
+            "restore_s": max(restore.values(), default=0.0),
+            "pulled_bytes": [r["handoff"]["bytes"] for r in successor],
+            "reused_bytes": [r["handoff"]["reused"] for r in successor],
+            "hold_s": [r["hold_s"] for r in successor],
+            "first_step_s": max(r["first_step_wall"] for r in successor) - edited,
+            "stall_s": _stall(reports, i + 1),
+            "incumbent_step_ms_before": _median_ms(before),
+            "incumbent_step_ms_warming": _median_ms(inside),
+            "incumbent_steps": [len(before), len(inside)],
+        })
+        r = rescales[-1]
+        print(f"10c rescale {counts[i]} -> {counts[i + 1]} ({bounds}): from the "
+              f"spec edit, publish {r['publish_s']:.2f} s, warm spawn "
+              f"{r['warm_spawn_s']:.2f} s, ready {r['ready_s']:.2f} s (spawn -> "
+              f"ready {r['spawn_to_ready_s']:.2f} s), SIGTERM {r['sigterm_s']:.2f} s, "
+              f"exit 143 {r['exit143_s']:.2f} s, go {r['go_s']:.2f} s, the "
+              f"successor's restore {r['restore_s']:.2f} s (bytes pulled "
+              f"{r['pulled_bytes']}, reused {r['reused_bytes']}; held "
+              f"{[round(h, 2) for h in r['hold_s']]} s), its first step "
+              f"{r['first_step_s']:.2f} s; stall {r['stall_s']:.2f} s against "
+              f"10a's {single['rescales'][i]['stall_s']:.2f} s; the incumbent's "
+              f"median step {r['incumbent_step_ms_warming']:.1f} ms while the "
+              f"successor warmed against {r['incumbent_step_ms_before']:.1f} ms "
+              f"before (steps {r['incumbent_steps']})", flush=True)
+    _print_cycles(runner.allocator, CONTROL_WARM_JOB, start, runner.state)
+    route = {k: {"p50": _percentile(v, 50), "p99": _percentile(v, 99), "n": len(v)}
+             for k, v in ms.items()}
+    print("10c with the journal: " + "; ".join(
+        f"{k} route ms p50 {v['p50']:.2f} p99 {v['p99']:.2f} (n {v['n']}) against "
+        f"10a's p50 {single['route_ms'][k]['p50']:.2f} p99 "
+        f"{single['route_ms'][k]['p99']:.2f}" for k, v in route.items()))
+    return {
+        "rescales": rescales, "restart": restart, "route_ms": route,
+        "launches": {str(k): [r["launches"] for r in v] for k, v in reports.items()},
+        "ends": {str(k): v[0]["end_step"] for k, v in reports.items()},
+    }
+
+
+def _reap_children(timeout):
+    """Reap this process's children (orphaned shard servers come back to
+    it, their subreaper) as they exit; those left after ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while _children() and time.monotonic() < deadline:
+        for pid in _children():
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+        time.sleep(0.2)
+    return _children()
 
 
 def _restart_causes(runner, start):
@@ -3565,16 +3884,31 @@ def phase_control(kernel_rows):
         print(f"control 10a: {time.perf_counter() - start:.1f} s")
         multi = control_multi(os.path.join(root, "b"))
         check(not _children(), f"processes left behind: {_children()}")
+        at = time.perf_counter()
+        warm = control_warm(os.path.join(root, "c"), single)
+        # The rescales' shard servers exit on their successors' /done.
+        left = _reap_children(60.0)
+        check(not left, f"processes left behind: {left}")
+        print(f"control 10c: {time.perf_counter() - at:.1f} s")
     finally:
         os.environ.clear()
         os.environ.update(saved)
+        for pid in _children():
+            try:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+            except (ProcessLookupError, ChildProcessError):
+                pass
         shutil.rmtree(root, ignore_errors=True)
     for row in kernel_rows:
-        row["control_launches"] = {
-            f"incarnation_{k}": [r.get(row["name"], 0) for r in v]
-            for k, v in single["launches"].items()
-        }
-    print(json.dumps({"control_plane": {"single": single, "multi": multi}}))
+        for key, part in (("control_launches", single),
+                          ("control_warm_launches", warm)):
+            row[key] = {
+                f"incarnation_{k}": [r.get(row["name"], 0) for r in v]
+                for k, v in part["launches"].items()
+            }
+    print(json.dumps({"control_plane": {"single": single, "multi": multi,
+                                        "warm": warm}}))
     print(f"control: phase {time.perf_counter() - start:.1f} s")
     _build.reset_launches()
 

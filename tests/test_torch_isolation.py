@@ -29,7 +29,7 @@ SCHED_MODULES = tuple(
     for name in (
         "policy.utils", "policy.nsga2", "policy.speedup", "policy.pollux",
         "validator", "config", "state", "http_server", "supervisor",
-        "allocator", "local_runner", "multi_runner",
+        "allocator", "local_runner", "multi_runner", "journal", "warmup",
     )
 ) + ("adaptdl_tpu_torch.sched.policy",)
 # Modules of the MoE, chunked-head, loader-option and tutorial paths and

@@ -9,7 +9,8 @@ instants, allocation epochs commit and roll back alike (with the same
 strikes and quarantines), and the readers (``status_snapshot``,
 ``slot_health``, ``preemption_info``, ``incident_info``,
 ``get_config_snapshot``, ``get_candidate``) answer alike. A job carries
-across the two states through the JAX package's snapshot form.
+across the two states through the JAX package's snapshot form, and a
+journaled pair recovers the same job table.
 """
 
 import pytest
@@ -48,10 +49,14 @@ class Pair:
     """One clock each, advanced together; ``call`` runs a method on both
     and asserts equal results and equal job snapshots."""
 
-    def __init__(self, **kw):
+    def __init__(self, state_dirs=(None, None), **kw):
         self.clocks = (FakeClock(), FakeClock())
-        self.jax = jax_state.ClusterState(clock=self.clocks[0], **kw)
-        self.port = port_state.ClusterState(clock=self.clocks[1], **kw)
+        self.jax = jax_state.ClusterState(
+            clock=self.clocks[0], state_dir=state_dirs[0], **kw
+        )
+        self.port = port_state.ClusterState(
+            clock=self.clocks[1], state_dir=state_dirs[1], **kw
+        )
 
     def advance(self, seconds):
         for clock in self.clocks:
@@ -219,6 +224,19 @@ def test_snapshot_carries_a_job_across_the_two_states():
     ) == jax_state.normalize_topology({"stageShards": 2})
 
 
-def test_state_dir_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="journal"):
-        port_state.ClusterState(state_dir=str(tmp_path))
+def test_a_state_dir_recovers_the_same_job_table_in_both_states(tmp_path):
+    """The journal's cases are in test_torch_journal.py; here the pair's
+    own sequence, journaled, recovers alike."""
+    dirs = (str(tmp_path / "jax"), str(tmp_path / "port"))
+    kw = {"alloc_commit_timeout": 30.0, "reconcile_window": 0.0}
+    pair = Pair(dirs, **kw)
+    pair.call("create_job", "ns/r", {"max_replicas": 2})
+    pair.call("update", "ns/r", allocation=["s0"], status="Running")
+    pair.call("renew_lease", "ns/r", 0, 10.0, group=0)
+    pair.call("publish_retune", "ns/r", {"atomicBsz": 8, "accumSteps": 1})
+    recovered = Pair(dirs, **kw)
+    assert _snapshots(recovered.port, port_state) == _snapshots(
+        pair.port, port_state
+    )
+    recovered.call("get_config_snapshot", "ns/r")
+    recovered.call("recovery_info")
