@@ -28,10 +28,11 @@ It adopts ``ADAPTDL_TRACEPARENT`` first and opens the
 kernel libraries' cache on the share path is placed by
 ``ops/_build.py`` from the same environment when a kernel first builds.
 
-The port runs one process per replica (``python -m
+The port runs one process per chip (``python -m
 adaptdl_tpu_torch.launch`` starts them), so ``ADAPTDL_NUM_PROCESSES``
-must equal ``ADAPTDL_NUM_REPLICAS``; a process holding several replicas
-raises.
+must equal ``ADAPTDL_NUM_REPLICAS`` as launched (the chips), or that
+count times ``ADAPTDL_SEQ_SHARDS`` once an example has rewritten it to
+the data-parallel replicas; a process holding several replicas raises.
 """
 
 from __future__ import annotations
@@ -223,7 +224,10 @@ def initialize_job(device="cuda") -> torch.device:
 def _initialize(device) -> torch.device:
     global _prefetch_thread, _liveness_deferred
     replicas, processes = env.num_replicas(), env.num_processes()
-    if replicas != processes:
+    # One process per chip: ADAPTDL_NUM_REPLICAS counts the chips at
+    # launch, or the data-parallel replicas of seq_shards chips each once
+    # an example has rewritten it.
+    if processes not in (replicas, replicas * env.seq_shards()):
         raise NotImplementedError(
             "multi-replica data parallelism runs one process per replica "
             f"(python -m adaptdl_tpu_torch.launch); ADAPTDL_NUM_REPLICAS="

@@ -10,6 +10,15 @@ the flat float32 rows of the ZeRO storage modes. With one replica they
 are the identity; otherwise they go over the group. Every replica must
 call every collective in the same order.
 
+The sequence axis adds collectives over a subgroup of the job
+(``group``, from :class:`adaptdl_tpu_torch.parallel.mesh.ProcessMesh`;
+``None`` is the whole job): ``all_to_all`` (tiled, on a chosen split
+and concat dim: ulysses' head exchange) and ``ppermute`` (each rank
+sends to the next of its group and receives from the one before: ring
+attention's K/V rotation), and ``allreduce_mean`` takes a group too.
+Under NCCL they run on the device tensors; under gloo (two ranks on one
+card) they stage through pinned host buffers kept per group and size.
+
 ``allreduce_async`` returns before the peers answer, as the JAX
 ``Reducer`` does: its collective runs on one single-thread executor,
 over a gloo group of its own (made once), so that it never shares the
@@ -17,8 +26,9 @@ default group's ordering with the training thread's all-reduce.
 ``teardown`` shuts the executor down with the groups.
 
 ``TRAFFIC`` counts the bytes of the tensor collectives this rank joins
-(the full buffer of each all-reduce, all-gather and reduce-scatter, at
-more than one replica), by kind: ``examples/profile_step.py`` and
+(the full buffer of each all-reduce, all-gather, reduce-scatter and
+all-to-all, and the bytes each ppermute sends, at more than one rank),
+by kind: ``examples/profile_step.py`` and
 ``chip_smoke.py`` read it per step.
 """
 
@@ -98,6 +108,10 @@ def teardown() -> None:
         executor, _async_executor, _async_group = _async_executor, None, None
     if executor is not None:
         executor.shutdown(wait=True)
+    from adaptdl_tpu_torch.parallel import mesh
+
+    mesh._reset()
+    _staging.clear()
     if initialized():
         dist.destroy_process_group()
 
@@ -129,7 +143,10 @@ def allreduce_async(obj: Any, reduce_fn: Callable[[list], Any]) -> Future:
     return executor.submit(allreduce, obj, reduce_fn, group)
 
 
-TRAFFIC = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+TRAFFIC = {
+    "all_reduce": 0, "all_gather": 0, "reduce_scatter": 0, "all_to_all": 0,
+    "ppermute": 0,
+}
 
 
 def reset_traffic() -> None:
@@ -181,24 +198,26 @@ def unpack(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
         offset += t.numel()
 
 
-def allreduce_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Average each tensor across replicas, in place: the tensors are
-    packed into one float32 buffer, reduced by one all-reduce, divided
-    once and unpacked. The identity with one replica."""
+def allreduce_mean(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """Average each tensor across the ranks of ``group`` (default: every
+    replica), in place: the tensors are packed into one float32 buffer,
+    reduced by one all-reduce, divided once and unpacked. The identity
+    with one replica."""
     if initialized():
-        allreduce_mean_packed(tensors)
+        allreduce_mean_packed(tensors, group)
     return tensors
 
 
-def allreduce_mean_packed(tensors: list[torch.Tensor]) -> torch.Tensor:
+def allreduce_mean_packed(tensors: list[torch.Tensor], group=None) -> torch.Tensor:
     """:func:`allreduce_mean`, returning the averaged flat buffer as
     :func:`pack` laid it out (the ZeRO modes slice their row of the
     gradient from it)."""
     flat = pack(tensors)
     if initialized():
-        dist.all_reduce(flat)
-        flat.div_(dist.get_world_size())
-        if dist.get_world_size() > 1:
+        dist.all_reduce(flat, group=group)
+        size = dist.get_world_size(group)
+        flat.div_(size)
+        if size > 1:
             TRAFFIC["all_reduce"] += flat.numel() * flat.element_size()
     unpack(flat, tensors)
     return flat
@@ -266,3 +285,109 @@ def all_gather_rows(row: torch.Tensor, out: torch.Tensor | None = None) -> torch
         return out
     dist.all_gather_into_tensor(out, row.detach().reshape(-1).contiguous())
     return out
+
+
+# Pinned host buffers of the staged (gloo) exchanges, per group and size:
+# (group id, role, bytes) -> uint8 buffer. Every exchange copies in and
+# out synchronously, so one pair per shape serves every call.
+_staging: dict = {}
+
+
+def _host_buffer(group, role: str, nbytes: int) -> torch.Tensor:
+    key = (id(group), role, nbytes)
+    buf = _staging.get(key)
+    if buf is None:
+        buf = _staging[key] = torch.empty(
+            nbytes, dtype=torch.uint8, pin_memory=torch.cuda.is_available()
+        )
+    return buf
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's storage as a flat uint8 view."""
+    return x.reshape(-1).view(torch.uint8)
+
+
+def _exchange_bytes(send: torch.Tensor, group, run) -> torch.Tensor:
+    """``run(out, inp)`` on uint8 buffers of ``send``'s size: on the
+    device tensors under NCCL, on pinned host copies under gloo when
+    ``send`` lies on a card. Returns the received bytes on ``send``'s
+    device."""
+    out = torch.empty_like(send)
+    if send.is_cuda and _staged():
+        host_in = _host_buffer(group, "in", send.numel())
+        host_out = _host_buffer(group, "out", send.numel())
+        host_in.copy_(send)
+        run(host_out, host_in)
+        out.copy_(host_out)
+        return out
+    run(out, send)
+    return out
+
+
+def group_size(group=None) -> int:
+    """Ranks in ``group`` (default: the job); 1 without a process group."""
+    return dist.get_world_size(group) if initialized() else 1
+
+
+def group_rank(group=None) -> int:
+    """This rank's index in ``group``; 0 without a process group."""
+    return dist.get_rank(group) if initialized() else 0
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Tiled all-to-all over ``group`` (``lax.all_to_all(..., tiled=True)``):
+    ``x`` splits into ``n`` chunks along ``split_dim``, chunk ``j`` goes
+    to rank ``j`` of the group, and the chunks received are concatenated
+    along ``concat_dim`` in source-rank order. The identity with one
+    rank. One ``all_to_all_single`` on the bytes of the chunks laid out
+    source-major."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    shape = list(x.shape)
+    if shape[split_dim] % n:
+        raise ValueError(
+            f"all_to_all: dim {split_dim} of {tuple(shape)} does not split "
+            f"into {n} chunks"
+        )
+    chunk = shape[:]
+    chunk[split_dim] //= n
+    chunks = x.reshape(shape[:split_dim] + [n, chunk[split_dim]] + shape[split_dim + 1 :])
+    chunks = chunks.movedim(split_dim, 0).contiguous()
+    TRAFFIC["all_to_all"] += chunks.numel() * chunks.element_size()
+    received = _exchange_bytes(
+        _as_bytes(chunks), group,
+        lambda out, inp: dist.all_to_all_single(out, inp, group=group),
+    ).view(x.dtype).view(chunks.shape)
+    merged = chunk[:]
+    merged[concat_dim] *= n
+    return received.movedim(0, concat_dim).reshape(merged)
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Rank ``i`` of ``group`` sends ``x`` to rank ``(i + shift) % n`` and
+    returns what rank ``(i - shift) % n`` sent (``lax.ppermute`` over the
+    ring permutation): one send and one receive in one
+    ``batch_isend_irecv``. The identity with one rank."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    me = group_rank(group)
+
+    def global_rank(r):
+        return r if group is None else dist.get_global_rank(group, r)
+
+    dst, src = global_rank((me + shift) % n), global_rank((me - shift) % n)
+    x = x.contiguous()
+    TRAFFIC["ppermute"] += x.numel() * x.element_size()
+
+    def run(out, inp):
+        ops = [
+            dist.P2POp(dist.isend, inp, dst, group=group),
+            dist.P2POp(dist.irecv, out, src, group=group),
+        ]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+    return _exchange_bytes(_as_bytes(x), group, run).view(x.dtype).view(x.shape)

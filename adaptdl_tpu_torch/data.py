@@ -264,6 +264,13 @@ class AdaptiveDataLoader:
                 atomic = int(np.clip(atomic, *self._local_bsz_bounds))
             return atomic, 0
         num_nodes = env.num_nodes()
+        # Configurations are scored at the topology that runs: the seq
+        # axis's collective terms belong on both sides of the comparison,
+        # and each chip of an sp x tp group holds 1/(sp*tp) of a
+        # microbatch's activations, so the atomic ceiling scales by it.
+        sp, tp, _, _, _ = metrics.active_topology()
+        group = sp * tp
+        topology = {"seq_shards": sp, "model_shards": tp}
         # The restored config may be infeasible at the new replica
         # count; then the optimizer's choice is adopted outright.
         current_feasible = (
@@ -272,13 +279,14 @@ class AdaptiveDataLoader:
                 self._local_bsz_bounds is None
                 or self._local_bsz_bounds[0]
                 <= self._atomic_bsz
-                <= self._local_bsz_bounds[1]
+                <= self._local_bsz_bounds[1] * group
             )
             and self.current_batch_size >= self.batch_size
         )
         current_goodput = (
             goodput_fn(
-                num_nodes, num_replicas, self._atomic_bsz, self._accum_steps
+                num_nodes, num_replicas, self._atomic_bsz, self._accum_steps,
+                **topology,
             )
             if current_feasible
             else 0.0
@@ -289,6 +297,7 @@ class AdaptiveDataLoader:
             max_batch_size=self._max_batch_size,
             atomic_bsz_range=self._local_bsz_bounds,
             accumulation=self._gradient_accumulation,
+            **topology,
         )
         # Rounding down alone may take the global batch below the initial
         # one, where the goodput model is not defined (the JAX loader
@@ -301,9 +310,12 @@ class AdaptiveDataLoader:
             maximum=self._max_batch_size // per_step,
         )
         if self._local_bsz_bounds is not None:
-            atomic_bsz = int(np.clip(atomic_bsz, *self._local_bsz_bounds))
+            atomic_bsz = int(np.clip(
+                atomic_bsz, self._local_bsz_bounds[0],
+                self._local_bsz_bounds[1] * group,
+            ))
         candidate_goodput = goodput_fn(
-            num_nodes, num_replicas, atomic_bsz, int(accum_steps)
+            num_nodes, num_replicas, atomic_bsz, int(accum_steps), **topology
         )
         if candidate_goodput > SPEEDUP_THRESHOLD * current_goodput:
             return atomic_bsz, int(accum_steps)
@@ -323,7 +335,9 @@ class AdaptiveDataLoader:
         # restarted, and a config sized for that world would skew the
         # remaining steps' profile for nothing.
         allocation = remote.get("allocation") or []
-        if allocation and len(allocation) != num_replicas:
+        sp, tp, ss, ep, _ = metrics.active_topology()
+        # The allocation lists chips: sp * tp * ss * ep per replica.
+        if allocation and len(allocation) != num_replicas * sp * tp * ss * ep:
             return None
         cfg = remote["batchConfig"]
         try:
@@ -332,10 +346,34 @@ class AdaptiveDataLoader:
         except (TypeError, ValueError):
             return None
         if self._local_bsz_bounds is not None:
-            atomic = int(np.clip(atomic, *self._local_bsz_bounds))
+            atomic = int(np.clip(
+                atomic, self._local_bsz_bounds[0], self._local_bsz_bounds[1] * sp * tp
+            ))
         if num_replicas * atomic * (accum + 1) > self._max_batch_size:
             return None
         return atomic, accum
+
+    @staticmethod
+    def _replica_block(indices, take: int):
+        """This process's rows of a global batch: its data replica's
+        block, replica-major. The processes (one per chip) are the
+        replicas times the seq shards, data outermost, so process ``p``
+        holds replica ``p // (processes // replicas)``'s block, and the
+        processes of one seq group receive the same rows."""
+        processes, replicas = env.num_processes(), env.num_replicas()
+        if processes % replicas:
+            raise RuntimeError(
+                f"{processes} processes do not divide into {replicas} "
+                "data-parallel replicas"
+            )
+        if take % replicas:
+            raise RuntimeError(
+                f"global batch not divisible across {replicas} replicas "
+                f"(take={take}); use drop_last=True for multi-process jobs"
+            )
+        block = take // replicas
+        start = env.process_rank() // (processes // replicas) * block
+        return indices[start : start + block]
 
     # -- elasticity ----------------------------------------------------
 
@@ -431,19 +469,8 @@ class AdaptiveDataLoader:
                     self.sampler.index + take,
                 )
                 indices = self.sampler.next_indices(take)
-                num_processes = env.num_processes()
-                if num_processes > 1:
-                    # Each process materialises only its replica's rows,
-                    # replica-major: process r takes the r-th block.
-                    if take % num_processes:
-                        raise RuntimeError(
-                            "global batch not divisible across "
-                            f"{num_processes} processes (take={take}); "
-                            "use drop_last=True for multi-process jobs"
-                        )
-                    block = take // num_processes
-                    start = env.process_rank() * block
-                    indices = indices[start : start + block]
+                if env.num_processes() > 1:
+                    indices = self._replica_block(indices, take)
                 batch = _gather(self.dataset, indices)
                 config = (self._atomic_bsz, self._accum_steps)
                 restore_gen = self._restore_gen

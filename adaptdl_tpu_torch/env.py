@@ -6,12 +6,16 @@ reads them. The readers here are the ones the port's training path
 uses, with the same names, defaults and meanings as the JAX package's
 ``adaptdl_tpu.env``.
 
-Terminology: a *replica* is one data-parallel model replica (one GPU);
-a *node* is one host, the unit whose internal links are fast; a
-*process* is one Python process driving its replica. Where the JAX
-package drives every chip of a host from one process, the port runs
-one process per replica, so ``ADAPTDL_NUM_PROCESSES`` equals
-``ADAPTDL_NUM_REPLICAS`` and the process rank is the replica rank.
+Terminology: a *replica* is one data-parallel model replica; a *chip*
+is one GPU; a *node* is one host, the unit whose internal links are
+fast; a *process* is one Python process driving its chip. Where the JAX
+package drives every chip of a host from one process, the port runs one
+process per chip. With data parallelism alone a replica is one chip, so
+``ADAPTDL_NUM_PROCESSES`` equals ``ADAPTDL_NUM_REPLICAS`` and the process
+rank is the replica rank. Under a sequence axis a replica is a group of
+``ADAPTDL_SEQ_SHARDS`` chips: the scheduler exports the job's chips as
+``ADAPTDL_NUM_REPLICAS``, and an example rewrites it to
+:func:`data_parallel_replicas` before it builds the trainer.
 """
 
 from __future__ import annotations
@@ -66,8 +70,23 @@ def replica_rank() -> int:
 
 
 def num_replicas() -> int:
-    """Devices granted to this job at launch (one replica each)."""
+    """Chips granted to this job at launch; the data-parallel replicas
+    once an example has rewritten it (:func:`data_parallel_replicas`)."""
     return _get_int("ADAPTDL_NUM_REPLICAS", 1)
+
+
+def data_parallel_replicas() -> int:
+    """Data-parallel replica groups: the job's chips divided by the
+    sharded axes' group size (the raw chip count where it does not
+    divide: the mesh builder reports a misconfigured topology). The
+    chips are the processes where the launcher set them (one process per
+    chip), so the value holds after ``ADAPTDL_NUM_REPLICAS`` was
+    rewritten to it; else ``ADAPTDL_NUM_REPLICAS`` as launched."""
+    group = seq_shards() * model_shards() * stage_shards() * expert_shards()
+    chips = _get_int("ADAPTDL_NUM_PROCESSES", num_replicas())
+    if group > 1 and chips % group == 0:
+        return max(chips // group, 1)
+    return chips
 
 
 def seq_shards() -> int:

@@ -28,28 +28,55 @@ CPU:
     ADAPTDL_NUM_REPLICAS=2 python -m adaptdl_tpu_torch.launch \
         -m adaptdl_tpu_torch.examples.transformer_lm --cpu --epochs 1 --zero3
 
-The JAX example's other flags (sequence/tensor/pipeline/expert
-sharding) are not ported yet and raise.
+Sequence parallelism, as in the JAX example: ``--seq-shards k`` (default
+``ADAPTDL_SEQ_SHARDS``) splits every sequence across k chips, one process
+each, with ring attention (``--seq-mode ring``, the default) or
+``--seq-mode ulysses`` (two all-to-all head exchanges around one
+full-sequence attention; with ``--flash`` the sm90 kernel runs on the
+gathered sequence). ``ADAPTDL_NUM_REPLICAS`` counts the chips at launch;
+the example rewrites it to the data-parallel replicas. Two ranks, one
+replica, on the card:
+
+    ADAPTDL_NUM_REPLICAS=2 ADAPTDL_SEQ_SHARDS=2 python -m adaptdl_tpu_torch.launch \
+        -m adaptdl_tpu_torch.examples.transformer_lm --seq-shards 2 \
+        --seq-mode ulysses --flash
+
+The JAX example's other flags (tensor/pipeline/expert sharding) are not
+ported yet and raise, as does a ZeRO flag under ``--seq-shards`` > 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from adaptdl_tpu_torch.examples._data import synthetic_tokens
 
 
 def lm_config(
     cpu: bool, seq_len: int, flash: bool, remat_policy: str | None = None,
-    moe_experts: int = 0, moe_top_k: int = 1,
+    moe_experts: int = 0, moe_top_k: int = 1, seq_shards: int = 1,
+    seq_mode: str = "ring",
 ):
-    """The example's model: full width on the card, tiny on the CPU."""
+    """The example's model: full width on the card, tiny on the CPU.
+    Under ``seq_shards`` > 1 attention crosses the ``"seq"`` axis as
+    ``seq_mode`` says; ``flash`` then runs inside ulysses, on the
+    gathered sequence."""
     import torch
 
     from adaptdl_tpu_torch.models import TransformerConfig
     from adaptdl_tpu_torch.ops import make_flash_attention
+    from adaptdl_tpu_torch.parallel.ulysses import make_ulysses_attention
 
     block = min(128, seq_len)
+    attention_fn = make_flash_attention(block_q=block, block_k=block) if flash else None
+    if flash and seq_shards > 1:
+        assert seq_mode == "ulysses", (
+            "--flash composes with sequence sharding only under "
+            "--seq-mode ulysses (full sequence gathered per head slice); "
+            "ring attention owns its blocked softmax"
+        )
+        attention_fn = make_ulysses_attention("seq", inner_attention=attention_fn)
     return TransformerConfig(
         vocab_size=256 if cpu else 32000,
         num_layers=2 if cpu else 12,
@@ -59,10 +86,9 @@ def lm_config(
         dtype=torch.float32 if cpu else torch.bfloat16,
         remat=True,
         remat_policy=remat_policy,
-        attention_fn=(
-            make_flash_attention(block_q=block, block_k=block)
-            if flash else None
-        ),
+        attention_fn=attention_fn,
+        seq_axis="seq" if seq_shards > 1 else None,
+        seq_attention=seq_mode,
         moe_every_n=2 if moe_experts > 0 else 0,
         moe_num_experts=moe_experts,
         moe_top_k=moe_top_k,
@@ -90,6 +116,29 @@ def check_zero_flags(args) -> None:
             "--zero1 shards optimizer state over the data axis and "
             "composes with data parallelism only"
         )
+    if (args.zero1 or args.zero3_blocks) and (getattr(args, "seq_shards", None) or 1) > 1:
+        raise NotImplementedError(
+            "the ZeRO storage modes under --seq-shards > 1 are not ported "
+            "yet (ROADMAP Queue 1 item 4, the seq x ZeRO composition)"
+        )
+
+
+def max_seq_shards(args, seq_len: int, num_heads: int) -> int:
+    """How far this job can shard a sequence, by the JAX example's rule:
+    the largest power of two up to 8 dividing ``seq_len``, under ulysses
+    also dividing ``num_heads``; 1 under ``--flash`` with ring attention
+    (the flash path refuses ring sharding) and under a ZeRO flag (the
+    port refuses that composition)."""
+    if args.zero1 or args.zero3 or args.zero3_blocks:
+        return 1
+    max_sp = 1
+    if not args.flash or args.seq_mode == "ulysses":
+        while max_sp * 2 <= 8 and seq_len % (max_sp * 2) == 0:
+            max_sp *= 2
+    if args.seq_mode == "ulysses":
+        while max_sp > 1 and num_heads % max_sp != 0:
+            max_sp //= 2
+    return max_sp
 
 
 def main(argv=None):
@@ -109,18 +158,34 @@ def main(argv=None):
     parser.add_argument("--zero1", action="store_true")
     parser.add_argument("--zero3", action="store_true")
     parser.add_argument("--zero3-blocks", action="store_true")
+    # Default: the scheduler's factorization (ADAPTDL_SEQ_SHARDS).
+    parser.add_argument("--seq-shards", type=int, default=None)
+    parser.add_argument("--seq-mode", choices=("ring", "ulysses"), default="ring")
     args, unported = parser.parse_known_args(argv)
     if unported:
         raise NotImplementedError(
             f"flags not ported to adaptdl_tpu_torch yet: {unported}"
         )
+    from adaptdl_tpu_torch import env
+
+    seq_shards = args.seq_shards if args.seq_shards is not None else env.seq_shards()
+    args.seq_shards = seq_shards
     check_zero_flags(args)
+    chips = env.num_replicas()
+    if seq_shards > 1 and (chips % seq_shards or env.num_processes() != chips):
+        raise ValueError(
+            f"--seq-shards {seq_shards} runs one process per chip (python -m "
+            f"adaptdl_tpu_torch.launch): ADAPTDL_NUM_REPLICAS={chips} chips "
+            f"over ADAPTDL_NUM_PROCESSES={env.num_processes()}"
+        )
 
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch import checkpoint, epoch, metrics
     from adaptdl_tpu_torch.data import AdaptiveDataLoader
     from adaptdl_tpu_torch.examples._report import RunReport
-    from adaptdl_tpu_torch.models import init_transformer, init_zero3_lm, lm_loss_fn
+    from adaptdl_tpu_torch.models import (
+        init_transformer, init_zero3_lm, lm_loss_fn, lm_pair_loss_fn,
+    )
     from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.optim import AdamW
     from adaptdl_tpu_torch.scaling_rules import AdamScale
@@ -130,17 +195,27 @@ def main(argv=None):
         device="cpu" if args.cpu else "cuda"
     )
     seq_len = args.seq_len or (32 if args.cpu else 512)
+    assert seq_len % seq_shards == 0, (
+        f"--seq-len {seq_len} does not split into {seq_shards} shards"
+    )
     flash = (
         args.flash if args.flash is not None
         else not (args.cpu or args.zero3_blocks)
+        and (seq_shards == 1 or args.seq_mode == "ulysses")
+    )
+    args.flash = flash
+    assert not (seq_shards > 1 and args.chunked_xent > 0), (
+        "--chunked-xent under --seq-shards > 1 is not ported yet"
     )
     config = lm_config(
         args.cpu, seq_len, flash, args.remat_policy, args.moe_experts,
-        args.moe_top_k,
+        args.moe_top_k, seq_shards, args.seq_mode,
     )
-    if args.zero1 or args.zero3_blocks:
-        # The trainer refuses model axes under a ZeRO mode: advertise none.
-        metrics.set_topology_config(max_model_shards=1)
+    if seq_shards > 1:
+        # ADAPTDL_NUM_REPLICAS counts chips at launch; a seq group of
+        # chips is one data-parallel replica.
+        os.environ["ADAPTDL_SEQ_SHARDS"] = str(seq_shards)
+        os.environ["ADAPTDL_NUM_REPLICAS"] = str(env.data_parallel_replicas())
     if args.zero3_blocks:
         # Raw token rows through the per-block-gather layer loop.
         loss_fn, model = init_zero3_lm(config, seed=0, device=device)
@@ -148,6 +223,7 @@ def main(argv=None):
         model = init_transformer(config, seed=0, device=device)
         loss_fn = (
             chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
+            else lm_pair_loss_fn if seq_shards > 1
             else lm_loss_fn
         )
 
@@ -173,9 +249,19 @@ def main(argv=None):
     dataset = synthetic_tokens(
         4096 if args.cpu else 65536, seq_len, config.vocab_size
     )
+    if seq_shards > 1:
+        # Inputs and targets aligned on the host: each rank's block of
+        # positions carries its own targets.
+        raw = dataset["tokens"]
+        dataset = {"inputs": raw[:, :-1].copy(), "targets": raw[:, 1:].copy()}
     loader = AdaptiveDataLoader(dataset, batch_size=32)
     loader.autoscale_batch_size(
         1024, local_bsz_bounds=(4, 128), gradient_accumulation=True
+    )
+    metrics.set_topology_config(
+        max_seq_shards=max_seq_shards(args, seq_len, config.num_heads),
+        # The trainer refuses model axes under a ZeRO mode: advertise none.
+        max_model_shards=1,
     )
     report = RunReport(
         args.report_dir, args.steps,
@@ -197,7 +283,8 @@ def main(argv=None):
             if m is not None:
                 print(
                     f"epoch {e}: loss={float(m['loss']):.4f} "
-                    f"batch_size={loader.current_batch_size}",
+                    f"batch_size={loader.current_batch_size} "
+                    f"mesh={trainer.mesh.shape}",
                     flush=True,
                 )
     finally:

@@ -174,6 +174,62 @@ def _log_optim_time(xp, params, accum_time, network_time):
 
 
 
+def mesh_shape_grid(
+    max_seq_shards: int = 1,
+    max_model_shards: int = 1,
+    max_stage_shards: int = 1,
+    max_expert_shards: int = 1,
+    num_chips: int | None = None,
+    max_candidates: int = 64,
+) -> tuple[tuple[int, int, int, int], ...]:
+    """The bounded candidate set of mesh shapes ``(sp, tp, ss, ep)``
+    the scheduler may factorize a job's chips into.
+
+    Per-axis candidate values are the powers of two up to the job's
+    advertised limit plus — when ``num_chips`` is known — every
+    divisor of the chip count within the limit, so non-power-of-two
+    slice counts (12 chips -> tp=3) are searchable instead of falling
+    through to pure DP. The cross product is filtered to shapes whose
+    group size divides ``num_chips`` (when given), deduplicated, and
+    truncated deterministically to ``max_candidates`` smallest-group-
+    first — the same bounded-candidate philosophy as the incremental
+    allocator's slice-inventory cap. ``(1, 1, 1, 1)`` (pure DP) is
+    always first and never truncated away, so a dp-only job's grid is
+    exactly ``((1, 1, 1, 1),)``.
+    """
+
+    def axis_values(limit: int) -> list[int]:
+        limit = max(int(limit), 1)
+        values = set()
+        v = 1
+        while v <= limit:
+            values.add(v)
+            v *= 2
+        if num_chips:
+            for d in range(1, min(limit, int(num_chips)) + 1):
+                if num_chips % d == 0:
+                    values.add(d)
+        return sorted(values)
+
+    shapes = set()
+    for sp in axis_values(max_seq_shards):
+        for tp in axis_values(max_model_shards):
+            for ss in axis_values(max_stage_shards):
+                for ep in axis_values(max_expert_shards):
+                    group = sp * tp * ss * ep
+                    if num_chips and (
+                        group > num_chips or num_chips % group
+                    ):
+                        continue
+                    shapes.add((sp, tp, ss, ep))
+    shapes.add((1, 1, 1, 1))
+    ordered = sorted(
+        shapes, key=lambda s: (s[0] * s[1] * s[2] * s[3], s)
+    )
+    cap = max(int(max_candidates), 1)
+    return tuple(ordered[:cap])
+
+
 class GoodputFunction:
     """Evaluates and optimizes goodput for one job's fitted parameters."""
 
@@ -384,6 +440,162 @@ class GoodputFunction:
         if scalar_out:
             return goodput.item(), atomic_bsz.item(), accum_steps.item()
         return goodput, atomic_bsz, accum_steps
+
+    def optimize_topology(
+        self,
+        num_nodes,
+        num_chips,
+        max_batch_size=None,
+        atomic_bsz_range=None,
+        accumulation: bool = False,
+        num_candidates: int = 50,
+        max_seq_shards: int = 1,
+        max_model_shards: int = 1,
+        max_stage_shards: int = 1,
+        max_pipeline_micro: int = 8,
+        max_expert_shards: int = 1,
+        pipeline_chunks: int = 0,
+        shape_grid=None,
+    ):
+        """Best configuration over (data, seq, model, stage, expert)
+        factorizations AND the pipeline microbatch count.
+
+        ``num_chips`` counts total chips in the allocation; every
+        power-of-two factorization ``chips = dp * sp * tp * ss * ep``
+        with each axis within its advertised limit and at least one
+        replica group per spanned slice is scored with :meth:`optimize`
+        and the argmax wins. Stage factorizations are additionally
+        scored at every power-of-two GPipe microbatch count M up to
+        ``max_pipeline_micro``: more microbatches shrink the structural
+        (M+S-1)/M bubble but pay the per-tick handoff (alpha_pp) more
+        often, so M is a real decision variable, not an assumption.
+        This is the search the reference never needed — its only axis
+        is data parallelism (reference: adaptdl/adaptdl/goodput.py:
+        88-148 searches batch geometry at fixed parallelism).
+
+        ``pipeline_chunks`` declares how many uniform model chunks
+        the job can split into (parallel/pipeline.py
+        stack_interleaved_params); a stage candidate ss runs the
+        interleaved schedule with v = pipeline_chunks // ss chunks per
+        device (bubble (S-1)/(v*M + S - 1)), falling back to plain
+        GPipe (v = 1) when the chunks don't divide or none were
+        declared.
+
+        ``shape_grid`` overrides the power-of-two enumeration with an
+        explicit candidate set of ``(sp, tp, ss, ep)`` shapes (see
+        :func:`mesh_shape_grid`) — how a job advertises non-pow2
+        factorizations. ``None`` keeps the default enumeration from
+        the ``max_*`` limits, whose all-ones case reduces exactly to
+        one :meth:`optimize` call (the dp-only path is the special
+        case, not a separate code path).
+
+        Returns ``(goodput, atomic_bsz, accum_steps, seq_shards,
+        model_shards, stage_shards, expert_shards, pipeline_micro)``,
+        vectorized like :meth:`optimize`.
+        """
+        num_nodes = np.asarray(num_nodes)
+        num_chips = np.asarray(num_chips)
+        shape = np.broadcast_shapes(num_nodes.shape, num_chips.shape)
+        scalar_out = shape == ()
+        nodes = np.broadcast_to(num_nodes, shape).ravel()
+        chips = np.broadcast_to(num_chips, shape).ravel()
+
+        def pow2s(limit):
+            out, v = [], 1
+            while v <= limit:
+                out.append(v)
+                v *= 2
+            return out
+
+        micro_candidates = pow2s(max(int(max_pipeline_micro), 1))
+        if shape_grid is not None:
+            base_shapes = [
+                (
+                    max(int(sp), 1), max(int(tp), 1),
+                    max(int(ss), 1), max(int(ep), 1),
+                )
+                for sp, tp, ss, ep in shape_grid
+            ] or [(1, 1, 1, 1)]
+        else:
+            base_shapes = [
+                (sp, tp, ss, ep)
+                for sp in pow2s(max(int(max_seq_shards), 1))
+                for tp in pow2s(max(int(max_model_shards), 1))
+                for ss in pow2s(max(int(max_stage_shards), 1))
+                for ep in pow2s(max(int(max_expert_shards), 1))
+            ]
+        factorizations = [
+            (sp, tp, ss, ep, micro)
+            for sp, tp, ss, ep in base_shapes
+            # M only matters with a pipeline; ss == 1 pins M = 1.
+            for micro in (micro_candidates if ss > 1 else [1])
+        ]
+        results = []
+        for sp, tp, ss, ep, micro in factorizations:
+            group = sp * tp * ss * ep
+            dp = chips // group
+            valid = (dp * group == chips) & (dp >= np.maximum(nodes, 1))
+            interleave = 1
+            if pipeline_chunks and ss > 1 and pipeline_chunks % ss == 0:
+                # interleaved_pipeline requires M >= S; only price the
+                # schedule where it is actually runnable.
+                if micro >= ss:
+                    interleave = max(pipeline_chunks // ss, 1)
+            # Placeholder dp=1 keeps optimize()'s vectorized call well
+            # formed for invalid rows; their goodput is masked to 0.
+            dp_safe = np.where(valid, np.maximum(dp, 1), 1)
+            nodes_safe = np.where(valid, np.maximum(nodes, 1), 1)
+            g, ab, ac = self.optimize(
+                nodes_safe,
+                dp_safe,
+                max_batch_size=max_batch_size,
+                atomic_bsz_range=atomic_bsz_range,
+                accumulation=accumulation,
+                num_candidates=num_candidates,
+                seq_shards=sp,
+                model_shards=tp,
+                stage_shards=ss,
+                pipeline_micro=micro,
+                expert_shards=ep,
+                pipeline_interleave=interleave,
+            )
+            g = np.where(valid, np.atleast_1d(g), 0.0)
+            results.append(
+                (g, np.atleast_1d(ab), np.atleast_1d(ac),
+                 sp, tp, ss, ep, micro)
+            )
+        all_g = np.stack([r[0] for r in results])
+        best = np.argmax(all_g, axis=0)
+        cols = np.arange(all_g.shape[1])
+        goodput = all_g[best, cols].reshape(shape)
+        atomic_bsz = np.stack([r[1] for r in results])[best, cols].reshape(
+            shape
+        )
+        accum_steps = np.stack([r[2] for r in results])[
+            best, cols
+        ].reshape(shape)
+        sps = np.array([r[3] for r in results])[best].reshape(shape)
+        tps = np.array([r[4] for r in results])[best].reshape(shape)
+        sss = np.array([r[5] for r in results])[best].reshape(shape)
+        eps_ = np.array([r[6] for r in results])[best].reshape(shape)
+        micros = np.array([r[7] for r in results])[best].reshape(shape)
+        # Report the M actually schedulable at the chosen atomic batch
+        # (optimize() clamps internally the same way).
+        micros = np.minimum(micros, np.maximum(atomic_bsz, 1))
+        if scalar_out:
+            return (
+                goodput.item(),
+                atomic_bsz.item(),
+                accum_steps.item(),
+                sps.item(),
+                tps.item(),
+                sss.item(),
+                eps_.item(),
+                micros.item(),
+            )
+        return (
+            goodput, atomic_bsz, accum_steps, sps, tps, sss, eps_, micros
+        )
 
 
 def _fit_objective(

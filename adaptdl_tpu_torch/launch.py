@@ -1,11 +1,12 @@
-"""Launch one process per replica of an elastic job.
+"""Launch one process per chip of an elastic job.
 
     python -m adaptdl_tpu_torch.launch script.py [args...]
     python -m adaptdl_tpu_torch.launch -m package.module [args...]
 
 The JAX package drives every local chip from one process; the port runs
-one process per replica instead. The launcher starts
-``ADAPTDL_NUM_REPLICAS`` fresh interpreters on this host, each with its
+one process per chip instead: one per replica under data parallelism,
+``ADAPTDL_SEQ_SHARDS`` per replica under a seq axis. The launcher starts
+``ADAPTDL_NUM_REPLICAS`` (the job's chips) fresh interpreters on this host, each with its
 own ``ADAPTDL_REPLICA_RANK`` / ``ADAPTDL_PROCESS_RANK``, the job's
 ``ADAPTDL_NUM_PROCESSES`` and the ``ADAPTDL_COORDINATOR_ADDR`` of a free
 port on ``ADAPTDL_MASTER_ADDR`` (or of ``ADAPTDL_MASTER_PORT``), for

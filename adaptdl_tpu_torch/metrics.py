@@ -228,7 +228,8 @@ def profile_step(
             _state.suppress_profile_steps -= 1
         if step_time > 0:
             global_bsz = (
-                int(atomic_bsz) * (int(accum_steps) + 1) * env.num_replicas()
+                int(atomic_bsz) * (int(accum_steps) + 1)
+                * env.data_parallel_replicas()
             )
             examples_s = global_bsz / step_time
             _state.raw_examples_ewma = _ewma(

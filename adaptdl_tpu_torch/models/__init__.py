@@ -17,6 +17,7 @@ from adaptdl_tpu_torch.models.transformer import (
     TransformerLM,
     init_transformer,
     lm_loss_fn,
+    lm_pair_loss_fn,
     mlm_loss_fn,
 )
 from adaptdl_tpu_torch.models.zero3_lm import (
@@ -44,6 +45,7 @@ __all__ = [
     "init_transformer",
     "init_zero3_lm",
     "lm_loss_fn",
+    "lm_pair_loss_fn",
     "make_generator_step",
     "mlm_loss_fn",
     "ncf_loss_fn",

@@ -15,6 +15,13 @@ FFN with :class:`MoEFFN` (:mod:`adaptdl_tpu_torch.models.moe`, one
 expert shard); :func:`apply_with_moe_aux` returns the weighted
 load-balancing loss beside the output, and both losses add it.
 
+Sequence parallelism: with ``seq_axis`` set, each rank of that axis of
+the process mesh (:mod:`adaptdl_tpu_torch.parallel.mesh`) holds one
+contiguous block of every sequence; RoPE takes global positions and,
+with no ``attention_fn``, attention runs over the axis as
+``seq_attention`` says: ``"ring"`` (:mod:`..parallel.ring_attention`) or
+``"ulysses"`` (:mod:`..parallel.ulysses`).
+
 Parameter names map one to one onto the flax tree (see
 :mod:`adaptdl_tpu_torch.weights`); dense kernels are stored as
 ``Linear`` weights, ``[out, in]``.
@@ -69,8 +76,13 @@ class TransformerConfig:
     # the whole block, as "nothing_saveable".
     remat_policy: str | None = None
     # attention_fn(q, k, v) -> out over [batch, heads, seq, head_dim];
-    # None selects plain attention, causal unless ``causal`` is False.
+    # None selects plain attention, causal unless ``causal`` is False,
+    # or under ``seq_axis`` the ``seq_attention`` mode.
     attention_fn: Callable | None = None
+    # The process-mesh axis the sequence is sharded over (None: not
+    # sharded), and how attention crosses it: "ring" or "ulysses".
+    seq_axis: str | None = None
+    seq_attention: str = "ring"
     # causal=False gives bidirectional (encoder, BERT-style) attention
     # on the plain path; the MLM objective (mlm_loss_fn) needs it.
     causal: bool = True
@@ -100,6 +112,11 @@ class TransformerConfig:
                 "moe_router='experts' is not causally valid with "
                 "causal=True (expert-choice gating sees future tokens); "
                 "use causal=False (encoder/MLM) or moe_router='tokens'"
+            )
+        if self.seq_attention not in ("ring", "ulysses"):
+            raise ValueError(
+                "seq_attention must be 'ring' or 'ulysses', "
+                f"got {self.seq_attention!r}"
             )
         if self.remat_policy is not None and self.remat_policy not in REMAT_POLICIES:
             raise ValueError(
@@ -193,8 +210,16 @@ class Attention(nn.Module):
         k = rope(k, positions)
         if cfg.attention_fn is not None:
             out = cfg.attention_fn(q, k, v)  # [b, h, s, d]
-        else:
+        elif cfg.seq_axis is None:
             out = causal_attention(q, k, v, causal=cfg.causal)
+        elif cfg.seq_attention == "ulysses":
+            from adaptdl_tpu_torch.parallel.ulysses import ulysses_attention
+
+            out = ulysses_attention(q, k, v, cfg.seq_axis, causal=cfg.causal)
+        else:
+            from adaptdl_tpu_torch.parallel.ring_attention import ring_attention
+
+            out = ring_attention(q, k, v, cfg.seq_axis, causal=cfg.causal)
         out = out.transpose(1, 2).reshape(batch, seq, cfg.d_model)
         return _dense(out, self.out.weight, cfg.dtype)
 
@@ -287,6 +312,12 @@ class TransformerLM(nn.Module):
         table = self.embed.weight.to(cfg.dtype)
         x = F.embedding(tokens, table)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        if cfg.seq_axis is not None:
+            # This rank holds block ``seq_index`` of the global sequence:
+            # RoPE and the causal masks need global positions.
+            from adaptdl_tpu_torch.parallel.mesh import axis_index
+
+            positions = positions + axis_index(cfg.seq_axis) * tokens.shape[1]
         auxes = []
         for layer in self.layers:
             x, aux = self._block(layer, x, positions)
@@ -360,6 +391,19 @@ def lm_loss_fn(model: TransformerLM, batch, generator=None) -> torch.Tensor:
     logits, aux = apply_with_moe_aux(model, tokens[:, :-1])
     return F.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1).long()
+    ) + aux
+
+
+def lm_pair_loss_fn(model: TransformerLM, batch, generator=None) -> torch.Tensor:
+    """Next-token cross-entropy over inputs and targets aligned on the
+    host, the mean over every position, plus the weighted MoE aux loss;
+    batch = {"inputs": [b, s] int, "targets": [b, s] int}. The
+    sequence-parallel form of :func:`lm_loss_fn`: each rank's block of
+    positions carries its own targets, so no shift crosses a block
+    boundary. Draws nothing from ``generator``."""
+    logits, aux = apply_with_moe_aux(model, batch["inputs"])
+    return F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), batch["targets"].reshape(-1).long()
     ) + aux
 
 

@@ -1,1 +1,3 @@
-"""Parallel modes of the port: per-layer ZeRO-3 (:mod:`.zero3`)."""
+"""Parallel modes of the port: the process mesh (:mod:`.mesh`), the
+sequence axis's attention (:mod:`.ulysses`, :mod:`.ring_attention`) and
+per-layer ZeRO-3 (:mod:`.zero3`)."""

@@ -10,7 +10,10 @@ optimizer step at a given (atomic_bsz, accum_steps):
   gradients are summed;
 - one all-reduce then averages the gradients, the squared-norm
   scalars and the loss across the replicas, packed into one flat
-  buffer (the identity with one replica);
+  buffer (the identity with one replica); under a seq axis each
+  microbatch's gradients and loss are first averaged over its seq group
+  (one replica of several processes), and this all-reduce runs over the
+  data group;
 - the gradient-noise statistics update, the scaling rule turns them
   into per-group LR factors, the optimizer applies them, and progress
   advances by the statistical gain.
@@ -25,7 +28,8 @@ checkpoint).
 Each microbatch gets its own ``torch.Generator`` for dropout and masks,
 as the JAX step folds the step and replica index into its key and splits
 one key per microbatch: seeded from the trainer's seed, the step, the
-microbatch index and the replica rank, so a restart (which restores the
+microbatch index and the replica rank (and the seq index under a seq
+axis, as the JAX step folds it in), so a restart (which restores the
 step and the seed) draws the same numbers. The two packages' random
 streams differ; only the port's own draws repeat.
 """
@@ -45,6 +49,7 @@ from torch.profiler import record_function
 from adaptdl_tpu_torch import checkpoint, collective, env, gns, guard, metrics
 from adaptdl_tpu_torch.device import resolve_device
 from adaptdl_tpu_torch.optim import SGD, AdamW
+from adaptdl_tpu_torch.parallel import mesh as pmesh
 from adaptdl_tpu_torch.parallel import zero3
 from adaptdl_tpu_torch.scaling_rules import RuleContext, ScalingRule
 
@@ -82,12 +87,15 @@ CALIBRATION_STEP = 2**62
 
 
 def microbatch_generator(
-    device: torch.device, seed: int, step: int, micro: int, rank: int
+    device: torch.device, seed: int, step: int, micro: int, rank: int,
+    seq_index: int | None = None,
 ) -> torch.Generator:
     """The generator of microbatch ``micro`` of ``step`` on replica
-    ``rank``: a fresh generator on ``device`` seeded by a hash of the
-    four integers."""
-    entropy = np.random.SeedSequence([seed, step, micro, rank])
+    ``rank`` (and, under a seq axis, on its shard ``seq_index``): a fresh
+    generator on ``device`` seeded by a hash of the integers."""
+    entropy = np.random.SeedSequence(
+        [seed, step, micro, rank] + ([] if seq_index is None else [seq_index])
+    )
     generator = torch.Generator(device=device)
     generator.manual_seed(int(entropy.generate_state(1, np.uint64)[0]))
     return generator
@@ -207,11 +215,21 @@ class ElasticTrainer:
     as usual, is rebound to the mode's rows (:meth:`optim.
     _FactorOptimizer.rebind`); the parameters must be float32.
 
-    Each of ``ADAPTDL_NUM_REPLICAS`` replicas is one process of the
-    job's process group (``initialize_job`` joins it), stepping on its
-    own block of each global batch. A ``mesh`` and sharded axes in the
-    environment (sequence, model, stage, expert) are not ported yet and
-    raise.
+    mesh: a :class:`~adaptdl_tpu_torch.parallel.mesh.ProcessMesh` with a
+      ``"data"`` and optionally a ``"seq"`` axis; None builds the one the
+      environment's topology asks for (``create_mesh_from_topology``).
+
+    Each of the mesh's processes (one per chip) is one rank of the job's
+    process group (``initialize_job`` joins it). The data axis's
+    replicas step on their own blocks of each global batch. Under a seq
+    axis of ``sp`` ranks a replica is ``sp`` processes: each takes the
+    ``seq_index``-th block of dim 1 of every batch leaf of two or more
+    dims (:meth:`to_device`), the model's ``seq_axis`` attention crosses
+    the blocks, and each microbatch's gradients and loss are averaged
+    over the seq group before its noise statistics, so they see whole
+    samples; ``ADAPTDL_NUM_REPLICAS`` must then count the replicas, not
+    the chips. Model, stage and expert axes are not ported yet and
+    raise, as do the ZeRO modes under a seq axis.
     """
 
     def __init__(
@@ -232,34 +250,35 @@ class ElasticTrainer:
         zero3_blocks: str | None = None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet; the port runs data "
-                "parallelism (with the ZeRO storage modes) only"
+        if mesh is None:
+            mesh = pmesh.create_mesh_from_topology()
+        elif not isinstance(mesh, pmesh.ProcessMesh):
+            raise TypeError(
+                "mesh takes the port's process meshes "
+                "(adaptdl_tpu_torch.parallel.mesh.create_mesh), not "
+                f"{type(mesh).__name__}"
             )
-        sharded = {
-            "ADAPTDL_SEQ_SHARDS": env.seq_shards(),
-            "ADAPTDL_MODEL_SHARDS": env.model_shards(),
-            "ADAPTDL_STAGE_SHARDS": env.stage_shards(),
-            "ADAPTDL_EXPERT_SHARDS": env.expert_shards(),
-        }
-        if any(v > 1 for v in sharded.values()):
+        self.mesh = mesh
+        num_replicas = mesh.axis_size(pmesh.DATA_AXIS)
+        self.seq_shards = mesh.axis_size(pmesh.SEQ_AXIS)
+        if mesh.size != env.num_processes():
             raise NotImplementedError(
-                f"sharded axes are not ported yet: {sharded}"
+                "multi-replica data parallelism runs one process per replica "
+                f"(one per chip under a seq axis): the mesh {mesh.shape} "
+                f"over ADAPTDL_NUM_PROCESSES={env.num_processes()}"
             )
-        num_replicas = env.num_replicas()
-        if num_replicas != env.num_processes():
-            raise NotImplementedError(
-                "multi-replica data parallelism runs one process per "
-                f"replica; ADAPTDL_NUM_REPLICAS={num_replicas} over "
-                f"ADAPTDL_NUM_PROCESSES={env.num_processes()} would hold "
-                "several replicas in one process"
-            )
-        if collective.world_size() != num_replicas:
+        if env.num_replicas() != num_replicas:
             raise RuntimeError(
-                f"ADAPTDL_NUM_REPLICAS={num_replicas} but the process "
-                f"group holds {collective.world_size()} replica(s); call "
-                "initialize_job() first"
+                f"ADAPTDL_NUM_REPLICAS={env.num_replicas()} but the mesh "
+                f"{mesh.shape} has {num_replicas} data-parallel replica(s): "
+                "under a seq axis it counts the chips at launch; set it to "
+                "env.data_parallel_replicas() before building the trainer, "
+                "as examples/transformer_lm.py does"
+            )
+        if self.seq_shards > 1 and (zero1 or zero3 or zero3_blocks is not None):
+            raise NotImplementedError(
+                "the ZeRO storage modes under a seq axis are not ported yet "
+                "(ROADMAP Queue 1 item 4, the seq x ZeRO composition)"
             )
         if precondition not in (None, "adam"):
             raise ValueError(f"unknown precondition: {precondition!r}")
@@ -319,7 +338,7 @@ class ElasticTrainer:
         self.smoothing = smoothing
         self.seed = seed
         self.has_aux = has_aux
-        metrics.set_active_topology()
+        metrics.set_active_topology(seq_shards=self.seq_shards)
         self._calibrated: set[int] = set()
         # One warm-up run plus this many timed runs per calibration.
         self.calibrate_repeats = 3
@@ -443,12 +462,35 @@ class ElasticTrainer:
             seed=self.seed,
         )
 
+    def _seq_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of dim 1 of a batch leaf of two or more dims
+        under a seq axis (the JAX trainer's ``P(data, seq)`` spec); other
+        leaves whole."""
+        if self.seq_shards == 1 or t.dim() < 2:
+            return t
+        if t.shape[1] % self.seq_shards:
+            raise ValueError(
+                f"a batch leaf of shape {tuple(t.shape)} does not split its "
+                f"dim 1 into {self.seq_shards} seq blocks"
+            )
+        width = t.shape[1] // self.seq_shards
+        return t.narrow(1, self.mesh.index(pmesh.SEQ_AXIS) * width, width)
+
     def to_device(self, batch: dict) -> dict:
-        """Host (numpy) batch -> tensors on the trainer's device."""
+        """Host (numpy) batch -> this process's tensors on the trainer's
+        device: under a seq axis each leaf's seq block."""
         return {
-            k: torch.as_tensor(np.asarray(v)).to(self.device)
+            k: self._seq_block(torch.as_tensor(np.asarray(v))).to(self.device)
             for k, v in batch.items()
         }
+
+    def _generator(self, seed: int, step: int, micro: int) -> torch.Generator:
+        """Microbatch ``micro`` of ``step``'s generator on this process:
+        keyed by its data rank, and by its seq index under a seq axis."""
+        return microbatch_generator(
+            self.device, seed, step, micro, self.mesh.index(pmesh.DATA_AXIS),
+            self.mesh.index(pmesh.SEQ_AXIS) if self.seq_shards > 1 else None,
+        )
 
     def _precond(self):
         """Adam's preconditioner, per parameter (dense), per row
@@ -494,15 +536,12 @@ class ElasticTrainer:
     def _microbatches(self, batch, atomic_bsz, num_micro, state, aux, on_grads):
         """Forward and backward of each microbatch in order; ``on_grads
         (grads, loss)`` takes each one's float32 gradients."""
-        rank = env.replica_rank()
         for i in range(num_micro):
             micro = {
                 k: v[i * atomic_bsz : (i + 1) * atomic_bsz]
                 for k, v in batch.items()
             }
-            generator = microbatch_generator(
-                self.device, state.seed, state.host_step, i, rank
-            )
+            generator = self._generator(state.seed, state.host_step, i)
             loss = self._loss(micro, generator, aux)
             grads = [g.float() for g in torch.autograd.grad(loss, self._params)]
             on_grads(grads, loss)
@@ -555,10 +594,18 @@ class ElasticTrainer:
         }
 
         def on_grads(grads, loss):
+            loss = loss.detach().float().reshape(1)
+            if self.seq_shards > 1:
+                # A seq group is one logical replica: average its shard
+                # gradients and losses before the noise statistics, so
+                # they see whole-sample gradients.
+                collective.allreduce_mean(
+                    grads + [loss], group=self.mesh.group(pmesh.SEQ_AXIS)
+                )
             acc["lsqr"] = acc["lsqr"] + gns.group_normsqr(
                 grads, self._group_ids, self.num_param_groups, precond
             )
-            acc["loss"] = acc["loss"] + loss.detach().float()
+            acc["loss"] = acc["loss"] + loss[0]
             if acc["grads"] is None:
                 acc["grads"] = grads
             else:
@@ -582,8 +629,14 @@ class ElasticTrainer:
                 flat = collective.allreduce_mean_packed(
                     grads + [pad, local_sqr_mean, loss]
                 )
-            else:
+            elif self.seq_shards == 1:
                 collective.allreduce_mean(grads + [local_sqr_mean, loss])
+            elif self.num_replicas > 1:
+                # The data-parallel mean, over this rank's data column.
+                collective.allreduce_mean(
+                    grads + [local_sqr_mean, loss],
+                    group=self.mesh.group(pmesh.DATA_AXIS),
+                )
             new_gns = gns.update(
                 state.gns,
                 grads,
@@ -963,13 +1016,10 @@ class ElasticTrainer:
         zero3 the parameters are assembled for the runs; under
         zero3_blocks the runs differentiate with respect to the rows,
         through the gathers the step runs."""
-        local_rows = self.num_replicas * atomic_bsz // env.num_processes()
         micro = self.to_device(
-            {k: v[:local_rows] for k, v in host_batch.items()}
+            {k: v[:atomic_bsz] for k, v in host_batch.items()}
         )
-        generator = microbatch_generator(
-            self.device, self.seed, CALIBRATION_STEP, 0, env.replica_rank()
-        )
+        generator = self._generator(self.seed, CALIBRATION_STEP, 0)
 
         def run():
             loss = self._loss(micro, generator, aux)

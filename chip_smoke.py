@@ -249,7 +249,34 @@ Phases (any failure exits non-zero before the result line):
    Each process draws the seed-0 weights once per model kind (the dense
    LM, the zero3 LM) through init_transformer / init_zero3_lm and loads
    them into its later trainers.
-12. result: the kernels line, the card line, then the device line. Each
+12. the sequence axis: the full-width LM with inputs and targets aligned
+   on the host (lm_pair_loss_fn), AdamW(3e-4) + AdamScale + the Adam
+   preconditioner, bare train_step runs at (8, 0) from the seed-0
+   weights, in modes "ulysses" (two all-to-all exchanges around the
+   flash forward, the sm90 kernel, on the gathered sequence) and "ring"
+   (the K/V rotation with its own blocked softmax). Per-rank peak memory
+   reset just before the steps, launch counts and collective.TRAFFIC
+   reset just before and read just after:
+   a. one rank (a fresh process) runs each mode's one-rank counterpart
+      (flash attention; plain attention) 3 steps; then two ranks on the
+      one card over gloo (the launcher, ADAPTDL_NUM_REPLICAS=2
+      ADAPTDL_SEQ_SHARDS=2: dp 1 x sp 2, each rank the example's rewrite
+      to one replica) run each mode 3 steps on the same batches: finite
+      losses, the ranks' parameters bit-equal, losses within SEQ_LOSS_RTOL
+      and parameters within SEQ_PARAM_RL2 (the L2 norm of the difference
+      over that of the one-rank run's update) of the one-rank run; sm90
+      launches 24 per step on each rank under ulysses, 0 under ring, the
+      f32 kernel 0. The sm90 kernel is timed at the gathered shape
+      [8 * 6, 512, 64] against its plain version and bf16 SDPA.
+   b. per-rank peak memory at seq 512 (a) and at seq 4096 (atomic 2, one
+      step) for both modes, against one rank at the same global batch.
+   c. checkpoint-restart sp 1 -> sp 2 -> sp 1 (ulysses with flash): one
+      rank takes 2 steps and saves; the two ranks restore, resume at its
+      step with its parameters (checksums), take a step and save; one
+      rank restores that.
+   Host-staged collectives on one card: correctness and per-rank memory,
+   not the seq axis's speed.
+13. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
@@ -261,7 +288,9 @@ Phases (any failure exits non-zero before the result line):
    policy under "remat_per_step"), "control_launches" on each rank of
    each incarnation of 10a, "control_warm_launches" of 10c, and
    "zero_launches" in each mode of 11a and
-   on each rank of 11b. The
+   on each rank of 11b, and "seq_launches" on each rank of each mode of
+   12a (the sm90 row's "seq_gathered" is its time at 12a's gathered
+   shape). The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
    own bound (the f32 kernel's: 3xTF32 at TF32's peak), plain version and
    SDPA on the same inputs; the f32 row's "bf16_input_ms" is the f32
@@ -4329,6 +4358,365 @@ def phase_zero(kernel_rows):
     print(f"zero: phase {time.perf_counter() - start:.1f} s")
 
 
+SEQ_MODES = ("ulysses", "ring")  # ulysses runs the flash forward inside
+SEQ_STEPS = 3  # 12a, each mode, at (8, 0)
+SEQ_ATOMIC = 8
+SEQ_LONG = 4096  # 12b's long sequence, at atomic 2
+SEQ_CKPT_STEPS = 2  # 12c: the one-rank steps before its save
+# 12a's bounds against the one-rank run. Same weights and batches; the
+# two runs differ by bf16 rounding (the projections over half the
+# positions, the gradients summed over two halves) and by f32 summation
+# order. The loss is a mean over 4096 positions: a relative difference
+# of 2^-8 (one bf16 ulp) would be an error no rounding explains. Adam
+# moves a parameter by about lr whatever its gradient's size, so where a
+# gradient is at rounding level the two runs may step it either way:
+# the parameters are held in L2, the difference against the one-rank
+# run's own update.
+SEQ_LOSS_RTOL = 2.0**-8
+SEQ_PARAM_RL2 = 0.1
+
+
+def seq_trainer(mode, device, sp, seq_len):
+    """The full-width LM trainer of 12 in ``mode`` at ``sp`` seq shards
+    (sp 1: the one-rank counterpart, flash attention for ulysses, plain
+    attention for ring), from the seed-0 weights."""
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config
+    from adaptdl_tpu_torch.models import TransformerLM, init_transformer, lm_pair_loss_fn
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    config = lm_config(
+        cpu=False, seq_len=seq_len, flash=mode == "ulysses", seq_shards=sp,
+        seq_mode=mode,
+    )
+    cached = _ZERO_WEIGHTS.get("dense")
+    if cached is None:
+        model = init_transformer(config, seed=0, device=device)
+        _ZERO_WEIGHTS["dense"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    else:
+        with torch.device("meta"):
+            model = TransformerLM(config)
+        model.to_empty(device=device)
+        model.load_state_dict(cached)
+    return ElasticTrainer(
+        lm_pair_loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
+        scaling_rule=AdamScale(), precondition="adam", device=device,
+    )
+
+
+def seq_batches(steps, seq_len, rows):
+    from adaptdl_tpu_torch.examples.transformer_lm import synthetic_tokens
+
+    tokens = synthetic_tokens(rows * steps, seq_len, 32000)["tokens"]
+    return [
+        {"inputs": tokens[i * rows : (i + 1) * rows, :-1].copy(),
+         "targets": tokens[i * rows : (i + 1) * rows, 1:].copy()}
+        for i in range(steps)
+    ]
+
+
+def _flat_params(model):
+    return torch.cat([p.detach().reshape(-1).float().cpu() for p in model.parameters()])
+
+
+def seq_drive(mode, device, sp, seq_len, atomic, steps):
+    """``steps`` bare train_step runs of ``mode`` at (atomic, 0) on the
+    same global batches of ``atomic`` rows (each rank's seq block under
+    sp 2); returns the record and the flat parameters before and after."""
+    from adaptdl_tpu_torch import collective
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    trainer = seq_trainer(mode, device, sp, seq_len)
+    state = trainer.init_state()
+    before = _flat_params(trainer.model)
+    batches = [trainer.to_device(b) for b in seq_batches(steps, seq_len, atomic)]
+    step = trainer.train_step(atomic, 0)
+    gc_cuda()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    collective.reset_traffic()
+    losses, seconds = [], []
+    for batch in batches:
+        torch.cuda.synchronize(device)
+        start = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - start)
+        losses.append(float(m["loss"]))
+    launches = {k: _build.LAUNCHES[k] for k in (KERNEL_SM90, KERNEL)}
+    traffic = {k: v / steps for k, v in collective.TRAFFIC.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    after = _flat_params(trainer.model)
+    check(all(math.isfinite(x) for x in losses), f"12 {mode} sp {sp}: losses {losses}")
+    record = {
+        "mode": mode, "sp": sp, "seq_len": seq_len, "atomic": atomic,
+        "mesh": dict(trainer.mesh.shape), "losses": losses, "step_s": seconds,
+        "median_step_ms": _median(seconds) * 1e3, "launches": launches,
+        "traffic_bytes_per_step": traffic, "peak_gib": peak / 2**30,
+        "checksum": _bits_checksum(after),
+        "grad_sqr": float(m["grad_sqr"]), "grad_var": float(m["grad_var"]),
+    }
+    del trainer, state, batches, step, m
+    gc_cuda()
+    return record, before, after
+
+
+def seq_checkpoint(root, device, sp, steps, expect=None):
+    """12c: restore the ulysses trainer from ``root/ckpt`` (the step and
+    parameter checksum in ``expect``; nothing when None), take ``steps``
+    steps, save. Returns the resumed and saved step and checksum."""
+    from adaptdl_tpu_torch import checkpoint
+
+    os.environ["ADAPTDL_CHECKPOINT_PATH"] = os.path.join(root, "ckpt")
+    checkpoint._reset_registry()
+    trainer = seq_trainer("ulysses", device, sp, 512)
+    holder = {"state": trainer.init_state()}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s), name="seq-lm"
+    )
+    start = time.perf_counter()
+    restored = checkpoint.load_state(ckpt)
+    entry = {"restore_s": time.perf_counter() - start, "restored": restored,
+             "resumed_at": holder["state"].host_step,
+             "resumed_checksum": _bits_checksum(_flat_params(trainer.model))}
+    if expect is None:
+        check(not restored, "12c: the first incarnation found a checkpoint")
+    else:
+        check(
+            restored and entry["resumed_at"] == expect["step"]
+            and entry["resumed_checksum"] == expect["checksum"],
+            f"12c sp {sp}: resumed at step {entry['resumed_at']} (saved "
+            f"{expect['step']}), parameters "
+            f"{'equal' if entry['resumed_checksum'] == expect['checksum'] else 'differ'}",
+        )
+    batches = seq_batches(steps, 512, SEQ_ATOMIC)
+    step = trainer.train_step(SEQ_ATOMIC, 0)
+    for batch in batches:
+        holder["state"], _ = step(holder["state"], trainer.to_device(batch))
+    if steps:
+        start = time.perf_counter()
+        checkpoint.save_all_states()
+        entry["save_s"] = time.perf_counter() - start
+    entry["step"] = holder["state"].host_step
+    entry["checksum"] = _bits_checksum(_flat_params(trainer.model))
+    ckpt.unregister()
+    del trainer, holder, ckpt, step
+    gc_cuda()
+    return entry
+
+
+def seq_worker(kind, root):
+    """Phase 12's processes: ``single`` (one rank: 12a's and 12b's
+    one-rank runs, then 12c's first save), ``pair`` (a rank of two over
+    gloo at dp 1 x sp 2: 12a, 12b, 12c's middle) and ``back`` (12c's
+    one-rank restore)."""
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch import env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    rank = env.process_rank()
+    if kind == "back":
+        with open(os.path.join(root, "pair-ckpt.json")) as f:
+            expect = json.load(f)
+        entry = seq_checkpoint(root, device, 1, 0, expect)
+        with open(os.path.join(root, "back.json"), "w") as f:
+            json.dump(entry, f)
+        return
+    sp = 1
+    if kind == "pair":
+        import torch.distributed as dist
+
+        sp = env.seq_shards()
+        check(dist.get_backend() == "gloo", f"12 pair backend {dist.get_backend()}")
+        # The example's rewrite: chips at launch -> data-parallel replicas.
+        os.environ["ADAPTDL_NUM_REPLICAS"] = str(env.data_parallel_replicas())
+    records = {}
+    seconds = {"12a": 0.0, "12b": 0.0}
+    for mode in SEQ_MODES:
+        t0 = time.perf_counter()
+        rec, before, after = seq_drive(mode, device, sp, 512, SEQ_ATOMIC, SEQ_STEPS)
+        flat_path = os.path.join(root, f"single-{mode}.pt")
+        if kind == "single":
+            torch.save({"before": before, "after": after}, flat_path)
+        else:
+            one = torch.load(flat_path)
+            check(torch.equal(one["before"], before), f"12a {mode}: initial weights differ")
+            update = (one["after"] - one["before"]).norm().item()
+            rec["param_rl2"] = (after - one["after"]).norm().item() / update
+            rec["param_max_abs"] = (after - one["after"]).abs().max().item()
+        records[mode] = rec
+        t1 = time.perf_counter()
+        long, _, _ = seq_drive(mode, device, sp, SEQ_LONG, 2, 1)
+        records[f"{mode}_{SEQ_LONG}"] = long
+        seconds["12a"] += t1 - t0
+        seconds["12b"] += time.perf_counter() - t1
+    t0 = time.perf_counter()
+    if kind == "single":
+        records["ckpt"] = seq_checkpoint(root, device, 1, SEQ_CKPT_STEPS)
+    else:
+        with open(os.path.join(root, "single.json")) as f:
+            saved = json.load(f)["ckpt"]
+        records["ckpt"] = seq_checkpoint(root, device, sp, 1, saved)
+    seconds["12c"] = time.perf_counter() - t0
+    records["seconds"] = seconds
+    if kind == "pair" and rank == 0:
+        with open(os.path.join(root, "pair-ckpt.json"), "w") as f:
+            json.dump(records["ckpt"], f)
+    name = "single" if kind == "single" else f"pair-rank{rank}"
+    with open(os.path.join(root, f"{name}.json"), "w") as f:
+        json.dump(records, f)
+
+
+def phase_seq(kernel_rows):
+    """Phase 12: the sequence axis on the card."""
+    import torch.nn.functional as F
+
+    from adaptdl_tpu_torch.ops.flash_attention import (
+        KERNEL, KERNEL_SM90, _launch, flash_attention_reference,
+    )
+
+    start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-seq-")
+    base = _clean_environ()
+
+    def run(kind, replicas, restarts, launcher):
+        run_env = dict(
+            base, ADAPTDL_NUM_REPLICAS=str(replicas),
+            ADAPTDL_SEQ_SHARDS=str(replicas), ADAPTDL_NUM_RESTARTS=str(restarts),
+        )
+        cmd = [os.path.join(here, "chip_smoke.py"), "--seq-worker", kind, root]
+        if launcher:
+            cmd = ["-m", "adaptdl_tpu_torch.launch"] + cmd
+        t0 = time.perf_counter()
+        code = subprocess.run(
+            [sys.executable, *cmd], cwd=here, env=run_env, timeout=600,
+        ).returncode
+        check(code == 0, f"12 {kind} exited {code}")
+        return time.perf_counter() - t0
+
+    def load(tag):
+        with open(os.path.join(root, f"{tag}.json")) as f:
+            return json.load(f)
+
+    per_pass = 12 * 2  # the sm90 kernel: forward + remat recompute per block
+    try:
+        # The sm90 kernel at the shape ulysses gives it: 8 rows x 6 heads
+        # of the gathered 512 positions.
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        shape = (SEQ_ATOMIC * 6, 512, 64)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        bh, seq, d = shape
+        flops = 4 * d * bh * seq * (seq + 1) / 2
+        nbytes = 4 * bh * seq * d * 2 + bh * seq * 4
+        by_flops = flops / PEAK_BF16_FLOPS * 1e3
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        a, b, c = (t.reshape(SEQ_ATOMIC, 6, seq, d) for t in (q, k, v))
+        gathered = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: _launch(KERNEL_SM90, q, k, v, True, None), 50),
+            "plain_ms": cuda_ms(lambda: flash_attention_reference(q, k, v, True), 5),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(a, b, c, is_causal=True), 50
+            ),
+            "bound_ms": max(by_flops, by_bytes),
+            "bound_by": "operations" if by_flops > by_bytes else "bytes",
+        }
+        out, lse = _launch(KERNEL_SM90, q, k, v, True, None)
+        ref, ref_lse = flash_attention_reference(q, k, v, True)
+        ratio = ((out.float() - ref.float()).abs()
+                 / sm90_bound(q, k, v, True, ref, ref_lse)).max().item()
+        check(ratio <= 1, f"12: sm90 at {shape} exceeds its bound ({ratio:.3g})")
+        gathered["max_err_over_bound"] = ratio
+        print(f"seq 12a: {KERNEL_SM90} at the gathered shape {shape} (causal): {gathered}")
+        del q, k, v, a, b, c, out, lse, ref, ref_lse
+        gc_cuda()
+
+        wall_single = run("single", 1, 0, launcher=False)
+        wall_pair = run("pair", 2, 1, launcher=True)
+        wall_back = run("back", 1, 2, launcher=False)
+        single = load("single")
+        pair = [load(f"pair-rank{r}") for r in (0, 1)]
+        back = load("back")
+        print(f"seq 12 (one rank {wall_single:.1f} s; two ranks over gloo on the one "
+              f"card, dp 1 x sp 2, {wall_pair:.1f} s; one rank {wall_back:.1f} s; "
+              "correctness and per-rank memory, not the seq axis's speed; seconds "
+              f"of 12a / 12b / 12c inside them: one rank {single['seconds']}, two "
+              f"ranks {pair[0]['seconds']}, the last restore {back['restore_s']:.2f}):")
+        for mode in SEQ_MODES:
+            recs = [p[mode] for p in pair]
+            one = single[mode]
+            check(
+                recs[0]["checksum"] == recs[1]["checksum"]
+                and recs[0]["losses"] == recs[1]["losses"],
+                f"12a {mode}: the two ranks' parameters differ",
+            )
+            check(recs[0]["mesh"] == {"data": 1, "seq": 2}, f"12a mesh {recs[0]['mesh']}")
+            want = per_pass * SEQ_STEPS if mode == "ulysses" else 0
+            check(
+                all(r["launches"][KERNEL_SM90] == want and r["launches"][KERNEL] == 0
+                    for r in recs),
+                f"12a {mode}: launches {[r['launches'] for r in recs]}, expected "
+                f"{want} sm90 per rank",
+            )
+            want_one = per_pass * SEQ_STEPS if mode == "ulysses" else 0
+            check(one["launches"][KERNEL_SM90] == want_one,
+                  f"12a one-rank {mode}: launches {one['launches']}")
+            loss_rdiff = max(abs(x - y) / abs(y) for x, y in zip(recs[0]["losses"], one["losses"]))
+            recs[0]["loss_rdiff"] = loss_rdiff
+            check(
+                loss_rdiff <= SEQ_LOSS_RTOL and recs[0]["param_rl2"] <= SEQ_PARAM_RL2,
+                f"12a {mode} against one rank: losses {loss_rdiff:.3g} (bound "
+                f"{SEQ_LOSS_RTOL:.3g}), parameters {recs[0]['param_rl2']:.3g} of the "
+                f"update (bound {SEQ_PARAM_RL2})",
+            )
+            traffic = ", ".join(
+                f"{k} {v / 1e6:.2f}" for k, v in recs[0]["traffic_bytes_per_step"].items() if v
+            )
+            print(
+                f"  {mode}: ranks bit-equal; losses {recs[0]['losses']} (one rank "
+                f"{one['losses']}, max rel diff {loss_rdiff:.3g}); parameters against "
+                f"one rank: L2 {recs[0]['param_rl2']:.3g} of its update, max abs "
+                f"{recs[0]['param_max_abs']:.3g}; sm90 launches "
+                f"{[r['launches'][KERNEL_SM90] for r in recs]}; collectives per step "
+                f"(MB) {traffic}; median step {recs[0]['median_step_ms']:.1f} / "
+                f"{recs[1]['median_step_ms']:.1f} ms (one rank "
+                f"{one['median_step_ms']:.1f} ms)"
+            )
+            for seq_len, tag in ((512, mode), (SEQ_LONG, f"{mode}_{SEQ_LONG}")):
+                print(
+                    f"  {mode} seq {seq_len} (atomic {single[tag]['atomic']}): per-rank "
+                    f"peak {pair[0][tag]['peak_gib']:.2f} / {pair[1][tag]['peak_gib']:.2f} "
+                    f"GiB at sp 2, {single[tag]['peak_gib']:.2f} GiB at one rank"
+                )
+        ckpt = [single["ckpt"], pair[0]["ckpt"], back]
+        check(back["resumed_at"] == pair[0]["ckpt"]["step"] == SEQ_CKPT_STEPS + 1,
+              f"12c: steps {[c.get('step') for c in ckpt]}")
+        print(
+            f"seq 12c: sp 1 saved at step {ckpt[0]['step']} ({ckpt[0]['save_s']:.2f} s); "
+            f"sp 2 resumed at step {ckpt[1]['resumed_at']} with its parameters "
+            f"({ckpt[1]['restore_s']:.2f} s), saved at step {ckpt[1]['step']}; sp 1 "
+            f"resumed at step {back['resumed_at']} with those ({back['restore_s']:.2f} s)"
+        )
+        for row in kernel_rows:
+            name = row["name"]
+            row["seq_launches"] = {
+                mode: [p[mode]["launches"][name] for p in pair] for mode in SEQ_MODES
+            }
+            if name == KERNEL_SM90:
+                row["seq_gathered"] = gathered
+        print(json.dumps({"seq": {"single": single, "pair": pair, "back": back,
+                                  "gathered": gathered}}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"seq: phase {time.perf_counter() - start:.1f} s")
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -4342,6 +4730,9 @@ def main():
         return
     if sys.argv[1:2] == ["--zero-worker"]:
         zero_worker(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--seq-worker"]:
+        seq_worker(*sys.argv[2:4])
         return
     # The kernel cache lives on the share path (ops/_build.py): phase 2
     # builds into it, and every later process (phase 5's ranks, phase 8's
@@ -4374,6 +4765,7 @@ def smoke():
     phase_options(kernel_rows)
     phase_control(kernel_rows)
     phase_zero(kernel_rows)
+    phase_seq(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

@@ -197,5 +197,5 @@ def test_unported_job_settings_raise(monkeypatch):
     monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "2")
     with pytest.raises(NotImplementedError, match="multi-replica"):
         adaptdl_tpu_torch.initialize_job(device="cpu")
-    with pytest.raises(NotImplementedError, match="--seq-shards"):
+    with pytest.raises(ValueError, match="--seq-shards 2 runs one process per chip"):
         transformer_lm.main(["--cpu", "--seq-shards", "2"])

@@ -329,7 +329,7 @@ def test_lm_example_takes_moe_chunked_and_remat_flags(tmp_path, monkeypatch, cap
     config = transformer_lm.lm_config(True, 32, False, "checkpoint_dots", 8, 2)
     assert (config.moe_every_n, config.moe_num_experts, config.moe_top_k) == (2, 8, 2)
     assert config.remat_policy == "checkpoint_dots"
-    with pytest.raises(NotImplementedError, match="--seq-shards"):
+    with pytest.raises(ValueError, match="--seq-shards 2 runs one process per chip"):
         transformer_lm.main(["--cpu", "--seq-shards", "2"])
 
 

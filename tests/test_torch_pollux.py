@@ -15,7 +15,8 @@ inventories, base allocations) go to ``adaptdl_tpu.sched.policy`` and to
   objective math, and the dp default of ``best_config``; plus an
   incremental cycle and a partitioned one.
 
-The port's speedup function is data-parallel only: mesh hints raise.
+The port's speedup function prices the data and seq axes; model, stage
+and expert hints raise.
 """
 
 import numpy as np
@@ -149,7 +150,20 @@ def test_speedup_best_config_pure_dp_defaults():
      {"max_expert_shards": 2}, {"mesh_shape_grid": [(1, 2, 1, 1)]}],
 )
 def test_mesh_hints_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """The seq axis is ported: its hint gives the JAX package's table and
+    configurations. Model, stage and expert axes (``mesh_shape_grid``
+    shapes are (sp, tp, ss, ep), so (1, 2, 1, 1) is a model axis) still
+    raise."""
+    if "max_seq_shards" in kw:
+        nodes, chips = np.array([1, 1, 1, 2, 2]), np.array([1, 2, 4, 4, 8])
+        fns = [_speedup_fn(pkg, **kw) for pkg in PACKAGES]
+        np.testing.assert_allclose(
+            fns[1](nodes, chips), fns[0](nodes, chips), rtol=1e-12, atol=0
+        )
+        for n, c in zip(nodes.tolist(), chips.tolist()):
+            assert fns[1].best_config(n, c) == fns[0].best_config(n, c)
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 items 5 and 6"):
         _speedup_fn("port", **kw)
 
 

@@ -251,8 +251,10 @@ def test_collectives_gather_and_reduce_scatter(runs):
         assert torch.equal(got["gathered_out"], want)
         summed = torch.arange(8.0) * 3  # ranks multiply by 1 and 2
         assert torch.equal(got["scattered"], summed[rank * 4 : (rank + 1) * 4])
-        # Two gathers and one reduce-scatter of 8 float32 each.
-        assert got["traffic"] == {"all_reduce": 0, "all_gather": 64, "reduce_scatter": 32}
+        # Two gathers and one reduce-scatter of 8 float32 each; no
+        # exchange of the seq axis.
+        assert got["traffic"] == {"all_reduce": 0, "all_gather": 64, "reduce_scatter": 32,
+                                  "all_to_all": 0, "ppermute": 0}
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -405,7 +407,7 @@ def test_composition_rules(monkeypatch):
                        param_group_fn=lambda n, p: int(n.startswith("embed")))
     with pytest.raises(ValueError, match="no 'blocks' entry"):
         ElasticTrainer(lm_loss_fn, model, opt, 8, device="cpu", zero3_blocks="blocks")
-    with pytest.raises(NotImplementedError, match="meshes"):
+    with pytest.raises(TypeError, match="meshes"):
         ElasticTrainer(lm_loss_fn, model, opt, 8, device="cpu", zero1=True, mesh=object())
     model, opt = fresh()
     model.half()

@@ -24,8 +24,8 @@ WORKER = "tests/torch_zero_worker.py"
 LAUNCH_TIMEOUT_S = 300
 
 
-def start_ranks(out_dir, plan, replicas=2, restarts=0):
-    """Launch the worker's ``plan`` at ``replicas`` gloo ranks; returns
+def start_ranks(out_dir, plan, replicas=2, restarts=0, worker=WORKER):
+    """Launch ``worker``'s ``plan`` at ``replicas`` gloo ranks; returns
     the process (it leads its own process group, so a timeout kills
     every rank)."""
     run_env = {k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")}
@@ -34,7 +34,7 @@ def start_ranks(out_dir, plan, replicas=2, restarts=0):
         ADAPTDL_NUM_REPLICAS=str(replicas), ADAPTDL_NUM_RESTARTS=str(restarts),
     )
     return subprocess.Popen(
-        [sys.executable, "-m", "adaptdl_tpu_torch.launch", WORKER, str(out_dir), plan],
+        [sys.executable, "-m", "adaptdl_tpu_torch.launch", worker, str(out_dir), plan],
         cwd=REPO, env=run_env, start_new_session=True,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
