@@ -19,6 +19,12 @@ attention's K/V rotation), and ``allreduce_mean`` takes a group too.
 Under NCCL they run on the device tensors; under gloo (two ranks on one
 card) they stage through pinned host buffers kept per group and size.
 
+Under the model and expert axes :func:`allreduce_sum` takes a group
+(the Megatron region operators' and the expert region's sums), and the
+ZeRO collectives take the group their rows are split over (the data
+group under a seq axis). :data:`SOLO` stands for the group of this process
+alone (an axis of size 1): every collective over it is the identity.
+
 ``allreduce_async`` returns before the peers answer, as the JAX
 ``Reducer`` does: its collective runs on one single-thread executor,
 over a gloo group of its own (made once), so that it never shares the
@@ -116,6 +122,16 @@ def teardown() -> None:
         dist.destroy_process_group()
 
 
+class _Solo:
+    """The group of this process alone."""
+
+    def __repr__(self) -> str:
+        return "SOLO"
+
+
+SOLO = _Solo()
+
+
 def world_size() -> int:
     """Replicas in the process group; 1 without one."""
     return dist.get_world_size() if initialized() else 1
@@ -202,8 +218,8 @@ def allreduce_mean(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor
     """Average each tensor across the ranks of ``group`` (default: every
     replica), in place: the tensors are packed into one float32 buffer,
     reduced by one all-reduce, divided once and unpacked. The identity
-    with one replica."""
-    if initialized():
+    with one rank."""
+    if initialized() and group is not SOLO:
         allreduce_mean_packed(tensors, group)
     return tensors
 
@@ -213,7 +229,7 @@ def allreduce_mean_packed(tensors: list[torch.Tensor], group=None) -> torch.Tens
     :func:`pack` laid it out (the ZeRO modes slice their row of the
     gradient from it)."""
     flat = pack(tensors)
-    if initialized():
+    if initialized() and group is not SOLO:
         dist.all_reduce(flat, group=group)
         size = dist.get_world_size(group)
         flat.div_(size)
@@ -223,11 +239,11 @@ def allreduce_mean_packed(tensors: list[torch.Tensor], group=None) -> torch.Tens
     return flat
 
 
-def allreduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum a small tensor across replicas, in place; the identity with
-    one replica."""
-    if world_size() > 1:
-        dist.all_reduce(tensor)
+def allreduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum a small tensor across the ranks of ``group`` (default: every
+    replica), in place; the identity with one rank."""
+    if group_size(group) > 1:
+        dist.all_reduce(tensor, group=group)
         TRAFFIC["all_reduce"] += tensor.numel() * tensor.element_size()
     return tensor
 
@@ -239,35 +255,39 @@ def _staged() -> bool:
     return dist.get_backend() == "gloo"
 
 
-def reduce_scatter_sum(flat: torch.Tensor) -> torch.Tensor:
-    """This rank's row of the sum over ranks of ``flat`` (float32,
-    ``[dp * shard]``): ``[shard]``, row ``rank``. The identity with one
-    replica. Under gloo the sum is one all-reduce of the host copy
-    followed by a slice (a call every PyTorch version's gloo has); under
-    NCCL it is ``reduce_scatter_tensor``."""
-    dp = world_size()
+def reduce_scatter_sum(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's row of the sum over the ranks of ``group`` (default:
+    every replica) of ``flat`` (float32, ``[dp * shard]``): ``[shard]``,
+    row ``rank`` of the group. The identity with one rank. Under gloo
+    the sum is one all-reduce of the host copy followed by a slice (a
+    call every PyTorch version's gloo has); under NCCL it is
+    ``reduce_scatter_tensor``."""
+    dp = group_size(group)
     if dp == 1:
         return flat
     shard = flat.numel() // dp
-    rank = dist.get_rank()
+    rank = group_rank(group)
     TRAFFIC["reduce_scatter"] += flat.numel() * flat.element_size()
     if _staged():
         host = flat.detach().to("cpu", copy=True)
-        dist.all_reduce(host)
+        dist.all_reduce(host, group=group)
         return host[rank * shard : (rank + 1) * shard].to(flat.device)
     out = torch.empty(shard, dtype=flat.dtype, device=flat.device)
-    dist.reduce_scatter_tensor(out, flat.contiguous())
+    dist.reduce_scatter_tensor(out, flat.contiguous(), group=group)
     return out
 
 
-def all_gather_rows(row: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Every rank's ``row`` (float32, ``[shard]``) concatenated in rank
-    order: ``[dp * shard]``, written into ``out`` when given (``row``
-    may be ``out``'s own slice for this rank). The identity with one
-    replica (``row`` itself, or copied into ``out``). Under gloo the
-    gather runs on host copies, into a list of views of one host
-    buffer; under NCCL it is ``all_gather_into_tensor``."""
-    dp = world_size()
+def all_gather_rows(
+    row: torch.Tensor, out: torch.Tensor | None = None, group=None
+) -> torch.Tensor:
+    """Every rank's ``row`` (float32, ``[shard]``) concatenated in the
+    rank order of ``group`` (default: every replica): ``[dp * shard]``,
+    written into ``out`` when given (``row`` may be ``out``'s own slice
+    for this rank). The identity with one rank (``row`` itself, or
+    copied into ``out``). Under gloo the gather runs on host copies,
+    into a list of views of one host buffer; under NCCL it is
+    ``all_gather_into_tensor``."""
+    dp = group_size(group)
     if out is None and dp == 1:
         return row
     if out is None:
@@ -280,10 +300,10 @@ def all_gather_rows(row: torch.Tensor, out: torch.Tensor | None = None) -> torch
     if _staged():
         host_row = row.detach().reshape(-1).to("cpu", copy=True)
         host = torch.empty(out.numel(), dtype=row.dtype)
-        dist.all_gather(list(host.chunk(dp)), host_row)
+        dist.all_gather(list(host.chunk(dp)), host_row, group=group)
         out.copy_(host)
         return out
-    dist.all_gather_into_tensor(out, row.detach().reshape(-1).contiguous())
+    dist.all_gather_into_tensor(out, row.detach().reshape(-1).contiguous(), group=group)
     return out
 
 
@@ -326,13 +346,19 @@ def _exchange_bytes(send: torch.Tensor, group, run) -> torch.Tensor:
 
 
 def group_size(group=None) -> int:
-    """Ranks in ``group`` (default: the job); 1 without a process group."""
-    return dist.get_world_size(group) if initialized() else 1
+    """Ranks in ``group`` (default: the job); 1 for :data:`SOLO` and
+    without a process group."""
+    if group is SOLO or not initialized():
+        return 1
+    return dist.get_world_size(group)
 
 
 def group_rank(group=None) -> int:
-    """This rank's index in ``group``; 0 without a process group."""
-    return dist.get_rank(group) if initialized() else 0
+    """This rank's index in ``group``; 0 for :data:`SOLO` and without a
+    process group."""
+    if group is SOLO or not initialized():
+        return 0
+    return dist.get_rank(group)
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:

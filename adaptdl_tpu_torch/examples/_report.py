@@ -87,8 +87,9 @@ class RunReport:
 
         digest = hashlib.sha256()
         small = {}
-        # A callable gives the parameter tree (a ZeRO trainer's
-        # params_tree, a collective every rank reaches here).
+        # A callable gives the parameter tree (the params_tree of a ZeRO
+        # or model/expert-sharded trainer, a collective every rank
+        # reaches here).
         if isinstance(self._model, torch.nn.Module):
             named = self._model.named_parameters()
         else:

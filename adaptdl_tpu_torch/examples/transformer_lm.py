@@ -41,8 +41,26 @@ replica, on the card:
         -m adaptdl_tpu_torch.examples.transformer_lm --seq-shards 2 \
         --seq-mode ulysses --flash
 
-The JAX example's other flags (tensor/pipeline/expert sharding) are not
-ported yet and raise, as does a ZeRO flag under ``--seq-shards`` > 1.
+The ZeRO flags compose with ``--seq-shards`` as in the JAX example (the
+rows split over the data group; ``--zero3-blocks`` then trains on
+inputs and targets aligned on the host).
+
+Tensor and expert parallelism, as in the JAX example: ``--tp-shards k``
+(default ``ADAPTDL_MODEL_SHARDS``) splits every block over k chips by
+the Megatron table (``parallel/tensor_parallel.py``; with ``--flash``
+the sm90 kernel runs on each rank's ``num_heads / k`` heads), and under
+``--moe-experts E`` the experts split over ``ADAPTDL_EXPERT_SHARDS``
+chips (``switch_moe``: an all-to-all each way). The mesh is data x seq x
+model x expert, one process per chip. Two ranks, one replica, on the
+card:
+
+    ADAPTDL_NUM_REPLICAS=2 python -m adaptdl_tpu_torch.launch \
+        -m adaptdl_tpu_torch.examples.transformer_lm --tp-shards 2 --flash
+    ADAPTDL_NUM_REPLICAS=2 ADAPTDL_EXPERT_SHARDS=2 python -m adaptdl_tpu_torch.launch \
+        -m adaptdl_tpu_torch.examples.transformer_lm --flash --moe-experts 8 --moe-top-k 2
+
+The JAX example's pipeline flags (``--pipeline``, ``--stage-shards``,
+``--pipeline-micro``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -56,12 +74,14 @@ from adaptdl_tpu_torch.examples._data import synthetic_tokens
 def lm_config(
     cpu: bool, seq_len: int, flash: bool, remat_policy: str | None = None,
     moe_experts: int = 0, moe_top_k: int = 1, seq_shards: int = 1,
-    seq_mode: str = "ring",
+    seq_mode: str = "ring", tp_shards: int = 1, expert_shards: int = 1,
 ):
     """The example's model: full width on the card, tiny on the CPU.
     Under ``seq_shards`` > 1 attention crosses the ``"seq"`` axis as
     ``seq_mode`` says; ``flash`` then runs inside ulysses, on the
-    gathered sequence."""
+    gathered sequence. ``tp_shards`` > 1 splits the blocks over the
+    ``"model"`` axis, ``expert_shards`` > 1 the experts over the
+    ``"expert"`` axis."""
     import torch
 
     from adaptdl_tpu_torch.models import TransformerConfig
@@ -92,34 +112,37 @@ def lm_config(
         moe_every_n=2 if moe_experts > 0 else 0,
         moe_num_experts=moe_experts,
         moe_top_k=moe_top_k,
+        model_axis="model" if tp_shards > 1 else None,
+        moe_axis="expert" if expert_shards > 1 else None,
     )
 
 
 def check_zero_flags(args) -> None:
     """The JAX example's composition rules for the ZeRO flags: zero3
     implies zero1; zero3_blocks is a storage mode of its own, without
-    flash attention, MoE or the chunked head."""
+    flash attention, MoE, tensor parallelism or the chunked head; zero1
+    without MoE or tensor parallelism. All compose with ``--seq-shards``."""
+    tp = getattr(args, "tp_shards", None) or 1
     if args.zero3_blocks:
         assert not (args.zero1 or args.zero3), (
             "--zero3-blocks is a storage mode of its own; drop "
             "--zero1/--zero3"
         )
-        assert not args.flash and args.moe_experts == 0 and args.chunked_xent == 0, (
-            "--zero3-blocks shards parameter storage over the data axis "
-            "and composes with data parallelism only (no --flash, MoE or "
-            "--chunked-xent)"
+        assert (
+            args.moe_experts == 0 and tp <= 1 and not args.flash
+            and args.chunked_xent == 0
+        ), (
+            "--zero3-blocks shards parameter storage over the data "
+            "axis and composes with data and sequence parallelism "
+            "only"
         )
     if args.zero3:
         args.zero1 = True  # zero3 implies the zero1 constraints below
     if args.zero1:
-        assert args.moe_experts == 0, (
+        assert args.moe_experts == 0 and tp <= 1, (
             "--zero1 shards optimizer state over the data axis and "
-            "composes with data parallelism only"
-        )
-    if (args.zero1 or args.zero3_blocks) and (getattr(args, "seq_shards", None) or 1) > 1:
-        raise NotImplementedError(
-            "the ZeRO storage modes under --seq-shards > 1 are not ported "
-            "yet (ROADMAP Queue 1 item 4, the seq x ZeRO composition)"
+            "composes with dp/seq only; stage/expert/tensor axes "
+            "manage their own optimizer layouts"
         )
 
 
@@ -127,10 +150,7 @@ def max_seq_shards(args, seq_len: int, num_heads: int) -> int:
     """How far this job can shard a sequence, by the JAX example's rule:
     the largest power of two up to 8 dividing ``seq_len``, under ulysses
     also dividing ``num_heads``; 1 under ``--flash`` with ring attention
-    (the flash path refuses ring sharding) and under a ZeRO flag (the
-    port refuses that composition)."""
-    if args.zero1 or args.zero3 or args.zero3_blocks:
-        return 1
+    (the flash path refuses ring sharding)."""
     max_sp = 1
     if not args.flash or args.seq_mode == "ulysses":
         while max_sp * 2 <= 8 and seq_len % (max_sp * 2) == 0:
@@ -139,6 +159,22 @@ def max_seq_shards(args, seq_len: int, num_heads: int) -> int:
         while max_sp > 1 and num_heads % max_sp != 0:
             max_sp //= 2
     return max_sp
+
+
+def max_model_shards(args, num_heads: int) -> int:
+    """The JAX example's tensor-parallel hint: up to the head count (8 at
+    most); 1 under ``--flash`` (the reference's reason is GSPMD's: a
+    Pallas kernel is opaque to it) and under ``--zero1`` /
+    ``--zero3-blocks``, which refuse a model axis."""
+    if args.flash or args.zero1 or args.zero3_blocks:
+        return 1
+    return min(num_heads, 8)
+
+
+def max_expert_shards(args) -> int:
+    """The largest power of two dividing the expert count: a shard owns
+    whole experts and the scheduler picks powers of two."""
+    return args.moe_experts & -args.moe_experts if args.moe_experts > 0 else 1
 
 
 def main(argv=None):
@@ -161,6 +197,8 @@ def main(argv=None):
     # Default: the scheduler's factorization (ADAPTDL_SEQ_SHARDS).
     parser.add_argument("--seq-shards", type=int, default=None)
     parser.add_argument("--seq-mode", choices=("ring", "ulysses"), default="ring")
+    # Default: the scheduler's factorization (ADAPTDL_MODEL_SHARDS).
+    parser.add_argument("--tp-shards", type=int, default=None)
     args, unported = parser.parse_known_args(argv)
     if unported:
         raise NotImplementedError(
@@ -170,12 +208,18 @@ def main(argv=None):
 
     seq_shards = args.seq_shards if args.seq_shards is not None else env.seq_shards()
     args.seq_shards = seq_shards
+    tp_shards = args.tp_shards if args.tp_shards is not None else env.model_shards()
+    args.tp_shards = tp_shards
+    # Expert shards: the scheduler's choice, only for a model with experts.
+    expert_shards = env.expert_shards() if args.moe_experts > 0 else 1
     check_zero_flags(args)
     chips = env.num_replicas()
-    if seq_shards > 1 and (chips % seq_shards or env.num_processes() != chips):
+    group = seq_shards * tp_shards * expert_shards
+    if group > 1 and (chips % group or env.num_processes() != chips):
         raise ValueError(
-            f"--seq-shards {seq_shards} runs one process per chip (python -m "
-            f"adaptdl_tpu_torch.launch): ADAPTDL_NUM_REPLICAS={chips} chips "
+            f"--seq-shards {seq_shards} runs one process per chip, as do "
+            f"--tp-shards {tp_shards} and {expert_shards} expert shards (python "
+            f"-m adaptdl_tpu_torch.launch): ADAPTDL_NUM_REPLICAS={chips} chips "
             f"over ADAPTDL_NUM_PROCESSES={env.num_processes()}"
         )
 
@@ -188,6 +232,7 @@ def main(argv=None):
     )
     from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.parallel.mesh import create_mesh_from_topology
     from adaptdl_tpu_torch.scaling_rules import AdamScale
     from adaptdl_tpu_torch.trainer import ElasticTrainer
 
@@ -209,13 +254,17 @@ def main(argv=None):
     )
     config = lm_config(
         args.cpu, seq_len, flash, args.remat_policy, args.moe_experts,
-        args.moe_top_k, seq_shards, args.seq_mode,
+        args.moe_top_k, seq_shards, args.seq_mode, tp_shards, expert_shards,
     )
-    if seq_shards > 1:
-        # ADAPTDL_NUM_REPLICAS counts chips at launch; a seq group of
-        # chips is one data-parallel replica.
+    if group > 1:
+        # ADAPTDL_NUM_REPLICAS counts chips at launch; a seq, tensor or
+        # expert group of chips is one data-parallel replica.
         os.environ["ADAPTDL_SEQ_SHARDS"] = str(seq_shards)
+        os.environ["ADAPTDL_MODEL_SHARDS"] = str(tp_shards)
+        os.environ["ADAPTDL_EXPERT_SHARDS"] = str(expert_shards)
         os.environ["ADAPTDL_NUM_REPLICAS"] = str(env.data_parallel_replicas())
+    # The mesh first: the model takes this rank's shards from it.
+    mesh = create_mesh_from_topology()
     if args.zero3_blocks:
         # Raw token rows through the per-block-gather layer loop.
         loss_fn, model = init_zero3_lm(config, seed=0, device=device)
@@ -238,6 +287,7 @@ def main(argv=None):
         zero1=args.zero1,
         zero3=args.zero3,
         zero3_blocks="blocks" if args.zero3_blocks else None,
+        mesh=mesh,
     )
     holder = {"state": trainer.init_state()}
     ckpt = trainer.make_checkpoint_state(
@@ -260,12 +310,12 @@ def main(argv=None):
     )
     metrics.set_topology_config(
         max_seq_shards=max_seq_shards(args, seq_len, config.num_heads),
-        # The trainer refuses model axes under a ZeRO mode: advertise none.
-        max_model_shards=1,
+        max_model_shards=max_model_shards(args, config.num_heads),
+        max_expert_shards=max_expert_shards(args),
     )
     report = RunReport(
         args.report_dir, args.steps,
-        trainer.params_tree if trainer.zero_mode else model,
+        trainer.params_tree if trainer.zero_mode or trainer.sharded else model,
     )
     report.begin(holder["state"])
     try:

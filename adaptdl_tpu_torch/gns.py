@@ -110,13 +110,14 @@ def is_placeholder(prev_grad, shapes) -> bool:
     )
 
 
-def rows_normsqr(tensors, precond=None) -> torch.Tensor:
+def rows_normsqr(tensors, precond=None, group=None) -> torch.Tensor:
     """Squared norm, shape (1,), of a gradient held as disjoint rows on
     each replica (``zero3_blocks``): the local sum of squares,
-    all-reduced (pad positions carry zeros)."""
+    all-reduced over ``group``, the data group (pad positions carry
+    zeros; the seq ranks of a replica hold the same rows)."""
     tensors = list(tensors)
     local = group_normsqr(tensors, [0] * len(tensors), 1, precond)
-    return collective.allreduce_sum(local)
+    return collective.allreduce_sum(local, group=group)
 
 
 def normalize_groups(state: GNSState, num_groups: int) -> GNSState:

@@ -31,7 +31,7 @@ import subprocess
 import sys
 import time
 
-from adaptdl_tpu_torch import env
+from adaptdl_tpu_torch import _signal, env
 from adaptdl_tpu_torch._signal import GRACEFUL_EXIT_CODE
 
 # Seconds the other ranks get to exit on their own after one has failed.
@@ -107,7 +107,8 @@ def _returncode(proc: subprocess.Popen) -> int:
 
 
 def run(argv: list[str]) -> int:
-    """Start every rank on ``python argv...`` and wait for them."""
+    """Start every rank on ``python argv...`` and wait for them; the
+    launcher ignores SIGTERM and SIGINT once every rank has exited."""
     procs: list[subprocess.Popen] = []
 
     def forward(signum, frame):  # noqa: ARG001 - signal handler signature
@@ -115,10 +116,8 @@ def run(argv: list[str]) -> int:
             if proc.poll() is None:
                 proc.send_signal(signal.SIGTERM)
 
-    previous = {
-        sig: signal.signal(sig, forward)
-        for sig in (signal.SIGTERM, signal.SIGINT)
-    }
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, forward)
     codes: list[int] = []
     kill_at = None
     ready = env.warmup_ready_file()
@@ -145,8 +144,10 @@ def run(argv: list[str]) -> int:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
-        for sig, handler in previous.items():
-            signal.signal(sig, handler)
+        # Every rank has exited: a late SIGTERM must not kill the
+        # launcher during its exit, which would read as a graceful stop
+        # (143).
+        _signal.ignore_at_exit()
     return exit_code(codes)
 
 

@@ -1,5 +1,6 @@
-"""Switch/GShard mixture-of-experts FFN at one expert shard, the port of
-``adaptdl_tpu.models.moe`` (``dense_switch_moe`` and its routing).
+"""Switch/GShard mixture-of-experts FFN, the port of
+``adaptdl_tpu.models.moe``: ``dense_switch_moe`` at one expert shard and
+``switch_moe`` over an expert axis, with their routing.
 
 Routing, per slice of ``s`` tokens (``num_slices`` slices bin tokens as
 an expert-parallel run's devices would):
@@ -34,6 +35,8 @@ from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from adaptdl_tpu_torch import collective
 
 
 def gelu(x):
@@ -142,31 +145,42 @@ def _experts(sent, w_up, w_down, activation):
     return torch.bmm(activation(torch.bmm(sent, w_up)), w_down)
 
 
-def _apply_slice(x, routing: Routing, w_up, w_down, cap, activation):
-    s, dim = x.shape
-    num_experts = w_up.shape[0]
-    x32 = x.float()
-    slots = num_experts * cap
-    # Each kept pair writes its slot (a slot holds at most one pair);
-    # dropped pairs write a spare slot past the end. An empty slot holds
-    # token ``s`` (a spare row), weight 0 and a zero input row.
+def _dispatch(x32, routing: Routing, slots):
+    """The kept pairs' token rows written into their slots: ``(sent
+    [slots, d], slot_token [slots], slot_weight [slots])``. Each kept
+    pair writes its slot (a slot holds at most one pair); dropped pairs
+    write a spare slot past the end. An empty slot holds token ``s`` (a
+    spare row), weight 0 and a zero input row."""
+    s, dim = x32.shape
     target = torch.where(routing.kept, routing.slot, slots)
-    slot_token = torch.full((slots + 1,), s, dtype=torch.int64, device=x.device)
+    slot_token = torch.full((slots + 1,), s, dtype=torch.int64, device=x32.device)
     slot_token = slot_token.index_put((target,), routing.token)[:slots]
     slot_weight = x32.new_zeros(slots + 1).index_put((target,), routing.weight)[:slots]
-    # Dispatch: the pairs' token rows into their slots. (Writing rows,
-    # not gathering them, keeps the backward a gather: a gather's
-    # backward accumulates serially over an index repeated per empty
-    # slot.)
+    # Writing rows, not gathering them, keeps the backward a gather: a
+    # gather's backward accumulates serially over an index repeated per
+    # empty slot.
     sent = x32.new_zeros(slots + 1, dim).index_put((target,), x32[routing.token])
-    out = _experts(sent[:slots].view(num_experts, cap, dim), w_up, w_down, activation)
-    # Combine: a weighted scatter-add of the slots onto their tokens.
+    return sent[:slots], slot_token, slot_weight
+
+
+def _combine(x32, out, slot_token, slot_weight):
+    """The experts' ``[slots, d]`` output back onto the tokens by a
+    weighted scatter-add; unrouted tokens (every pair dropped, or a zero
+    gate) pass through."""
+    s, dim = x32.shape
     combined = x32.new_zeros(s + 1, dim).index_add(
-        0, slot_token, slot_weight[:, None] * out.view(slots, dim)
+        0, slot_token, slot_weight[:, None] * out
     )[:s]
     gate_sum = x32.new_zeros(s + 1).index_add(0, slot_token, slot_weight.detach())[:s]
-    # Unrouted tokens (every pair dropped, or a zero gate) pass through.
     return torch.where(gate_sum[:, None] > 0, combined, x32)
+
+
+def _apply_slice(x, routing: Routing, w_up, w_down, cap, activation):
+    num_experts = w_up.shape[0]
+    x32 = x.float()
+    sent, slot_token, slot_weight = _dispatch(x32, routing, num_experts * cap)
+    out = _experts(sent.view(num_experts, cap, -1), w_up, w_down, activation)
+    return _combine(x32, out.view(num_experts * cap, -1), slot_token, slot_weight)
 
 
 def dense_switch_moe(
@@ -194,6 +208,106 @@ def dense_switch_moe(
     if return_aux:
         return out, torch.stack(auxes).mean()
     return out
+
+
+class _GatherSlices(torch.autograd.Function):
+    """Every rank's ``[s, d]`` slice -> the ``[ep * s, d]`` whole in rank
+    order (an all-gather: the JAX package's psum of disjoint slices);
+    backward, this rank's slice of the whole's cotangent, which every
+    rank of the group holds alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = collective.group_size(group)
+        full = collective.all_gather_rows(x.detach().reshape(-1), group=group)
+        return full.view(n * x.shape[0], *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, me = collective.group_size(ctx.group), collective.group_rank(ctx.group)
+        s = grad.shape[0] // n
+        return grad[me * s : (me + 1) * s], None
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean over ``group`` of a per-rank value; backward, the
+    cotangent over the group size (every rank holds the same one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from adaptdl_tpu_torch.parallel.tensor_parallel import group_sum
+
+        ctx.n = collective.group_size(group)
+        return group_sum(x, group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def switch_moe(
+    router, expert_params, x, group, capacity_factor=2.0,
+    activation: Callable = gelu, top_k=1, return_aux=False,
+    router_type="tokens",
+):
+    """Expert-parallel Switch/GShard FFN over the ranks of ``group`` (the
+    expert axis), the port of the JAX ``switch_moe``.
+
+    ``router`` [d, E] is replicated; ``expert_params = {"w_up": [E/ep,
+    d, f], "w_down": [E/ep, f, d]}`` are this rank's experts (expert
+    ``e`` lives on rank ``e // (E/ep)``). ``x`` [n, d] is the replica
+    group's batch, identical on every rank; rank ``r`` routes token slice
+    ``r`` (``n / ep`` tokens) with the capacity per (source rank,
+    expert), sends its ``[ep, E/ep, C, d]`` blocks to the experts' ranks
+    by an all-to-all, runs its experts on what arrives, returns the
+    blocks by the inverse exchange, and the slices reassemble the full
+    ``[n, d]`` output on every rank: :func:`dense_switch_moe` at
+    ``num_slices = ep``, expert for expert.
+
+    The gradients the JAX varying-axis rules supply are explicit here:
+    ``x`` and the router enter through a copy-in (their gradients summed
+    over the group), the reassembly's backward hands each rank its
+    slice, and the aux loss is the group's mean.
+    """
+    from adaptdl_tpu_torch.parallel.tensor_parallel import copy_in
+    from adaptdl_tpu_torch.parallel.ulysses import all_to_all
+
+    ep, me = collective.group_size(group), collective.group_rank(group)
+    w_up = expert_params["w_up"].float()
+    w_down = expert_params["w_down"].float()
+    local_e = w_up.shape[0]
+    num_experts = ep * local_e
+    if router.shape[-1] != num_experts:
+        raise ValueError(
+            f"router has {router.shape[-1]} experts but the shards imply "
+            f"{num_experts}"
+        )
+    n, dim = x.shape
+    if n % ep:
+        raise ValueError(f"batch {n} must divide across {ep} expert ranks")
+    slice_len = n // ep
+    cap = capacity(router_type, capacity_factor, top_k, slice_len, num_experts)
+    x_in, router = copy_in(x, group), copy_in(router, group)
+    x32 = x_in[me * slice_len : (me + 1) * slice_len].float()
+    routing = route(x32, router, num_experts, cap, top_k, router_type)
+    sent, slot_token, slot_weight = _dispatch(x32, routing, num_experts * cap)
+    # Block g ([E/ep, C, d]) goes to rank g; dim 0 then indexes the
+    # source rank of each block that arrived.
+    recv = all_to_all(sent.view(ep, local_e, cap, dim), group, 0, 0)
+    # Each local expert over every source's C rows.
+    rows = recv.transpose(0, 1).reshape(local_e, ep * cap, dim)
+    out = _experts(rows, w_up, w_down, activation)
+    out = out.view(local_e, ep, cap, dim).transpose(0, 1).contiguous()
+    # The return trip: expert output for source g goes back to g.
+    returned = all_to_all(out, group, 0, 0).view(num_experts * cap, dim)
+    out_local = _combine(x32, returned, slot_token, slot_weight)
+    full = _GatherSlices.apply(out_local, group) if ep > 1 else out_local
+    full = full.to(x.dtype)
+    if return_aux:
+        aux = _MeanOver.apply(routing.aux, group) if ep > 1 else routing.aux
+        return full, aux
+    return full
 
 
 # -- the plain version: the reference's one-hot tensors, literally ----------

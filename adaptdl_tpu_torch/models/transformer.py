@@ -11,9 +11,20 @@ statistics are taken in float32. Per-block rematerialisation is
 ``remat_policy`` (:data:`REMAT_POLICIES`).
 
 Mixture-of-experts: every ``moe_every_n``-th block replaces its dense
-FFN with :class:`MoEFFN` (:mod:`adaptdl_tpu_torch.models.moe`, one
-expert shard); :func:`apply_with_moe_aux` returns the weighted
-load-balancing loss beside the output, and both losses add it.
+FFN with :class:`MoEFFN` (:mod:`adaptdl_tpu_torch.models.moe`: one
+expert shard, or with ``moe_axis`` the experts split over that axis of
+the process mesh, ``switch_moe``); :func:`apply_with_moe_aux` returns
+the weighted load-balancing loss beside the output, and both losses add
+it.
+
+Tensor parallelism: with ``model_axis`` set, each rank of that axis
+holds its shard of the Megatron split
+(:mod:`adaptdl_tpu_torch.parallel.tensor_parallel`): ``num_heads / tp``
+heads of the attention and ``d_ff / tp`` columns of the FFN, the model
+group's sums at the region boundaries. The ``attention_fn`` (the flash
+kernel under ``--flash``) runs unchanged on the local heads.
+:func:`init_transformer` draws the full weights from its seed and keeps
+this rank's shards, so a seed gives one logical model at any tp or ep.
 
 Sequence parallelism: with ``seq_axis`` set, each rank of that axis of
 the process mesh (:mod:`adaptdl_tpu_torch.parallel.mesh`) holds one
@@ -39,8 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from adaptdl_tpu_torch import collective
 from adaptdl_tpu_torch.device import resolve_device
-from adaptdl_tpu_torch.models.moe import dense_switch_moe
+from adaptdl_tpu_torch.models.moe import dense_switch_moe, switch_moe
+from adaptdl_tpu_torch.parallel.tensor_parallel import copy_in, reduce_out, shard_transformer
 
 NEG_INF = -1e30
 LN_EPS = 1e-6  # flax LayerNorm's default
@@ -101,6 +114,11 @@ class TransformerConfig:
     moe_router: str = "tokens"
     # Bin the tokens as this many expert-parallel devices would.
     moe_dense_slices: int = 1
+    # The process-mesh axis the experts are split over (None: every
+    # expert on this rank), and the one the Megatron split runs over
+    # (None: no tensor parallelism).
+    moe_axis: str | None = None
+    model_axis: str | None = None
 
     def __post_init__(self):
         if self.d_model % self.num_heads:
@@ -191,6 +209,15 @@ def _dense(x, weight, dtype):
     return F.linear(x.to(dtype), weight.to(dtype))
 
 
+def _axis_group(axis: str | None):
+    """The process group of this rank's row of ``axis`` (SOLO for none)."""
+    if axis is None:
+        return collective.SOLO
+    from adaptdl_tpu_torch.parallel.mesh import axis_group
+
+    return axis_group(axis)
+
+
 class Attention(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
@@ -202,8 +229,11 @@ class Attention(nn.Module):
         cfg = self.config
         batch, seq, _ = x.shape
         head_dim = cfg.d_model // cfg.num_heads
-        qkv = _dense(x, self.qkv.weight, cfg.dtype).view(
-            batch, seq, 3, cfg.num_heads, head_dim
+        # This rank's heads: all of them, or its model-axis shard.
+        heads = self.qkv.weight.shape[0] // (3 * head_dim)
+        group = _axis_group(cfg.model_axis)
+        qkv = _dense(copy_in(x, group), self.qkv.weight, cfg.dtype).view(
+            batch, seq, 3, heads, head_dim
         )
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))
         q = rope(q, positions)
@@ -220,13 +250,14 @@ class Attention(nn.Module):
             from adaptdl_tpu_torch.parallel.ring_attention import ring_attention
 
             out = ring_attention(q, k, v, cfg.seq_axis, causal=cfg.causal)
-        out = out.transpose(1, 2).reshape(batch, seq, cfg.d_model)
-        return _dense(out, self.out.weight, cfg.dtype)
+        out = out.transpose(1, 2).reshape(batch, seq, heads * head_dim)
+        return reduce_out(_dense(out, self.out.weight, cfg.dtype), group)
 
 
 class MoEFFN(nn.Module):
     """Switch/GShard FFN over expert-stacked float32 parameters:
-    ``router [d, E]``, ``w_up [E, d, f]``, ``w_down [E, f, d]``. Returns
+    ``router [d, E]``, ``w_up [E, d, f]``, ``w_down [E, f, d]`` (this
+    rank's ``[E/ep, ...]`` once sharded over ``moe_axis``). Returns
     ``(out in config.dtype, aux)``."""
 
     def __init__(self, config: TransformerConfig):
@@ -239,6 +270,18 @@ class MoEFFN(nn.Module):
 
     def forward(self, x):
         cfg = self.config
+        if cfg.moe_axis is not None:
+            out, aux = switch_moe(
+                self.router,
+                {"w_up": self.w_up, "w_down": self.w_down},
+                x.reshape(-1, cfg.d_model),
+                _axis_group(cfg.moe_axis),
+                capacity_factor=cfg.moe_capacity_factor,
+                top_k=cfg.moe_top_k,
+                return_aux=True,
+                router_type=cfg.moe_router,
+            )
+            return out.reshape(x.shape).to(cfg.dtype), aux
         out, aux = dense_switch_moe(
             self.router,
             {"w_up": self.w_up, "w_down": self.w_down},
@@ -274,9 +317,10 @@ class Block(nn.Module):
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln2(x))
             return x + y, aux
-        y = _dense(self.ln2(x), self.ff_up.weight, dtype)
+        group = _axis_group(self.config.model_axis)
+        y = _dense(copy_in(self.ln2(x), group), self.ff_up.weight, dtype)
         y = F.gelu(y, approximate="tanh")
-        return x + _dense(y, self.ff_down.weight, dtype), None
+        return x + reduce_out(_dense(y, self.ff_down.weight, dtype), group), None
 
 
 class TransformerLM(nn.Module):
@@ -370,11 +414,39 @@ def init_transformer(
 ) -> TransformerLM:
     """A freshly initialised model on ``device`` (float32 parameters),
     drawn from a CPU generator seeded with ``seed`` so the weights do
-    not depend on the device."""
+    not depend on the device; under ``model_axis`` / ``moe_axis`` this
+    rank's shards of them (:func:`shard_for_mesh`)."""
     device = resolve_device(device)
     model = TransformerLM(config)
     _reset_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(device)
+    return shard_for_mesh(model).to(device)
+
+
+def shard_for_mesh(model: TransformerLM) -> TransformerLM:
+    """Cut a full model to this rank's shards on the current mesh's
+    ``model_axis`` and ``moe_axis`` (in place; the model itself when
+    neither is set)."""
+    cfg = model.config
+    if cfg.model_axis is None and cfg.moe_axis is None:
+        return model
+    from adaptdl_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    def shard(axis):
+        return (0, 1) if axis is None else (axis_index(axis), axis_size(axis))
+
+    tp = shard(cfg.model_axis)[1]
+    if cfg.num_heads % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"num_heads ({cfg.num_heads}) and d_ff ({cfg.d_ff}) must divide "
+            f"by the model shards ({tp})"
+        )
+    ep = shard(cfg.moe_axis)[1]
+    if cfg.use_moe and cfg.moe_num_experts % ep:
+        raise ValueError(
+            f"{cfg.moe_num_experts} experts cannot shard over {ep} ranks "
+            "(each shard owns a whole number of experts)"
+        )
+    return shard_transformer(model, shard(cfg.model_axis), shard(cfg.moe_axis))
 
 
 def apply_with_moe_aux(model: TransformerLM, inputs, return_hidden: bool = False):

@@ -18,6 +18,13 @@ block), applies ``ln_f`` and computes the tied logits in float32 -- the
 dense LM's arithmetic, op for op. Attention is the plain (dense) one,
 as in the JAX example, which refuses ``--flash`` with this mode; there
 is no dropout, and no MoE block.
+
+Under ``config.seq_axis`` (long context: seq-parallel attention with
+per-layer ZeRO-3 on a data x seq mesh) the batch is pre-split
+``{"inputs", "targets"}`` of ``[rows, seq_len]``, so the seq dim shards
+cleanly, each rank holds one contiguous block of every sequence, RoPE
+takes global positions and attention crosses the axis as
+``config.seq_attention`` says, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -88,8 +95,10 @@ def init_zero3_lm(
     ``ElasticTrainer(..., zero3_blocks="blocks")``. The weights are
     :func:`init_transformer`'s for ``seed``, stacked. ``loss_fn(view,
     batch, generator)`` takes ``batch["tokens"]`` of shape ``[rows,
-    seq_len + 1]`` (raw token rows) and draws nothing from the
-    generator; ``loss_fn.forward(view, inputs)`` gives the logits.
+    seq_len + 1]`` (raw token rows; under ``config.seq_axis`` pre-split
+    ``batch["inputs"]`` and ``batch["targets"]`` of ``[rows, seq_len]``,
+    this rank's block of them) and draws nothing from the generator;
+    ``loss_fn.forward(view, inputs)`` gives the logits.
     ``gather_unroll`` > 1 prefetches that many blocks' gathers per
     checkpointed region (``scan_blocks``). ``seq_len`` is accepted for
     the JAX signature; the model takes any length."""
@@ -119,6 +128,11 @@ def zero3_lm_loss_fn(params: Zero3LMParams, gather_unroll: int = 1):
         table = view.other["embed.weight"].to(config.dtype)
         x = F.embedding(inputs, table)
         positions = torch.arange(inputs.shape[1], device=inputs.device)
+        if config.seq_axis is not None:
+            # This rank's block of the global sequence.
+            from adaptdl_tpu_torch.parallel.mesh import axis_index
+
+            positions = positions + axis_index(config.seq_axis) * inputs.shape[1]
 
         def block_fn(p, h):
             out, _ = functional_call(block, p, (h, positions))
@@ -128,15 +142,22 @@ def zero3_lm_loss_fn(params: Zero3LMParams, gather_unroll: int = 1):
         h = functional_call(ln_f, {"scale": view.other["ln_f.scale"]}, (x,))
         return torch.matmul(h.to(config.dtype), table.t()).float()
 
-    def loss_fn(view, batch, generator=None):
+    def split(batch):
+        """``(inputs, targets)`` of a batch under the seq contract."""
+        if config.seq_axis is not None:
+            return batch["inputs"], batch["targets"]
         tokens = batch["tokens"]
-        logits = forward(view, tokens[:, :-1])
+        return tokens[:, :-1], tokens[:, 1:]
+
+    def loss_fn(view, batch, generator=None):
+        inputs, targets = split(batch)
+        logits = forward(view, inputs)
         return F.cross_entropy(
-            logits.reshape(-1, logits.shape[-1]),
-            tokens[:, 1:].reshape(-1).long(),
+            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long()
         )
 
     loss_fn.forward = forward
+    loss_fn.split = split
     return loss_fn
 
 
@@ -146,9 +167,9 @@ def zero3_lm_metric_fn(loss_fn):
     next-token predictions and the tokens seen."""
 
     def metric_fn(view, batch):
-        tokens = batch["tokens"]
-        targets = tokens[:, 1:].long()
-        logits = loss_fn.forward(view, tokens[:, :-1])
+        inputs, targets = loss_fn.split(batch)
+        targets = targets.long()
+        logits = loss_fn.forward(view, inputs)
         losses = F.cross_entropy(
             logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
             reduction="none",

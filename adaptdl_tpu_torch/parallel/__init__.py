@@ -1,3 +1,4 @@
 """Parallel modes of the port: the process mesh (:mod:`.mesh`), the
-sequence axis's attention (:mod:`.ulysses`, :mod:`.ring_attention`) and
-per-layer ZeRO-3 (:mod:`.zero3`)."""
+sequence axis's attention (:mod:`.ulysses`, :mod:`.ring_attention`),
+Megatron tensor parallelism over the model axis (:mod:`.tensor_parallel`)
+and per-layer ZeRO-3 (:mod:`.zero3`)."""

@@ -10,8 +10,9 @@ that differ only in that axis's coordinate. Data is the outermost axis,
 as in the JAX package's device order: with a data and a seq axis, rank
 ``r`` sits at ``data = r // sp``, ``seq = r % sp``.
 
-The port runs the data and seq axes. A model, stage or expert axis
-larger than one raises (ROADMAP Queue 1 items 5 and 6).
+The port runs the data, seq, model and expert axes, in the JAX order
+(data outermost, then seq, model, expert). A stage axis larger than one
+raises (ROADMAP Queue 1 item 6, the pipeline).
 
 :func:`create_mesh` makes the mesh current: code that names an axis
 (the sequence-parallel attention, the transformer's RoPE positions)
@@ -26,14 +27,14 @@ import math
 
 import torch.distributed as dist
 
-from adaptdl_tpu_torch import env
+from adaptdl_tpu_torch import collective, env
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
-PORTED_AXES = (DATA_AXIS, SEQ_AXIS)
+PORTED_AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS, EXPERT_AXIS)
 
 
 def topology_axes(
@@ -64,10 +65,10 @@ class ProcessMesh:
 
     ``shape`` maps axis -> size; :meth:`index` is this rank's coordinate
     on an axis; :meth:`group` is the process group of this rank's row of
-    an axis: ``None`` (the default group, every process) when the axis
-    spans the whole job, else a subgroup. Every rank builds every
-    subgroup, in one order (``new_group`` is a collective of the default
-    group)."""
+    an axis: ``None`` (the default group, every process) when the row
+    is the whole job, :data:`collective.SOLO` when it has size 1 in a
+    job of several processes, else a subgroup. Every rank builds every subgroup, in one order
+    (``new_group`` is a collective of the default group)."""
 
     def __init__(self, axes: dict[str, int], rank: int, groups: dict):
         self.shape = dict(axes)
@@ -89,10 +90,14 @@ class ProcessMesh:
         return (self.rank // self._strides[axis]) % self.shape[axis]
 
     def group(self, axis: str):
-        """The process group of this rank's row of ``axis``; raises on an
-        axis of size 1 or an absent one, which has no peers."""
+        """The process group of this rank's row of ``axis``:
+        :data:`collective.SOLO` on an axis of size 1 or an absent one of
+        a mesh of several processes (no peers: every collective over it is
+        the identity); the default group when the row is the whole job."""
+        if self.size == 1:
+            return None
         if self.axis_size(axis) == 1:
-            raise ValueError(f"axis {axis!r} of {self.shape} has no peers")
+            return collective.SOLO
         return self._groups[axis]
 
     def __repr__(self) -> str:
@@ -138,12 +143,12 @@ def create_mesh(axes: dict[str, int] | None = None) -> ProcessMesh:
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     procs = env.num_processes()
     sizes = {DATA_AXIS: procs} if axes is None else dict(axes)
-    sharded = {k: s for k, s in sizes.items() if k not in PORTED_AXES and s > 1}
-    if sharded:
+    unported = {k: s for k, s in sizes.items() if k not in PORTED_AXES and s > 1}
+    if unported:
         raise NotImplementedError(
-            f"sharded axes are not ported yet: {sharded} (the model and "
-            "expert axes are ROADMAP Queue 1 item 5, the stage axis item 6; "
-            "the port runs the data and seq axes)"
+            f"the stage axis is not ported yet: {unported} (ROADMAP Queue 1 "
+            "item 6, the pipeline; the port runs the data, seq, model and "
+            "expert axes)"
         )
     total = math.prod(sizes.values())
     if total != procs:
@@ -176,9 +181,9 @@ def create_mesh(axes: dict[str, int] | None = None) -> ProcessMesh:
 
 
 def create_mesh_from_topology() -> ProcessMesh:
-    """The mesh the scheduler's published topology asks for: the seq
-    (and model, stage, expert) shards from the environment, the data
-    axis over :func:`env.data_parallel_replicas`."""
+    """The mesh the scheduler's published topology asks for: the seq,
+    model, stage and expert shards from the environment, the data axis
+    over :func:`env.data_parallel_replicas`."""
     axes = topology_axes(
         env.data_parallel_replicas(), env.seq_shards(), env.model_shards(),
         env.stage_shards(), env.expert_shards(),
@@ -212,6 +217,13 @@ def axis_index(axis: str) -> int:
 def axis_group(axis: str):
     """The process group of this process's row of ``axis``."""
     return _mesh_for(axis).group(axis)
+
+
+def data_group():
+    """The group of this process's data-parallel row, over which the
+    ZeRO modes split their rows: the current mesh's data axis, the whole
+    job when no mesh is current."""
+    return None if _current is None else _current.group(DATA_AXIS)
 
 
 def _reset() -> None:

@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from adaptdl_tpu_torch import collective
+from adaptdl_tpu_torch.parallel.mesh import data_group
 
 
 class Zero3View(NamedTuple):
@@ -272,32 +273,36 @@ def stack_layers(tree: Mapping[str, Any], spec: BlockSpec) -> dict | None:
 
 
 class GatherRows(torch.autograd.Function):
-    """``[shard]`` row -> the flat ``[n]`` vector of every rank's rows
-    (an all-gather; ``n`` trims the padding). Its backward pads the
-    ``[n]`` gradient and reduce-scatters it: each rank receives the sum
-    over ranks of its own row's gradient."""
+    """``[shard]`` row -> the flat ``[n]`` vector of every data rank's
+    rows (an all-gather over the data group; ``n`` trims the padding).
+    Its backward pads the ``[n]`` gradient and reduce-scatters it: each
+    rank receives the sum over the data group of its own row's
+    gradient."""
 
     @staticmethod
-    def forward(ctx, row, n):
-        ctx.n = n
+    def forward(ctx, row, n, group):
+        ctx.n, ctx.group = n, group
         ctx.shape = row.shape
-        full = collective.all_gather_rows(row.detach().reshape(-1).float())
+        full = collective.all_gather_rows(row.detach().reshape(-1).float(), group=group)
         return full[:n]
 
     @staticmethod
     def backward(ctx, grad):
-        dp = collective.world_size()
+        dp = collective.group_size(ctx.group)
         shard = _numel(ctx.shape)
         flat = _pad(grad.float().reshape(-1), dp * shard)
-        return collective.reduce_scatter_sum(flat).reshape(ctx.shape), None
+        row = collective.reduce_scatter_sum(flat, group=ctx.group)
+        return row.reshape(ctx.shape), None, None
 
 
 def gather_rows(row_local: torch.Tensor, n: int) -> torch.Tensor:
     """This rank's row -> the full ``[n]`` flat vector, differentiable
-    (:class:`GatherRows`); at one replica a slice of the row."""
-    if collective.world_size() == 1:
+    (:class:`GatherRows`, over :func:`~adaptdl_tpu_torch.parallel.mesh.
+    data_group`); at one data replica a slice of the row."""
+    group = data_group()
+    if collective.group_size(group) == 1:
         return row_local.reshape(-1)[:n]
-    return GatherRows.apply(row_local, n)
+    return GatherRows.apply(row_local, n, group)
 
 
 def gather_block(row_local: torch.Tensor, spec: BlockSpec) -> dict:
@@ -356,15 +361,18 @@ def assemble_tree(blocks_rows_local: torch.Tensor, other_rows_local: torch.Tenso
     """This rank's rows -> the whole canonical tree (every block at once:
     an evaluation and export helper, not the training path). A
     collective: every rank calls it."""
-    dp = collective.world_size()
+    group = data_group()
+    dp = collective.group_size(group)
     L = spec.num_blocks
     blocks = torch.stack(
         [
-            collective.all_gather_rows(blocks_rows_local[i].detach().reshape(-1))
+            collective.all_gather_rows(
+                blocks_rows_local[i].detach().reshape(-1), group=group
+            )
             for i in range(L)
         ]
     ).reshape(L, dp, -1)
     other = collective.all_gather_rows(
-        other_rows_local.detach().reshape(-1)
+        other_rows_local.detach().reshape(-1), group=group
     ).reshape(dp, -1)
     return rows_to_tree(blocks, other, blocks_key, spec)

@@ -8,13 +8,13 @@ points thousands of times per cycle, so results are cached in a table
 filled lazily, with one vectorised search per batch of new points.
 
 Each chip count is scored by :meth:`GoodputFunction.optimize_topology`:
-the best (data, seq) factorisation of those chips, so a job advertising
-``max_seq_shards`` > 1 (or a ``mesh_shape_grid`` of seq-only shapes)
-competes with sequence-parallel configurations inside the same speedup
+the best (data, seq, model, expert) factorisation of those chips, so a
+job advertising ``max_seq_shards``, ``max_model_shards`` or
+``max_expert_shards`` > 1 (or a ``mesh_shape_grid`` of such shapes)
+competes with the sharded configurations inside the same speedup
 number, and :meth:`SpeedupFunction.best_config` keeps the chosen one for
-the allocator to publish. The port's trainer runs the data and seq axes
-only: a job advertising a model, stage or expert axis raises here (ROADMAP
-Queue 1 items 5 and 6).
+the allocator to publish. The port's trainer runs no stage axis: a job
+advertising one raises here (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -36,22 +36,14 @@ class SpeedupFunction:
         pipeline_chunks: int = 0,
         mesh_shape_grid=None,
     ):
-        limits = {
-            "max_model_shards": max_model_shards,
-            "max_stage_shards": max_stage_shards,
-            "max_expert_shards": max_expert_shards,
-        }
-        sharded = sorted(k for k, v in limits.items() if int(v or 1) > 1)
-        if not sharded and mesh_shape_grid:
-            sharded = [
-                f"mesh_shape_grid {tuple(shape)}" for shape in mesh_shape_grid
-                if any(int(n) > 1 for n in tuple(shape)[1:])
-            ]
-        if sharded:
+        stage = int(max_stage_shards or 1) > 1 or any(
+            int(tuple(shape)[2]) > 1 for shape in mesh_shape_grid or ()
+        )
+        if stage:
             raise NotImplementedError(
-                "model, stage and expert axes are not ported to "
-                "adaptdl_tpu_torch yet (ROADMAP Queue 1 items 5 and 6): "
-                f"{sharded}"
+                "the stage axis is not ported to adaptdl_tpu_torch yet "
+                "(ROADMAP Queue 1 item 6, the pipeline): max_stage_shards="
+                f"{max_stage_shards}, mesh_shape_grid={mesh_shape_grid}"
             )
         self._goodput_fn = goodput_fn
         self._max_batch_size = max_batch_size

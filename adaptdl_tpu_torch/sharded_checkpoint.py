@@ -7,7 +7,9 @@ another replica count reads, on each rank, only the canonical ranges its
 new row holds:
 
 - :meth:`ShardedTrainerCheckpoint.sync` (every rank, before the
-  registry's save) writes this rank's row of each family -- the
+  registry's save) writes the row of this rank's data coordinate (the
+  seq ranks of a data row hold the same rows; the first of them writes)
+  of each family -- the
   parameters, each optimizer moment and, under ``zero3_blocks``, the
   differenced carry -- as raw float32 bytes to ``rank-<r>.bin`` in a
   fresh versioned payload directory ``sharded/<name>-g<restart>.<seq>``
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from adaptdl_tpu_torch import checkpoint, collective, env, faults
+from adaptdl_tpu_torch.parallel import mesh as pmesh
 
 _CHUNK = 1 << 24  # bytes hashed or copied per read
 
@@ -174,9 +177,9 @@ class ShardedTrainerCheckpoint(checkpoint.State):
         so that rank 0's pointer never names an incomplete payload."""
         trainer = self._trainer
         state = self._get_state()
-        rank, dp = env.replica_rank(), trainer.num_replicas
+        rank, dp = trainer.mesh.index(pmesh.DATA_AXIS), trainer.num_replicas
         path = None
-        if rank == 0:
+        if env.replica_rank() == 0:
             keep = _referenced_payloads(self.name)
             for _, _, old in _list_payload_dirs(self.name):
                 if os.path.basename(old) not in keep:
@@ -184,6 +187,11 @@ class ShardedTrainerCheckpoint(checkpoint.State):
                     _remove_sidecars(old)
             path = _next_payload_dir(self.name)
         path = collective.broadcast(path)
+        if trainer.mesh.index(pmesh.SEQ_AXIS) != 0:
+            # The seq ranks of a data row hold the same rows: the first
+            # writes them.
+            collective.barrier()
+            return
         os.makedirs(path, exist_ok=True)
         families = {
             k: v.detach().float().cpu().numpy()
@@ -251,7 +259,7 @@ class ShardedTrainerCheckpoint(checkpoint.State):
         path = os.path.join(_sharded_root(), pointer["payload_dir"])
         saved_dp = int(pointer["dp"])
         reader = _PayloadReader(path, saved_dp)
-        dp, rank = trainer.num_replicas, env.replica_rank()
+        dp, rank = trainer.num_replicas, trainer.mesh.index(pmesh.DATA_AXIS)
         layout = trainer.layout
         if trainer.zero1 and not trainer.zero3:
             # zero1 keeps every parameter: the whole canonical range.

@@ -14,6 +14,12 @@ optimizer step at a given (atomic_bsz, accum_steps):
   microbatch's gradients and loss are first averaged over its seq group
   (one replica of several processes), and this all-reduce runs over the
   data group;
+- under a model or expert axis a replica's parameters are split over
+  its group (the Megatron table, the experts): each rank steps its own
+  shards, the replicated leaves' gradients are equal across the group
+  by the model's region operators, and the noise statistics and norms
+  count each element once (a shard's squared norm summed over its
+  group, a replicated leaf once);
 - the gradient-noise statistics update, the scaling rule turns them
   into per-group LR factors, the optimizer applies them, and progress
   advances by the statistical gain.
@@ -36,6 +42,7 @@ streams differ; only the port's own draws repeat.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import time
@@ -136,12 +143,15 @@ class RowLayout:
         length = min(shard, self.n - start)
         return [(start, length, 0)] if length > 0 else []
 
-    def gather(self, row: torch.Tensor) -> torch.Tensor:
+    def gather(self, row: torch.Tensor, group=None) -> torch.Tensor:
         """Every rank's row -> the flat canonical ``[n]`` vector (a new
-        tensor); a collective every rank joins."""
-        dp = collective.world_size()
+        tensor); a collective every rank of ``group`` (the data group;
+        default every replica) joins."""
+        dp = collective.group_size(group)
         width = self.row_len(dp)
-        gathered = collective.all_gather_rows(row.detach().reshape(-1).float())
+        gathered = collective.all_gather_rows(
+            row.detach().reshape(-1).float(), group=group
+        )
         if self.spec is None:
             return gathered[: self.n].clone()
         flat = torch.empty(self.n, dtype=torch.float32, device=row.device)
@@ -216,8 +226,9 @@ class ElasticTrainer:
     _FactorOptimizer.rebind`); the parameters must be float32.
 
     mesh: a :class:`~adaptdl_tpu_torch.parallel.mesh.ProcessMesh` with a
-      ``"data"`` and optionally a ``"seq"`` axis; None builds the one the
-      environment's topology asks for (``create_mesh_from_topology``).
+      ``"data"`` and optionally ``"seq"``, ``"model"`` and ``"expert"``
+      axes; None builds the one the environment's topology asks for
+      (``create_mesh_from_topology``).
 
     Each of the mesh's processes (one per chip) is one rank of the job's
     process group (``initialize_job`` joins it). The data axis's
@@ -228,8 +239,14 @@ class ElasticTrainer:
     the blocks, and each microbatch's gradients and loss are averaged
     over the seq group before its noise statistics, so they see whole
     samples; ``ADAPTDL_NUM_REPLICAS`` must then count the replicas, not
-    the chips. Model, stage and expert axes are not ported yet and
-    raise, as do the ZeRO modes under a seq axis.
+    the chips. The ZeRO modes split their rows over the data group. Under
+    a model (expert) axis the model must be built for it
+    (``TransformerConfig.model_axis`` / ``moe_axis``: each rank holds its
+    shards), every rank of the group reads its replica's whole block,
+    and the checkpoint holds the full logical tensors (gathered over the
+    group on save, cut on restore), so a job moves between tp (ep) 1
+    and 2 across a restart. The ZeRO modes refuse both axes, and the
+    stage axis is not ported.
     """
 
     def __init__(
@@ -261,6 +278,9 @@ class ElasticTrainer:
         self.mesh = mesh
         num_replicas = mesh.axis_size(pmesh.DATA_AXIS)
         self.seq_shards = mesh.axis_size(pmesh.SEQ_AXIS)
+        self.model_shards = mesh.axis_size(pmesh.MODEL_AXIS)
+        self.expert_shards = mesh.axis_size(pmesh.EXPERT_AXIS)
+        self._data_group = mesh.group(pmesh.DATA_AXIS)
         if mesh.size != env.num_processes():
             raise NotImplementedError(
                 "multi-replica data parallelism runs one process per replica "
@@ -274,11 +294,6 @@ class ElasticTrainer:
                 "under a seq axis it counts the chips at launch; set it to "
                 "env.data_parallel_replicas() before building the trainer, "
                 "as examples/transformer_lm.py does"
-            )
-        if self.seq_shards > 1 and (zero1 or zero3 or zero3_blocks is not None):
-            raise NotImplementedError(
-                "the ZeRO storage modes under a seq axis are not ported yet "
-                "(ROADMAP Queue 1 item 4, the seq x ZeRO composition)"
             )
         if precondition not in (None, "adam"):
             raise ValueError(f"unknown precondition: {precondition!r}")
@@ -311,12 +326,20 @@ class ElasticTrainer:
             )
         self._names = [n for n, _ in named]
         self._shapes = [tuple(p.shape) for _, p in named]
+        sharded_axes = self.model_shards > 1 or self.expert_shards > 1
         self.zero3_blocks = zero3_blocks
         if zero3_blocks is not None:
             if zero1 or zero3:
                 raise ValueError(
                     "zero3_blocks is a storage mode of its own; do not "
                     "combine with zero1/zero3"
+                )
+            if sharded_axes:
+                raise ValueError(
+                    "zero3_blocks shards parameter storage over the "
+                    "data axis and composes with data and sequence "
+                    "parallelism only (model/stage/expert axes "
+                    "manage their own layouts)"
                 )
             if self.num_param_groups > 1:
                 raise ValueError(
@@ -325,6 +348,14 @@ class ElasticTrainer:
                 )
         self.zero3 = bool(zero3)
         self.zero1 = bool(zero1) or self.zero3
+        if self.zero1 and sharded_axes:
+            raise ValueError(
+                "zero1 shards optimizer state over the data axis "
+                "and composes with data/seq parallelism only; "
+                "stage/expert/model axes manage their own "
+                "parameter and optimizer layouts"
+            )
+        self._shard_specs = self._leaf_shards(model, named)
         self.num_replicas = num_replicas
         self.layout = None
         if self.zero1 or zero3_blocks is not None:
@@ -338,7 +369,9 @@ class ElasticTrainer:
         self.smoothing = smoothing
         self.seed = seed
         self.has_aux = has_aux
-        metrics.set_active_topology(seq_shards=self.seq_shards)
+        metrics.set_active_topology(
+            self.seq_shards, self.model_shards, 1, self.expert_shards, 1
+        )
         self._calibrated: set[int] = set()
         # One warm-up run plus this many timed runs per calibration.
         self.calibrate_repeats = 3
@@ -348,6 +381,120 @@ class ElasticTrainer:
         # The state the last restore of a TrainerCheckpoint of this
         # trainer set (what run_step hands back after a rollback).
         self._restored_state: TrainState | None = None
+
+    # ---- model and expert axes ----------------------------------------
+
+    def _leaf_shards(self, model, named) -> list:
+        """Per parameter, ``(axis, ShardSpec)`` where the mesh splits it
+        over a model or expert axis of more than one rank, else None; the
+        model must be built for those axes."""
+        from adaptdl_tpu_torch.parallel import tensor_parallel
+
+        active = {
+            axis for axis, size in (
+                (pmesh.MODEL_AXIS, self.model_shards),
+                (pmesh.EXPERT_AXIS, self.expert_shards),
+            ) if size > 1
+        }
+        if not active:
+            return [None] * len(named)
+        config = getattr(model, "config", None)
+        wants = {pmesh.MODEL_AXIS: "model_axis", pmesh.EXPERT_AXIS: "moe_axis"}
+        for axis in sorted(active):
+            if getattr(config, wants[axis], None) != axis:
+                raise ValueError(
+                    f"the mesh {self.mesh.shape} splits the model over "
+                    f"{axis!r}: build the transformer with "
+                    f"TransformerConfig({wants[axis]}={axis!r}) so each rank "
+                    "holds its shards"
+                )
+        specs = []
+        for name, p in named:
+            found = tensor_parallel.leaf_shard_spec(name, p)
+            specs.append(found if found is not None and found[0] in active else None)
+        return specs
+
+    @property
+    def sharded(self) -> bool:
+        """Whether some parameter is split over a model or expert axis."""
+        return any(s is not None for s in self._shard_specs)
+
+    def _stat_normsqr(self, tensors, precond=None) -> torch.Tensor:
+        """Per-group squared norms (G,) of a parameter-aligned gradient,
+        each element once: a shard's terms summed over its axis's group,
+        a replicated leaf's counted once (the JAX ``leaf_psum_axes``)."""
+        if not self.sharded:
+            return gns.group_normsqr(
+                tensors, self._group_ids, self.num_param_groups, precond
+            )
+        tensors = list(tensors)
+        pre = list(precond) if precond is not None else [None] * len(tensors)
+        by_axis: dict = {}
+        for i, found in enumerate(self._shard_specs):
+            by_axis.setdefault(None if found is None else found[0], []).append(i)
+        total = torch.zeros(self.num_param_groups, device=self.device)
+        for axis, idx in by_axis.items():
+            part = gns.group_normsqr(
+                [tensors[i] for i in idx], [self._group_ids[i] for i in idx],
+                self.num_param_groups, [pre[i] for i in idx],
+            )
+            if axis is not None:
+                part = collective.allreduce_sum(part, group=self.mesh.group(axis))
+            total = total + part
+        return total
+
+    def logical_tensor(self, index: int, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``index``'s full tensor from this rank's shard ``t``
+        (or a tensor of the shard's shape: a moment, the carry): the
+        all-gather over its axis's group, every rank of which calls it;
+        ``t`` itself for a replicated leaf."""
+        found = self._shard_specs[index]
+        if found is None:
+            return t
+        axis, spec = found
+        group = self.mesh.group(axis)
+        flat = collective.all_gather_rows(t.detach().float().reshape(-1), group=group)
+        parts = flat.view(collective.group_size(group), *t.shape).unbind(0)
+        return spec.gather(list(parts))
+
+    def local_tensor(self, index: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of parameter ``index``'s full tensor (no
+        collective); ``full`` itself for a replicated leaf."""
+        found = self._shard_specs[index]
+        if found is None:
+            return full
+        axis, spec = found
+        return spec.shard(full, self.mesh.index(axis), self.mesh.axis_size(axis))
+
+    def _map_payload(self, payload: dict, fn) -> dict:
+        """A dense payload with ``fn(index, tensor)`` applied to each
+        parameter-shaped tensor: the parameters, their optimizer
+        entries (the step counts excepted) and the differenced carry."""
+        index = {n: i for i, n in enumerate(self._names)}
+        model = {
+            k: fn(index[k], v) if k in index else v
+            for k, v in payload["model"].items()
+        }
+        opt = dict(payload["optimizer"])
+        opt["state"] = {
+            i: {k: fn(i, v) if k != "step" else v for k, v in entry.items()}
+            for i, entry in opt["state"].items()
+        }
+        prev = [fn(i, t) for i, t in enumerate(payload["prev_grad"])]
+        return {**payload, "model": model, "optimizer": opt, "prev_grad": prev}
+
+    def logical_payload(self, payload: dict) -> dict:
+        """This rank's dense payload -> the full logical one, as a tp 1
+        (ep 1) trainer saves it: the shards gathered over their groups
+        (a collective every rank joins)."""
+        return self._map_payload(payload, self.logical_tensor)
+
+    def local_payload(self, payload: dict) -> dict:
+        """A full logical payload -> this rank's shards of it (no
+        collective)."""
+        return self._map_payload(
+            payload, lambda i, t: self.local_tensor(i, torch.as_tensor(t))
+        )
 
     # ---- ZeRO storage: rows ------------------------------------------
 
@@ -360,7 +507,7 @@ class ElasticTrainer:
                 f"the ZeRO storage modes keep float32 rows; {not_f32[:3]} "
                 "are not float32"
             )
-        dp, rank = self.num_replicas, env.replica_rank()
+        dp, rank = self.num_replicas, self.mesh.index(pmesh.DATA_AXIS)
         self._rank = rank
         if self.zero3_blocks is not None:
             spec = zero3.block_spec(model, self.zero3_blocks)
@@ -409,7 +556,7 @@ class ElasticTrainer:
         """zero3: gather every rank's row into the parameter buffer the
         module's parameters view."""
         self._full.untyped_storage().resize_(self._full_bytes)
-        collective.all_gather_rows(self._row, out=self._full)
+        collective.all_gather_rows(self._row, out=self._full, group=self._data_group)
 
     def _release(self) -> None:
         """zero3: free the parameter buffer's storage (the module's
@@ -501,7 +648,7 @@ class ElasticTrainer:
             return None
         nus = self.optimizer.second_moments()
         if self.zero1:
-            flat = collective.all_gather_rows(nus[0])[: self.layout.n]
+            flat = collective.all_gather_rows(nus[0], group=self._data_group)[: self.layout.n]
             nus = list(self.layout.tree(flat).values())
         return [torch.sqrt(torch.clamp(nu, min=0.0)) + 1e-8 for nu in nus]
 
@@ -602,9 +749,7 @@ class ElasticTrainer:
                 collective.allreduce_mean(
                     grads + [loss], group=self.mesh.group(pmesh.SEQ_AXIS)
                 )
-            acc["lsqr"] = acc["lsqr"] + gns.group_normsqr(
-                grads, self._group_ids, self.num_param_groups, precond
-            )
+            acc["lsqr"] = acc["lsqr"] + self._stat_normsqr(grads, precond)
             acc["loss"] = acc["loss"] + loss[0]
             if acc["grads"] is None:
                 acc["grads"] = grads
@@ -621,21 +766,19 @@ class ElasticTrainer:
             # The one all-reduce point: gradients, with the two noise
             # scalars and the loss riding along in one flat buffer
             # (under zero1/zero3 with the row's padding before them).
+            # The data-parallel mean runs over this rank's data row: each
+            # shard averages with the same shard of the other replicas.
             if self.zero1:
                 pad = torch.zeros(
                     self.layout.row_len(self.num_replicas) * self.num_replicas
                     - self.layout.n, device=self.device,
                 )
                 flat = collective.allreduce_mean_packed(
-                    grads + [pad, local_sqr_mean, loss]
+                    grads + [pad, local_sqr_mean, loss], group=self._data_group
                 )
-            elif self.seq_shards == 1:
-                collective.allreduce_mean(grads + [local_sqr_mean, loss])
-            elif self.num_replicas > 1:
-                # The data-parallel mean, over this rank's data column.
+            else:
                 collective.allreduce_mean(
-                    grads + [local_sqr_mean, loss],
-                    group=self.mesh.group(pmesh.DATA_AXIS),
+                    grads + [local_sqr_mean, loss], group=self._data_group
                 )
             new_gns = gns.update(
                 state.gns,
@@ -648,6 +791,7 @@ class ElasticTrainer:
                 precond=precond,
                 group_ids=self._group_ids,
                 num_groups=self.num_param_groups,
+                normsqr_fn=self._stat_normsqr,
             )
             step_gain, lr_factor, group_factors = self._rule(
                 state, new_gns, scale, batch_size
@@ -682,14 +826,16 @@ class ElasticTrainer:
         self.optimizer.step([factor])
         self._row.grad = None
         if not self.zero3:
-            collective.all_gather_rows(self._row, out=self._full)
+            collective.all_gather_rows(self._row, out=self._full, group=self._data_group)
 
     def _step_z3b(self, state: TrainState, batch: dict, atomic_bsz: int,
                   accum_steps: int, aux: Any = None):
         """The zero3_blocks step: the loss is differentiated with respect
         to this rank's rows; each row gradient arrives as the sum over
-        ranks and divided by dp is the averaged gradient, so no gradient
-        all-reduce follows. The noise statistics count microbatches."""
+        the data group (under a seq axis averaged over the seq group
+        first, with the loss) and divided by dp is the averaged
+        gradient, so no gradient all-reduce follows. The noise
+        statistics count microbatches."""
         dp = self.num_replicas
         num_micro = accum_steps + 1
         accum_scale = dp * atomic_bsz / self.init_batch_size
@@ -699,9 +845,14 @@ class ElasticTrainer:
         acc = {"grads": None, "lsqr": [], "loss": torch.zeros((), device=self.device)}
 
         def on_grads(grads, loss):
+            loss = loss.detach().float().reshape(1)
+            if self.seq_shards > 1:
+                collective.allreduce_mean(
+                    grads + [loss], group=self.mesh.group(pmesh.SEQ_AXIS)
+                )
             grads = [g / dp for g in grads]
             acc["lsqr"].append(gns.group_normsqr(grads, [0] * len(grads), 1, precond))
-            acc["loss"] = acc["loss"] + loss.detach().float()
+            acc["loss"] = acc["loss"] + loss[0]
             if acc["grads"] is None:
                 acc["grads"] = grads
             else:
@@ -714,7 +865,8 @@ class ElasticTrainer:
             # Each microbatch's global squared norm and the loss, in one
             # all-reduce.
             scalars = collective.allreduce_sum(
-                torch.cat(acc["lsqr"] + [acc["loss"].reshape(1)])
+                torch.cat(acc["lsqr"] + [acc["loss"].reshape(1)]),
+                group=self._data_group,
             )
             lsqr_sum = torch.zeros(1, device=self.device)
             for i in range(num_micro):
@@ -732,7 +884,7 @@ class ElasticTrainer:
                 precond=precond,
                 group_ids=[0] * len(grads),
                 num_groups=1,
-                normsqr_fn=gns.rows_normsqr,
+                normsqr_fn=functools.partial(gns.rows_normsqr, group=self._data_group),
             )
             step_gain, lr_factor, group_factors = self._rule(
                 state, new_gns, scale, batch_size
@@ -751,14 +903,20 @@ class ElasticTrainer:
         """A copy of the parameters as the name -> tensor tree, whatever
         the storage layout: what evaluation, export and analysis should
         read instead of the module's parameters, which zero3 and
-        zero3_blocks release between steps. Under zero3 and zero3_blocks
-        a collective every rank joins."""
+        zero3_blocks release between steps, and the full logical tensors
+        under a model or expert axis. Under zero3, zero3_blocks and those
+        axes a collective every rank joins."""
         if self.zero3_blocks is not None:
             tree = zero3.assemble_tree(
                 self._blocks_row, self._other_row, self.zero3_blocks, self._spec
             )
         elif self.zero3:
-            tree = self.layout.tree(self.layout.gather(self._row))
+            tree = self.layout.tree(self.layout.gather(self._row, self._data_group))
+        elif self.sharded:
+            tree = {
+                name: self.logical_tensor(i, p)
+                for i, (name, p) in enumerate(self.model.named_parameters())
+            }
         else:
             tree = dict(self.model.named_parameters())
         return {n: p.detach().clone() for n, p in tree.items()}
@@ -769,7 +927,8 @@ class ElasticTrainer:
         loss receives (the model; a ``Zero3View`` under zero3_blocks;
         under zero3 the parameters assembled for the call), and returns
         partial sums (name -> number or tensor); they are summed over the
-        replicas. Every rank calls it."""
+        replicas (a model or expert group counts once: only its rank 0's
+        sums enter). Every rank calls it."""
 
         def run(state: TrainState, batch: dict) -> dict:
             with torch.no_grad():
@@ -787,6 +946,9 @@ class ElasticTrainer:
                     if self.zero3:
                         self._release()
             local = {k: torch.as_tensor(v).detach().cpu() for k, v in out.items()}
+            if self.mesh.index(pmesh.MODEL_AXIS) or self.mesh.index(pmesh.EXPERT_AXIS):
+                # A model or expert group computes one replica's sums.
+                local = {k: torch.zeros_like(v) for k, v in local.items()}
             totals = collective.allreduce(
                 local, lambda parts: {k: sum(p[k] for p in parts) for k in parts[0]}
             )
@@ -840,7 +1002,7 @@ class ElasticTrainer:
         (zero1, zero3) or flat (zero3_blocks). A collective every rank
         joins (one all-gather per family)."""
         flat = {
-            key: self.layout.gather(row)
+            key: self.layout.gather(row, self._data_group)
             for key, row in self.row_families(state).items()
         }
         tree = dict(self.layout.tree(flat.pop("params")))
@@ -1131,16 +1293,22 @@ class TrainerCheckpoint(checkpoint.State):
     def _payload(self) -> dict:
         state = self._get_state()
         trainer = self._trainer
-        if trainer.zero_mode is not None:
+        if trainer.zero_mode is not None or trainer.sharded:
             synced, self._synced = self._synced, None
             if synced is not None:
                 return synced
             if collective.world_size() > 1:
                 raise RuntimeError(
-                    "a ZeRO-mode checkpoint gathers its rows in sync(), "
-                    "which every rank runs before the snapshot"
+                    "a ZeRO-mode or model/expert-sharded checkpoint gathers "
+                    "its rows or shards in sync(), which every rank runs "
+                    "before the snapshot"
                 )
             return trainer.canonical_payload(state)
+        return self._dense_payload(state)
+
+    def _dense_payload(self, state: TrainState) -> dict:
+        """The dense trainer's payload of this rank's own tensors."""
+        trainer = self._trainer
         fields = state.gns.tensors()
         return {
             "model": state.model.state_dict(),
@@ -1157,13 +1325,19 @@ class TrainerCheckpoint(checkpoint.State):
 
     def sync(self) -> None:
         """Every rank: under a ZeRO mode, join the gather of the rows to
-        the canonical layout, which rank 0's snapshot then copies (the
-        snapshot issues no collective)."""
-        if self._trainer.zero_mode is not None:
-            payload = self._trainer.canonical_payload(self._get_state())
-            # Only rank 0 snapshots it; the others joined the gather.
-            writes = env.replica_rank() == 0 and env.checkpoint_path() is not None
-            self._synced = payload if writes else None
+        the canonical layout; under a model or expert axis, the gather of
+        the shards to the full logical tensors. Rank 0's snapshot then
+        copies it (the snapshot issues no collective)."""
+        trainer = self._trainer
+        if trainer.zero_mode is not None:
+            payload = trainer.canonical_payload(self._get_state())
+        elif trainer.sharded:
+            payload = trainer.logical_payload(self._dense_payload(self._get_state()))
+        else:
+            return
+        # Only rank 0 snapshots it; the others joined the gather.
+        writes = env.replica_rank() == 0 and env.checkpoint_path() is not None
+        self._synced = payload if writes else None
 
     def snapshot(self) -> dict:
         tensors: list[torch.Tensor] = []
@@ -1232,6 +1406,8 @@ class TrainerCheckpoint(checkpoint.State):
                     f"a {payload['layout']} checkpoint restores into a "
                     "trainer of the ZeRO family, not a dense one"
                 )
+            if trainer.sharded:
+                payload = trainer.local_payload(payload)
             state.model.load_state_dict(payload["model"])
             state.optimizer.load_state_dict(payload["optimizer"])
             carry = [t.to(device) for t in payload["prev_grad"]]

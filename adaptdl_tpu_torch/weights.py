@@ -92,6 +92,19 @@ def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
     return state
 
 
+def flax_to_rank_state_dict(
+    params, model: tuple[int, int] = (0, 1), expert: tuple[int, int] = (0, 1)
+) -> dict[str, torch.Tensor]:
+    """One rank's shard of a flax ``TransformerLM`` tree (the JAX
+    package's full parameters): :func:`flax_to_state_dict`, cut for model
+    rank ``model = (index, size)`` and expert rank ``expert = (index,
+    size)`` by the port's Megatron and expert table
+    (:func:`adaptdl_tpu_torch.parallel.tensor_parallel.shard_state_dict`)."""
+    from adaptdl_tpu_torch.parallel.tensor_parallel import shard_state_dict
+
+    return shard_state_dict(flax_to_state_dict(params), model, expert)
+
+
 def dense(p, prefix: str) -> dict[str, torch.Tensor]:
     """``nn.Dense`` -> ``{prefix}.weight`` (and ``.bias``)."""
     state = {prefix + ".weight": _tensor(np.asarray(p["kernel"]).T)}

@@ -235,7 +235,7 @@ Phases (any failure exits non-zero before the result line):
       zero3_blocks to the dense plain-attention run, parameters within
       ZERO_PARAM_TOL of the largest and losses within ZERO_LOSS_RTOL
       (bit-equal expected: the element arithmetic is the same);
-   b. two ranks on the one card over gloo (the launcher), 3 steps at
+   b. two ranks on the one card over gloo (the launcher), 2 steps at
       (16, 0) each: the ranks' parameters bit-equal, each mode held to
       its dense reference as in 11a; per-rank resident and peak memory
       and the median step (host-staged collectives: correctness and
@@ -258,10 +258,11 @@ Phases (any failure exits non-zero before the result line):
    reset just before the steps, launch counts and collective.TRAFFIC
    reset just before and read just after:
    a. one rank (a fresh process) runs each mode's one-rank counterpart
-      (flash attention; plain attention) 3 steps; then two ranks on the
-      one card over gloo (the launcher, ADAPTDL_NUM_REPLICAS=2
-      ADAPTDL_SEQ_SHARDS=2: dp 1 x sp 2, each rank the example's rewrite
-      to one replica) run each mode 3 steps on the same batches: finite
+      (flash attention; plain attention) 2 steps; beside
+      it two ranks on the one card over gloo (the launcher,
+      ADAPTDL_NUM_REPLICAS=2 ADAPTDL_SEQ_SHARDS=2: dp 1 x sp 2, each rank
+      the example's rewrite to one replica) run each mode 2 steps on the
+      same batches, each comparison waiting for the one-rank run's file: finite
       losses, the ranks' parameters bit-equal, losses within SEQ_LOSS_RTOL
       and parameters within SEQ_PARAM_RL2 (the L2 norm of the difference
       over that of the one-rank run's update) of the one-rank run; sm90
@@ -272,11 +273,42 @@ Phases (any failure exits non-zero before the result line):
       step) for both modes, against one rank at the same global batch.
    c. checkpoint-restart sp 1 -> sp 2 -> sp 1 (ulysses with flash): one
       rank takes 2 steps and saves; the two ranks restore, resume at its
-      step with its parameters (checksums), take a step and save; one
-      rank restores that.
+      step with its parameters (checksums), take a step and save; the
+      one-rank process restores that.
    Host-staged collectives on one card: correctness and per-rank memory,
    not the seq axis's speed.
-13. result: the kernels line, the card line, then the device line. Each
+13. the model and expert axes, and the ZeRO modes under a seq axis: two
+   ranks on the one card over gloo (the launcher, ADAPTDL_NUM_REPLICAS=2),
+   each run from the seed-0 full-width weights (every rank cut to its
+   shards), AdamW + AdamScale + the Adam preconditioner, bare steps at
+   (8, 0) on the same batches as a one-rank run (a fresh process beside
+   them; each comparison waits for its file), launch counts and
+   collective.TRAFFIC reset just before the steps and read just after,
+   per-rank peak memory reset there too:
+   a. dp 1 x tp 2 with --flash (the Megatron split, the sm90 kernel on
+      each rank's 6 heads at [8 * 6, 512, 64]) against one rank with
+      --flash: losses within AXES_LOSS_RTOL and the full parameters
+      within AXES_PARAM_RL2 of the one-rank update; the replicated
+      leaves bit-equal across the ranks; sm90 launches 24 per step on
+      each rank, the f32 kernel 0; the model group's all-reduce bytes per
+      step; the sm90 kernel timed at the local shape against its plain
+      version (held by sm90_bound) and bf16 SDPA.
+   b. the MoE LM (--flash --moe-experts 8 --moe-top-k 2, every second
+      block; the example's 12 x 768) at dp 1 x ep 2 (switch_moe: each
+      rank holds 4 of the 8 experts, an all-to-all each way) against
+      one rank's dense_switch_moe at moe_dense_slices 2: the same
+      bounds, the all-to-all bytes, per-rank peak.
+   c. dp 1 x sp 2 (ring attention) under zero1, zero3 and zero3_blocks,
+      AXES_STEPS steps each, against one rank in the same mode: ranks
+      bit-equal and the same bounds.
+   d. checkpoint-restart tp 2 -> tp 1 and ep 2 -> ep 1: the two ranks
+      save a's and b's trainers after their steps (the full logical
+      tensors, gathered in sync()); the one-rank process restores each
+      and resumes at the saved step with the saved parameters
+      (checksums).
+   Host-staged collectives on one card: correctness and per-rank memory,
+   not the axes' speed.
+14. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
@@ -290,7 +322,8 @@ Phases (any failure exits non-zero before the result line):
    "zero_launches" in each mode of 11a and
    on each rank of 11b, and "seq_launches" on each rank of each mode of
    12a (the sm90 row's "seq_gathered" is its time at 12a's gathered
-   shape). The
+   shape), and "tp_launches" on each rank of 13a and 13b (the sm90 row's
+   "tp_local" is its time at 13a's local shape). The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
    own bound (the f32 kernel's: 3xTF32 at TF32's peak), plain version and
    SDPA on the same inputs; the f32 row's "bf16_input_ms" is the f32
@@ -3956,7 +3989,7 @@ ZERO_MODES = {
 }
 ZERO_REFERENCE = {"zero1": "dense", "zero3": "dense", "zero3_blocks": "dense_plain"}
 ZERO_SINGLE_STEPS = 4  # 11a, at (32, 0)
-ZERO_PAIR_STEPS = 3  # 11b, at (16, 0) on each of two ranks
+ZERO_PAIR_STEPS = 2  # 11b, at (16, 0) on each of two ranks
 ZERO_RESCALE_STEPS = 2  # 11c: before the stop and after the restore
 ZERO_RESCALES = [
     ("zero1", "trainer"), ("zero1", "sharded"),
@@ -4359,7 +4392,7 @@ def phase_zero(kernel_rows):
 
 
 SEQ_MODES = ("ulysses", "ring")  # ulysses runs the flash forward inside
-SEQ_STEPS = 3  # 12a, each mode, at (8, 0)
+SEQ_STEPS = 2  # 12a, each mode, at (8, 0)
 SEQ_ATOMIC = 8
 SEQ_LONG = 4096  # 12b's long sequence, at atomic 2
 SEQ_CKPT_STEPS = 2  # 12c: the one-rank steps before its save
@@ -4508,24 +4541,41 @@ def seq_checkpoint(root, device, sp, steps, expect=None):
     return entry
 
 
+def _publish_json(path, obj):
+    """Write ``obj`` as JSON to ``path`` so that a process waiting for the
+    file (:func:`_wait_file`) never reads it half written."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _publish_tensors(obj, path):
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _wait_file(path, what, timeout=600.0):
+    """Block until a concurrently running process of the same phase has
+    published ``path``; fail after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f"{what}: {path} did not appear in {timeout:.0f} s")
+        time.sleep(0.2)
+    return path
+
+
 def seq_worker(kind, root):
-    """Phase 12's processes: ``single`` (one rank: 12a's and 12b's
-    one-rank runs, then 12c's first save), ``pair`` (a rank of two over
-    gloo at dp 1 x sp 2: 12a, 12b, 12c's middle) and ``back`` (12c's
-    one-rank restore)."""
+    """Phase 12's processes, run side by side: ``single`` (one rank:
+    12a's and 12b's one-rank runs, 12c's first save, then, once the pair
+    has saved, 12c's one-rank restore) and ``pair`` (a rank of two over
+    gloo at dp 1 x sp 2: 12a, 12b, 12c's middle). Each waits for the
+    files the other publishes."""
     import adaptdl_tpu_torch
     from adaptdl_tpu_torch import env
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = adaptdl_tpu_torch.initialize_job(device="cuda")
     rank = env.process_rank()
-    if kind == "back":
-        with open(os.path.join(root, "pair-ckpt.json")) as f:
-            expect = json.load(f)
-        entry = seq_checkpoint(root, device, 1, 0, expect)
-        with open(os.path.join(root, "back.json"), "w") as f:
-            json.dump(entry, f)
-        return
     sp = 1
     if kind == "pair":
         import torch.distributed as dist
@@ -4541,9 +4591,9 @@ def seq_worker(kind, root):
         rec, before, after = seq_drive(mode, device, sp, 512, SEQ_ATOMIC, SEQ_STEPS)
         flat_path = os.path.join(root, f"single-{mode}.pt")
         if kind == "single":
-            torch.save({"before": before, "after": after}, flat_path)
+            _publish_tensors({"before": before, "after": after}, flat_path)
         else:
-            one = torch.load(flat_path)
+            one = torch.load(_wait_file(flat_path, f"12a {mode}"))
             check(torch.equal(one["before"], before), f"12a {mode}: initial weights differ")
             update = (one["after"] - one["before"]).norm().item()
             rec["param_rl2"] = (after - one["after"]).norm().item() / update
@@ -4557,18 +4607,55 @@ def seq_worker(kind, root):
     t0 = time.perf_counter()
     if kind == "single":
         records["ckpt"] = seq_checkpoint(root, device, 1, SEQ_CKPT_STEPS)
+        _publish_json(os.path.join(root, "single-ckpt.json"), records["ckpt"])
     else:
-        with open(os.path.join(root, "single.json")) as f:
-            saved = json.load(f)["ckpt"]
+        with open(_wait_file(os.path.join(root, "single-ckpt.json"), "12c")) as f:
+            saved = json.load(f)
         records["ckpt"] = seq_checkpoint(root, device, sp, 1, saved)
     seconds["12c"] = time.perf_counter() - t0
     records["seconds"] = seconds
     if kind == "pair" and rank == 0:
-        with open(os.path.join(root, "pair-ckpt.json"), "w") as f:
-            json.dump(records["ckpt"], f)
+        _publish_json(os.path.join(root, "pair-ckpt.json"), records["ckpt"])
+    if kind == "single":
+        with open(_wait_file(os.path.join(root, "pair-ckpt.json"), "12c")) as f:
+            expect = json.load(f)
+        records["back"] = seq_checkpoint(root, device, 1, 0, expect)
     name = "single" if kind == "single" else f"pair-rank{rank}"
-    with open(os.path.join(root, f"{name}.json"), "w") as f:
-        json.dump(records, f)
+    _publish_json(os.path.join(root, f"{name}.json"), records)
+
+
+def _kill_groups(procs):
+    """Kill each process's whole group (a launcher and its ranks)."""
+    for proc in procs:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _run_side_by_side(phase, procs, timeout=900.0):
+    """Wait for a phase's worker processes, started together, each the
+    leader of its own process group; each must exit 0 (a failure kills
+    the others' groups). Returns each one's wall s."""
+    start, walls = time.perf_counter(), {}
+    deadline = time.monotonic() + timeout
+    pending = dict(procs)
+    while pending:
+        for name, proc in list(pending.items()):
+            code = proc.poll()
+            if code is None:
+                continue
+            del pending[name]
+            walls[name] = time.perf_counter() - start
+            if code != 0:
+                _kill_groups(pending.values())
+                check(False, f"{phase} {name} exited {code}")
+        if pending and time.monotonic() > deadline:
+            _kill_groups(pending.values())
+            check(False, f"{phase}: {sorted(pending)} still running after {timeout:.0f} s")
+        time.sleep(0.2)
+    return walls
 
 
 def phase_seq(kernel_rows):
@@ -4584,7 +4671,7 @@ def phase_seq(kernel_rows):
     root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-seq-")
     base = _clean_environ()
 
-    def run(kind, replicas, restarts, launcher):
+    def spawn(kind, replicas, restarts, launcher):
         run_env = dict(
             base, ADAPTDL_NUM_REPLICAS=str(replicas),
             ADAPTDL_SEQ_SHARDS=str(replicas), ADAPTDL_NUM_RESTARTS=str(restarts),
@@ -4592,12 +4679,9 @@ def phase_seq(kernel_rows):
         cmd = [os.path.join(here, "chip_smoke.py"), "--seq-worker", kind, root]
         if launcher:
             cmd = ["-m", "adaptdl_tpu_torch.launch"] + cmd
-        t0 = time.perf_counter()
-        code = subprocess.run(
-            [sys.executable, *cmd], cwd=here, env=run_env, timeout=600,
-        ).returncode
-        check(code == 0, f"12 {kind} exited {code}")
-        return time.perf_counter() - t0
+        return subprocess.Popen(
+            [sys.executable, *cmd], cwd=here, env=run_env, start_new_session=True
+        )
 
     def load(tag):
         with open(os.path.join(root, f"{tag}.json")) as f:
@@ -4637,17 +4721,18 @@ def phase_seq(kernel_rows):
         del q, k, v, a, b, c, out, lse, ref, ref_lse
         gc_cuda()
 
-        wall_single = run("single", 1, 0, launcher=False)
-        wall_pair = run("pair", 2, 1, launcher=True)
-        wall_back = run("back", 1, 2, launcher=False)
+        walls = _run_side_by_side(
+            "12", {"single": spawn("single", 1, 0, launcher=False),
+                   "pair": spawn("pair", 2, 1, launcher=True)},
+        )
         single = load("single")
         pair = [load(f"pair-rank{r}") for r in (0, 1)]
-        back = load("back")
-        print(f"seq 12 (one rank {wall_single:.1f} s; two ranks over gloo on the one "
-              f"card, dp 1 x sp 2, {wall_pair:.1f} s; one rank {wall_back:.1f} s; "
-              "correctness and per-rank memory, not the seq axis's speed; seconds "
-              f"of 12a / 12b / 12c inside them: one rank {single['seconds']}, two "
-              f"ranks {pair[0]['seconds']}, the last restore {back['restore_s']:.2f}):")
+        back = single["back"]
+        print(f"seq 12 (one rank {walls['single']:.1f} s beside two ranks over gloo on "
+              f"the one card, dp 1 x sp 2, {walls['pair']:.1f} s; correctness and "
+              "per-rank memory, not the seq axis's speed; seconds of 12a / 12b / 12c "
+              f"inside them: one rank {single['seconds']}, two ranks "
+              f"{pair[0]['seconds']}, the last restore {back['restore_s']:.2f}):")
         for mode in SEQ_MODES:
             recs = [p[mode] for p in pair]
             one = single[mode]
@@ -4717,6 +4802,411 @@ def phase_seq(kernel_rows):
     print(f"seq: phase {time.perf_counter() - start:.1f} s")
 
 
+AXES_STEPS = 2  # 13a-13c, each run at (AXES_ATOMIC, 0)
+AXES_ATOMIC = 8
+AXES_ZERO_MODES = ("zero1", "zero3", "zero3_blocks")
+# 13's bounds against the one-rank run (same weights, same batches): the
+# runs differ by bf16 rounding (the row-parallel products summed over two
+# partial products, the experts over another grouping of their rows)
+# and f32 summation order; parameters in L2 against the one-rank
+# update, as 12a holds them (SEQ_PARAM_RL2).
+AXES_LOSS_RTOL = 1e-3
+AXES_PARAM_RL2 = 0.1
+
+
+def axes_trainer(kind, device, mesh, zero=None):
+    """A full-width LM trainer of 13 on ``mesh`` (current): ``dense`` the
+    flash LM (13a, cut to this rank's model shards), ``moe`` the flash MoE
+    LM (13b: at one rank dense_switch_moe over 2 slices, at ep 2 this
+    rank's experts), ``zero`` the LM with ring attention over the mesh's
+    seq axis under ``zero`` (13c; zero3_blocks: the zero3 LM). Weights
+    from seed 0, drawn once per process and kind."""
+    import dataclasses as dc
+
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config
+    from adaptdl_tpu_torch.models import (
+        TransformerLM, Zero3LMParams, init_transformer, lm_pair_loss_fn, zero3_lm_loss_fn,
+    )
+    from adaptdl_tpu_torch.models.transformer import shard_for_mesh
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    sp, tp, ep = (mesh.axis_size(a) for a in ("seq", "model", "expert"))
+    config = lm_config(
+        cpu=False, seq_len=512, flash=kind != "zero",
+        moe_experts=8 if kind == "moe" else 0, moe_top_k=2, seq_shards=sp,
+        seq_mode="ring", tp_shards=tp, expert_shards=ep,
+    )
+    if kind == "moe" and ep == 1:
+        config = dc.replace(config, moe_dense_slices=2)
+    weights = "moe" if kind == "moe" else "dense"
+    full = _ZERO_WEIGHTS.get(weights)
+    if full is None:
+        drawn = init_transformer(
+            dc.replace(config, model_axis=None, moe_axis=None), seed=0, device="cpu"
+        )
+        full = _ZERO_WEIGHTS[weights] = {k: v.detach().clone() for k, v in drawn.state_dict().items()}
+        del drawn
+    kwargs = {}
+    if zero == "zero3_blocks":
+        with torch.device("meta"):
+            model = Zero3LMParams(config)
+        model.to_empty(device=device)
+        with torch.device("meta"):
+            dense = TransformerLM(dc.replace(config, seq_axis=None))
+        dense.to_empty(device="cpu")
+        dense.load_state_dict(full)
+        model.load_state_dict(Zero3LMParams.from_transformer(dense).state_dict())
+        loss_fn = zero3_lm_loss_fn(model)
+        kwargs["zero3_blocks"] = "blocks"
+    else:
+        with torch.device("meta"):
+            model = TransformerLM(config)
+        model.to_empty(device="cpu")
+        model.load_state_dict(full)
+        model = shard_for_mesh(model).to(device)
+        loss_fn = lm_pair_loss_fn
+        if zero is not None:
+            kwargs[zero] = True
+    return ElasticTrainer(
+        loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
+        scaling_rule=AdamScale(), precondition="adam", device=device, mesh=mesh,
+        **kwargs,
+    )
+
+
+def axes_mesh(sp=1, tp=1, ep=1):
+    """The launcher's chips as dp 1 x (sp, tp, ep), the example's rewrite."""
+    from adaptdl_tpu_torch import env
+    from adaptdl_tpu_torch.parallel.mesh import create_mesh_from_topology
+
+    os.environ["ADAPTDL_SEQ_SHARDS"] = str(sp)
+    os.environ["ADAPTDL_MODEL_SHARDS"] = str(tp)
+    os.environ["ADAPTDL_EXPERT_SHARDS"] = str(ep)
+    os.environ["ADAPTDL_NUM_REPLICAS"] = str(env.data_parallel_replicas())
+    return create_mesh_from_topology()
+
+
+def axes_flat(trainer, state):
+    """The full logical parameters as one flat float32 vector on the host
+    (a collective under the model, expert and ZeRO-3 layouts)."""
+    if trainer.zero_mode in ("zero3", "zero3_blocks"):
+        return zero_canonical(trainer, state)
+    tree = trainer.params_tree(state)
+    return torch.cat([tree[name].reshape(-1).float().cpu() for name in trainer._names])
+
+
+def axes_replicated_checksum(trainer):
+    """The bits checksum of the parameters no axis splits (this rank's)."""
+    parts = [p.detach().reshape(-1).float().cpu()
+             for p, spec in zip(trainer.model.parameters(), trainer._shard_specs)
+             if spec is None]
+    return _bits_checksum(torch.cat(parts))
+
+
+def axes_drive(trainer, device, steps, zero3_lm_one_rank=False):
+    """``steps`` bare train_step runs at (AXES_ATOMIC, 0) on 13's global
+    batches (this rank's seq block under a seq axis); returns the record
+    and the flat logical parameters before and after."""
+    import numpy as np
+
+    from adaptdl_tpu_torch import collective
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    state = trainer.init_state()
+    before = axes_flat(trainer, state)
+    host = seq_batches(steps, 512, AXES_ATOMIC)
+    if zero3_lm_one_rank:
+        # The zero3 LM at one rank reads raw token rows.
+        host = [{"tokens": np.concatenate([b["inputs"], b["targets"][:, -1:]], axis=1)}
+                for b in host]
+    batches = [trainer.to_device(b) for b in host]
+    step = trainer.train_step(AXES_ATOMIC, 0)
+    gc_cuda()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    collective.reset_traffic()
+    losses, seconds = [], []
+    for batch in batches:
+        torch.cuda.synchronize(device)
+        start = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - start)
+        losses.append(float(m["loss"]))
+    launches = {k: _build.LAUNCHES[k] for k in (KERNEL_SM90, KERNEL)}
+    traffic = {k: v / steps for k, v in collective.TRAFFIC.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    after = axes_flat(trainer, state)
+    check(all(math.isfinite(x) for x in losses), f"13: losses {losses}")
+    record = {
+        "mesh": dict(trainer.mesh.shape), "losses": losses, "step_s": seconds,
+        "median_step_ms": _median(seconds) * 1e3, "launches": launches,
+        "traffic_bytes_per_step": traffic, "peak_gib": peak / 2**30,
+        "checksum": _bits_checksum(after), "step": state.host_step,
+    }
+    if trainer.zero_mode is None:
+        record["replicated_checksum"] = axes_replicated_checksum(trainer)
+    return record, before, after, state
+
+
+def axes_save(trainer, state, root, tag):
+    """13d: save ``trainer``'s state to ``root/ckpt-<tag>`` (every rank
+    joins the gather in sync()); returns the saved step and checksum."""
+    from adaptdl_tpu_torch import checkpoint
+
+    os.environ["ADAPTDL_CHECKPOINT_PATH"] = os.path.join(root, f"ckpt-{tag}")
+    checkpoint._reset_registry()
+    holder = {"state": state}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s), name="axes-lm"
+    )
+    start = time.perf_counter()
+    checkpoint.save_all_states()
+    entry = {"save_s": time.perf_counter() - start, "step": state.host_step,
+             "checksum": _bits_checksum(axes_flat(trainer, state))}
+    ckpt.unregister()
+    del os.environ["ADAPTDL_CHECKPOINT_PATH"]
+    return entry
+
+
+def axes_restore(root, tag, kind, device, expect):
+    """13d: one rank restores ``root/ckpt-<tag>`` into a one-rank trainer
+    of ``kind``: the resumed step and parameter checksum must equal the
+    saved ones."""
+    from adaptdl_tpu_torch import checkpoint
+
+    os.environ["ADAPTDL_CHECKPOINT_PATH"] = os.path.join(root, f"ckpt-{tag}")
+    checkpoint._reset_registry()
+    trainer = axes_trainer(kind, device, axes_mesh())
+    holder = {"state": trainer.init_state()}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s), name="axes-lm"
+    )
+    start = time.perf_counter()
+    restored = checkpoint.load_state(ckpt)
+    entry = {"restore_s": time.perf_counter() - start, "restored": restored,
+             "resumed_at": holder["state"].host_step,
+             "resumed_checksum": _bits_checksum(axes_flat(trainer, holder["state"]))}
+    check(
+        restored and entry["resumed_at"] == expect["step"]
+        and entry["resumed_checksum"] == expect["checksum"],
+        f"13d {tag}: resumed at step {entry['resumed_at']} (saved {expect['step']}), "
+        f"parameters {'equal' if entry['resumed_checksum'] == expect['checksum'] else 'differ'}",
+    )
+    ckpt.unregister()
+    del os.environ["ADAPTDL_CHECKPOINT_PATH"], trainer, holder, ckpt
+    gc_cuda()
+    return entry
+
+
+AXES_RUNS = [("13a", "dense", {"tp": 2}), ("13b", "moe", {"ep": 2})] + [
+    ("13c", "zero", {"sp": 2, "zero": mode}) for mode in AXES_ZERO_MODES
+]
+
+
+def axes_worker(kind, root):
+    """Phase 13's processes, run side by side: ``single`` (one rank: every
+    run's one-rank counterpart, then, once the pair has saved them, 13d's
+    one-rank restores) and ``pair`` (a rank of two over gloo: 13a-13c, and
+    13d's saves of 13a's and 13b's trainers). Each waits for the files
+    the other publishes."""
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch import env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    rank = env.process_rank()
+    if kind == "pair":
+        import torch.distributed as dist
+
+        check(dist.get_backend() == "gloo", f"13 pair backend {dist.get_backend()}")
+    records, saved, seconds = {}, {}, {}
+    for part, model_kind, axes in AXES_RUNS:
+        t0 = time.perf_counter()
+        zero = axes.get("zero")
+        tag = f"{part}-{zero}" if zero else part
+        shards = {k: axes.get(k, 1) if kind == "pair" else 1 for k in ("sp", "tp", "ep")}
+        trainer = axes_trainer(model_kind, device, axes_mesh(**shards), zero)
+        rec, before, after, state = axes_drive(
+            trainer, device, AXES_STEPS,
+            zero3_lm_one_rank=zero == "zero3_blocks" and kind == "single",
+        )
+        flat_path = os.path.join(root, f"single-{tag}.pt")
+        if kind == "single":
+            _publish_tensors({"before": before, "after": after}, flat_path)
+        else:
+            one = torch.load(_wait_file(flat_path, tag))
+            check(torch.equal(one["before"], before), f"{tag}: initial weights differ")
+            update = (one["after"] - one["before"]).norm().item()
+            rec["param_rl2"] = (after - one["after"]).norm().item() / update
+            rec["param_max_abs"] = (after - one["after"]).abs().max().item()
+            if part in ("13a", "13b"):
+                ckpt = "tp" if part == "13a" else "ep"
+                saved[ckpt] = axes_save(trainer, state, root, ckpt)
+                if rank == 0:
+                    _publish_json(os.path.join(root, f"saved-{ckpt}.json"), saved[ckpt])
+        records[tag] = rec
+        del trainer, state, before, after
+        gc_cuda()
+        seconds[tag] = time.perf_counter() - t0
+    records["seconds"] = seconds
+    records["saved"] = saved
+    if kind == "single":
+        back = {}
+        for ckpt, model_kind in (("tp", "dense"), ("ep", "moe")):
+            with open(_wait_file(os.path.join(root, f"saved-{ckpt}.json"), f"13d {ckpt}")) as f:
+                back[ckpt] = axes_restore(root, ckpt, model_kind, device, json.load(f))
+        records["back"] = back
+    name = "single" if kind == "single" else f"pair-rank{rank}"
+    _publish_json(os.path.join(root, f"{name}.json"), records)
+
+
+def phase_axes(kernel_rows):
+    """Phase 13: the model and expert axes, and seq x ZeRO, on the card."""
+    import torch.nn.functional as F
+
+    from adaptdl_tpu_torch.ops.flash_attention import (
+        KERNEL, KERNEL_SM90, _launch, flash_attention_reference,
+    )
+
+    start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-axes-")
+    base = _clean_environ()
+
+    def spawn(kind, replicas, restarts, launcher):
+        run_env = dict(
+            base, ADAPTDL_NUM_REPLICAS=str(replicas), ADAPTDL_NUM_RESTARTS=str(restarts),
+        )
+        cmd = [os.path.join(here, "chip_smoke.py"), "--axes-worker", kind, root]
+        if launcher:
+            cmd = ["-m", "adaptdl_tpu_torch.launch"] + cmd
+        return subprocess.Popen(
+            [sys.executable, *cmd], cwd=here, env=run_env, start_new_session=True
+        )
+
+    def load(tag):
+        with open(os.path.join(root, f"{tag}.json")) as f:
+            return json.load(f)
+
+    try:
+        # The sm90 kernel at the shape tensor parallelism gives it: 8 rows
+        # x each rank's 6 of 12 heads x 512 positions.
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        shape = (AXES_ATOMIC * 6, 512, 64)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        bh, seq, d = shape
+        flops = 4 * d * bh * seq * (seq + 1) / 2
+        nbytes = 4 * bh * seq * d * 2 + bh * seq * 4
+        by_flops = flops / PEAK_BF16_FLOPS * 1e3
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        a, b, c = (t.reshape(AXES_ATOMIC, 6, seq, d) for t in (q, k, v))
+        local = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: _launch(KERNEL_SM90, q, k, v, True, None), 50),
+            "plain_ms": cuda_ms(lambda: flash_attention_reference(q, k, v, True), 5),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(a, b, c, is_causal=True), 50
+            ),
+            "bound_ms": max(by_flops, by_bytes),
+            "bound_by": "operations" if by_flops > by_bytes else "bytes",
+        }
+        out, lse = _launch(KERNEL_SM90, q, k, v, True, None)
+        ref, ref_lse = flash_attention_reference(q, k, v, True)
+        ratio = ((out.float() - ref.float()).abs()
+                 / sm90_bound(q, k, v, True, ref, ref_lse)).max().item()
+        check(ratio <= 1, f"13a: sm90 at {shape} exceeds its bound ({ratio:.3g})")
+        local["max_err_over_bound"] = ratio
+        print(f"axes 13a: {KERNEL_SM90} at the tensor-parallel local shape {shape} "
+              f"(causal): {local}")
+        del q, k, v, a, b, c, out, lse, ref, ref_lse
+        gc_cuda()
+
+        walls = _run_side_by_side(
+            "13", {"single": spawn("single", 1, 0, launcher=False),
+                   "pair": spawn("pair", 2, 1, launcher=True)},
+        )
+        single = load("single")
+        pair = [load(f"pair-rank{r}") for r in (0, 1)]
+        back = single["back"]
+        print(f"axes 13 (one rank {walls['single']:.1f} s beside two ranks over gloo on "
+              f"the one card {walls['pair']:.1f} s; correctness and per-rank memory, not "
+              "the axes' speed; seconds of each run inside them: one rank "
+              f"{single['seconds']}, two ranks {pair[0]['seconds']}):")
+        for part, model_kind, axes in AXES_RUNS:
+            zero = axes.get("zero")
+            tag = f"{part}-{zero}" if zero else part
+            recs, one = [p[tag] for p in pair], single[tag]
+            want_mesh = {"data": 1, **{
+                {"sp": "seq", "tp": "model", "ep": "expert"}[k]: v
+                for k, v in axes.items() if k != "zero"
+            }}
+            check(recs[0]["mesh"] == want_mesh, f"{tag} mesh {recs[0]['mesh']}")
+            if zero is None:
+                check(recs[0]["replicated_checksum"] == recs[1]["replicated_checksum"]
+                      and recs[0]["checksum"] == recs[1]["checksum"],
+                      f"{tag}: the ranks' replicated leaves (or full parameters) differ")
+            else:
+                check(recs[0]["checksum"] == recs[1]["checksum"]
+                      and recs[0]["losses"] == recs[1]["losses"],
+                      f"{tag}: the two ranks' parameters differ")
+            layers = 0 if model_kind == "zero" else 12
+            want = 2 * layers * AXES_STEPS
+            check(
+                all(r["launches"][KERNEL_SM90] == want and r["launches"][KERNEL] == 0
+                    for r in recs + [one]),
+                f"{tag}: launches {[r['launches'] for r in recs]} (one rank "
+                f"{one['launches']}), expected {want} sm90 per rank",
+            )
+            loss_rdiff = max(abs(x - y) / abs(y) for x, y in zip(recs[0]["losses"], one["losses"]))
+            recs[0]["loss_rdiff"] = loss_rdiff
+            check(
+                loss_rdiff <= AXES_LOSS_RTOL and recs[0]["param_rl2"] <= AXES_PARAM_RL2,
+                f"{tag} against one rank: losses {loss_rdiff:.3g} (bound "
+                f"{AXES_LOSS_RTOL:.3g}), parameters {recs[0]['param_rl2']:.3g} of the "
+                f"update (bound {AXES_PARAM_RL2})",
+            )
+            traffic = ", ".join(
+                f"{k} {v / 1e6:.2f}" for k, v in recs[0]["traffic_bytes_per_step"].items() if v
+            )
+            print(
+                f"  {tag} {recs[0]['mesh']}: ranks agree; losses {recs[0]['losses']} "
+                f"(one rank {one['losses']}, max rel diff {loss_rdiff:.3g}); parameters "
+                f"against one rank: L2 {recs[0]['param_rl2']:.3g} of its update, max abs "
+                f"{recs[0]['param_max_abs']:.3g}; sm90 launches "
+                f"{[r['launches'][KERNEL_SM90] for r in recs]}; collectives per step "
+                f"(MB) {traffic}; per-rank peak {recs[0]['peak_gib']:.2f} / "
+                f"{recs[1]['peak_gib']:.2f} GiB (one rank {one['peak_gib']:.2f}); median "
+                f"step {recs[0]['median_step_ms']:.1f} / {recs[1]['median_step_ms']:.1f} "
+                f"ms (one rank {one['median_step_ms']:.1f} ms)"
+            )
+        for tag in ("tp", "ep"):
+            saved = pair[0]["saved"][tag]
+            check(pair[1]["saved"][tag] == {**saved, "save_s": pair[1]["saved"][tag]["save_s"]},
+                  f"13d {tag}: the ranks saved different states")
+            print(f"axes 13d {tag} 2 -> 1: saved at step {saved['step']} "
+                  f"({saved['save_s']:.2f} s); one rank resumed at step "
+                  f"{back[tag]['resumed_at']} with its parameters "
+                  f"({back[tag]['restore_s']:.2f} s)")
+        for row in kernel_rows:
+            name = row["name"]
+            row["tp_launches"] = {
+                part: [p[part]["launches"][name] for p in pair] for part in ("13a", "13b")
+            }
+            if name == KERNEL_SM90:
+                row["tp_local"] = local
+        print(json.dumps({"axes": {"single": single, "pair": pair, "back": back,
+                                   "local": local}}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"axes: phase {time.perf_counter() - start:.1f} s")
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -4733,6 +5223,9 @@ def main():
         return
     if sys.argv[1:2] == ["--seq-worker"]:
         seq_worker(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--axes-worker"]:
+        axes_worker(*sys.argv[2:4])
         return
     # The kernel cache lives on the share path (ops/_build.py): phase 2
     # builds into it, and every later process (phase 5's ranks, phase 8's
@@ -4766,6 +5259,7 @@ def smoke():
     phase_control(kernel_rows)
     phase_zero(kernel_rows)
     phase_seq(kernel_rows)
+    phase_axes(kernel_rows)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

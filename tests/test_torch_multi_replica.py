@@ -472,6 +472,39 @@ def test_launcher_forwards_sigterm_to_every_rank(tmp_path):
             proc.wait()
 
 
+def test_a_sigterm_while_exiting_leaves_the_exit_code(tmp_path):
+    """A rank that has finished ignores a SIGTERM landing while it exits:
+    Python restores a handler's default action during finalization, where
+    the signal would kill the rank and the launcher would read a graceful
+    stop (143) -- a runner's rescale racing the end of a job's budget then
+    relaunched it from an older checkpoint. The launcher ignores one after
+    its ranks have exited."""
+    child = tmp_path / "child.py"
+    child.write_text(
+        "import atexit, os, signal, sys, time\n"
+        "def late():\n"
+        "    print('ignored at exit', signal.getsignal(signal.SIGTERM) == signal.SIG_IGN,"
+        " flush=True)\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "    time.sleep(0.2)\n"
+        "atexit.register(late)\n"
+        "from adaptdl_tpu_torch import _signal\n"
+        "_signal.install_handlers()\n"
+    )
+    code, log = _finish(_start(
+        [str(child)], replicas=1,
+        launcher=[
+            "-c",
+            "import signal, sys; import adaptdl_tpu_torch.launch as launch; "
+            "code = launch.main(); "
+            "print('launcher ignores', signal.getsignal(signal.SIGTERM) == signal.SIG_IGN); "
+            "sys.exit(code)",
+        ],
+    ))
+    assert code == 0, log
+    assert "ignored at exit True" in log and "launcher ignores True" in log, log
+
+
 def test_launcher_kills_the_other_ranks_when_one_fails(tmp_path):
     child = tmp_path / "child.py"
     child.write_text(

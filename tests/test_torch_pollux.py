@@ -147,14 +147,14 @@ def test_speedup_best_config_pure_dp_defaults():
 @pytest.mark.parametrize(
     "kw",
     [{"max_seq_shards": 2}, {"max_model_shards": 4}, {"max_stage_shards": 2},
-     {"max_expert_shards": 2}, {"mesh_shape_grid": [(1, 2, 1, 1)]}],
+     {"max_expert_shards": 2}, {"mesh_shape_grid": [(1, 1, 1, 1), (1, 2, 1, 1)]}],
 )
 def test_mesh_hints_raise(kw):
-    """The seq axis is ported: its hint gives the JAX package's table and
-    configurations. Model, stage and expert axes (``mesh_shape_grid``
-    shapes are (sp, tp, ss, ep), so (1, 2, 1, 1) is a model axis) still
-    raise."""
-    if "max_seq_shards" in kw:
+    """The seq, model and expert axes are ported: their hints give the
+    JAX package's table and configurations (``mesh_shape_grid`` shapes
+    are (sp, tp, ss, ep), so (1, 2, 1, 1) is a model axis). The stage
+    axis still raises."""
+    if "max_stage_shards" not in kw:
         nodes, chips = np.array([1, 1, 1, 2, 2]), np.array([1, 2, 4, 4, 8])
         fns = [_speedup_fn(pkg, **kw) for pkg in PACKAGES]
         np.testing.assert_allclose(
@@ -163,7 +163,7 @@ def test_mesh_hints_raise(kw):
         for n, c in zip(nodes.tolist(), chips.tolist()):
             assert fns[1].best_config(n, c) == fns[0].best_config(n, c)
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 items 5 and 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         _speedup_fn("port", **kw)
 
 

@@ -157,6 +157,6 @@ def test_mesh_layout_is_data_outermost(monkeypatch):
     x = torch.arange(8.0).reshape(2, 4)
     assert collective.all_to_all(x, None, 1, 0) is x
     assert collective.ppermute(x, None) is x
-    with pytest.raises(NotImplementedError, match="sharded axes"):
-        pmesh.create_mesh({"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError, match="stage axis"):
+        pmesh.create_mesh({"data": 1, "stage": 2})
     pmesh._reset()

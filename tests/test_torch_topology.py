@@ -7,8 +7,9 @@ equal configurations and goodputs (rtol 1e-12: the same numpy
 expressions), at ``max_seq_shards`` 1, 2 and 4, with and without
 accumulation. ``SpeedupFunction`` tables and configurations at
 ``max_seq_shards=2`` and under a seq-only ``mesh_shape_grid`` equal the
-JAX package's, hysteresis included. Model, stage and expert limits
-still raise.
+JAX package's, hysteresis included. The same holds with model and
+expert limits (the JAX functions over a grid of sp, tp and ep limits);
+stage limits still raise.
 """
 
 import numpy as np
@@ -95,5 +96,61 @@ def test_speedup_tables_with_seq_shards_match_jax(kw):
      {"mesh_shape_grid": [(2, 1, 1, 1), (1, 1, 2, 1)]}],
 )
 def test_model_stage_expert_limits_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 items 5 and 6"):
-        _speedup_fn("port", max_seq_shards=2, **kw)
+    """Model and expert limits give the JAX package's tables and
+    configurations; a stage limit, or a stage shape in the grid, still
+    raises."""
+    if "max_stage_shards" in kw or "mesh_shape_grid" in kw:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            _speedup_fn("port", max_seq_shards=2, **kw)
+        return
+    fns = [_speedup_fn(pkg, max_seq_shards=2, **kw) for pkg in PACKAGES]
+    np.testing.assert_allclose(fns[1](NODES, CHIPS), fns[0](NODES, CHIPS), rtol=1e-12, atol=0)
+    for n, c in zip(NODES.tolist(), CHIPS.tolist()):
+        assert fns[1].best_config(n, c) == fns[0].best_config(n, c)
+
+
+# ---- the model and expert axes of the search ------------------------------
+
+
+@pytest.mark.parametrize("chips", [None, 4, 8])
+@pytest.mark.parametrize("limits", [(1, 2, 1), (2, 2, 2), (1, 4, 2), (2, 1, 4)])
+def test_mesh_shape_grid_with_model_and_expert_matches_jax(limits, chips):
+    sp, tp, ep = limits
+    kw = {"max_seq_shards": sp, "max_model_shards": tp, "max_expert_shards": ep,
+          "num_chips": chips}
+    got = port_goodput.mesh_shape_grid(**kw)
+    assert got == jax_goodput.mesh_shape_grid(**kw)
+    assert all(ss == 1 for _, _, ss, _ in got)
+
+
+@pytest.mark.parametrize("accumulation", [True, False])
+@pytest.mark.parametrize("limits", [(1, 2, 1), (1, 1, 2), (2, 2, 2), (1, 4, 4)])
+def test_optimize_topology_with_model_and_expert_matches_jax(limits, accumulation):
+    sp, tp, ep = limits
+    kw = dict(
+        max_batch_size=1280, atomic_bsz_range=(64, 256), accumulation=accumulation,
+        max_seq_shards=sp, max_model_shards=tp, max_expert_shards=ep,
+    )
+    got = _goodput_fn("port").optimize_topology(NODES, CHIPS, **kw)
+    want = _goodput_fn("jax").optimize_topology(NODES, CHIPS, **kw)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, atol=0)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"max_model_shards": 4}, {"max_expert_shards": 4},
+     {"max_model_shards": 2, "max_expert_shards": 2, "max_seq_shards": 2},
+     {"mesh_shape_grid": [(1, 1, 1, 1), (1, 2, 1, 1), (1, 1, 1, 2), (2, 2, 1, 1)]}],
+)
+def test_speedup_tables_with_model_and_expert_shards_match_jax(kw):
+    fns = [_speedup_fn(pkg, **kw) for pkg in PACKAGES]
+    tables = [fn(NODES, CHIPS) for fn in fns]
+    np.testing.assert_allclose(tables[1], tables[0], rtol=1e-12, atol=0)
+    for n, c in zip(NODES.tolist(), CHIPS.tolist()):
+        assert fns[1].best_config(n, c) == fns[0].best_config(n, c)
+        for incumbent in (None, {"modelShards": 2}, {"expertShards": 2}):
+            assert fns[1].best_config_with_hysteresis(
+                n, c, incumbent
+            ) == fns[0].best_config_with_hysteresis(n, c, incumbent)

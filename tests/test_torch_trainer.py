@@ -216,15 +216,15 @@ def test_unported_modes_raise(monkeypatch):
     opt = AdamW(model.parameters(), lr=1e-3)
     with pytest.raises(TypeError, match="meshes"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, mesh=object(), device="cpu")
-    # A seq axis needs one process per chip; a model axis is not ported.
+    # A seq axis needs one process per chip; the stage axis is not ported.
     monkeypatch.setenv("ADAPTDL_SEQ_SHARDS", "2")
     with pytest.raises(NotImplementedError, match="one per chip under a seq axis"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, device="cpu")
     monkeypatch.setenv("ADAPTDL_SEQ_SHARDS", "1")
-    monkeypatch.setenv("ADAPTDL_MODEL_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="sharded axes"):
+    monkeypatch.setenv("ADAPTDL_STAGE_SHARDS", "2")
+    with pytest.raises(NotImplementedError, match="stage axis"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, device="cpu")
-    monkeypatch.setenv("ADAPTDL_MODEL_SHARDS", "1")
+    monkeypatch.setenv("ADAPTDL_STAGE_SHARDS", "1")
     monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "2")
     with pytest.raises(NotImplementedError, match="multi-replica"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, device="cpu")

@@ -414,10 +414,25 @@ def test_composition_rules(monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         ElasticTrainer(lm_loss_fn, model, AdamW(model.parameters(), lr=1e-2), 8,
                        device="cpu", zero1=True)
-    monkeypatch.setenv("ADAPTDL_MODEL_SHARDS", "2")
-    model, opt = fresh()
-    with pytest.raises(NotImplementedError, match="sharded axes"):
-        ElasticTrainer(lm_loss_fn, model, opt, 8, device="cpu", zero1=True)
+    # Under a model or expert axis the ZeRO modes refuse with the JAX
+    # trainer's messages (a mesh of two processes, checked before any
+    # collective runs).
+    from adaptdl_tpu_torch import collective
+    from adaptdl_tpu_torch.parallel.mesh import ProcessMesh
+
+    monkeypatch.setenv("ADAPTDL_NUM_PROCESSES", "2")
+    for axis in ("model", "expert"):
+        mesh = ProcessMesh({"data": 1, axis: 2}, 0, {"data": collective.SOLO, axis: None})
+        model, opt = fresh()
+        with pytest.raises(ValueError, match="zero1 shards optimizer state over the "
+                           "data axis and composes with data/seq parallelism only"):
+            ElasticTrainer(lm_loss_fn, model, opt, 8, device="cpu", zero1=True, mesh=mesh)
+        with pytest.raises(ValueError, match=r"zero3_blocks shards parameter storage "
+                           r"over the data axis and composes with data and sequence "
+                           r"parallelism only \(model/stage/expert axes"):
+            ElasticTrainer(lm_loss_fn, model, opt, 8, device="cpu",
+                           zero3_blocks="blocks", mesh=mesh)
+    monkeypatch.delenv("ADAPTDL_NUM_PROCESSES")
 
     class Flags:
         zero1 = zero3 = zero3_blocks = flash = False
@@ -428,7 +443,8 @@ def test_composition_rules(monkeypatch):
     check_zero_flags(flags)
     assert flags.zero1
     for bad in ({"zero3_blocks": True, "flash": True}, {"zero3_blocks": True, "zero1": True},
-                {"zero3_blocks": True, "chunked_xent": 64}, {"zero1": True, "moe_experts": 4}):
+                {"zero3_blocks": True, "chunked_xent": 64}, {"zero1": True, "moe_experts": 4},
+                {"zero1": True, "tp_shards": 2}, {"zero3_blocks": True, "tp_shards": 2}):
         flags = Flags()
         for k, v in bad.items():
             setattr(flags, k, v)
