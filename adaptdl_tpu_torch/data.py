@@ -264,13 +264,19 @@ class AdaptiveDataLoader:
                 atomic = int(np.clip(atomic, *self._local_bsz_bounds))
             return atomic, 0
         num_nodes = env.num_nodes()
-        # Configurations are scored at the topology that runs: the seq
-        # axis's collective terms belong on both sides of the comparison,
-        # and each chip of an sp x tp group holds 1/(sp*tp) of a
-        # microbatch's activations, so the atomic ceiling scales by it.
-        sp, tp, _, _, _ = metrics.active_topology()
+        # Configurations are scored at the topology that runs: its
+        # collective and pipeline terms belong on both sides of the
+        # comparison. Each chip of an sp x tp group holds 1/(sp*tp) of a
+        # microbatch's activations, so the atomic ceiling scales by it;
+        # pipeline stages and expert shards keep the per-chip activations
+        # about constant.
+        sp, tp, ss, ep, pipeline_micro = metrics.active_topology()
         group = sp * tp
-        topology = {"seq_shards": sp, "model_shards": tp}
+        topology = {
+            "seq_shards": sp, "model_shards": tp, "stage_shards": ss,
+            "pipeline_micro": pipeline_micro if ss > 1 else 1,
+            "expert_shards": ep,
+        }
         # The restored config may be infeasible at the new replica
         # count; then the optimizer's choice is adopted outright.
         current_feasible = (

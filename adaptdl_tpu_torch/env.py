@@ -109,6 +109,14 @@ def expert_shards() -> int:
     return _get_int("ADAPTDL_EXPERT_SHARDS", 1)
 
 
+def pipeline_micro() -> int:
+    """The scheduler's pipeline microbatch count M for the stage axis
+    (``ADAPTDL_PIPELINE_MICRO``): 4 by default under a stage axis, else
+    1. The topology search picks M with the factorization, so the
+    pipelined loss runs the schedule the job was priced at."""
+    return _get_int("ADAPTDL_PIPELINE_MICRO", 4 if stage_shards() > 1 else 1)
+
+
 def num_nodes() -> int:
     """Number of hosts; defaults to one per process."""
     return _get_int("ADAPTDL_NUM_NODES", num_processes())

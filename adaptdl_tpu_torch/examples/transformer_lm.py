@@ -59,8 +59,22 @@ card:
     ADAPTDL_NUM_REPLICAS=2 ADAPTDL_EXPERT_SHARDS=2 python -m adaptdl_tpu_torch.launch \
         -m adaptdl_tpu_torch.examples.transformer_lm --flash --moe-experts 8 --moe-top-k 2
 
-The JAX example's pipeline flags (``--pipeline``, ``--stage-shards``,
-``--pipeline-micro``) are not ported yet and raise.
+Pipeline parallelism, as in the JAX example: ``--stage-shards k``
+(default ``ADAPTDL_STAGE_SHARDS``) splits the blocks over k chips, one
+process each (``models/pipeline_lm.py``), at ``--pipeline-micro M``
+pipeline microbatches (default ``ADAPTDL_PIPELINE_MICRO``, 4 under a
+stage axis): the interleaved schedule with ``v = L / k`` chunks per chip
+when ``L / k > 1`` and ``M >= k``, else GPipe. The loss takes raw token
+rows. ``--pipeline`` puts the job in the pipeline family at any k: the
+hints advertise the stage axis (``max_stage_shards`` the largest power
+of two dividing L, ``pipeline_chunks`` L) beside tensor parallelism, and
+sp and ep as 1. The checkpoint is the dense LM's at any k, so a job
+moves between ss 1 and 2 across a restart. The pipelined blocks run
+plain attention (not with ``--flash``, sequence sharding, MoE or
+``--chunked-xent``). Two ranks, one replica, on the CPU or the card:
+
+    ADAPTDL_NUM_REPLICAS=2 python -m adaptdl_tpu_torch.launch \
+        -m adaptdl_tpu_torch.examples.transformer_lm --pipeline --stage-shards 2
 """
 
 from __future__ import annotations
@@ -120,16 +134,18 @@ def lm_config(
 def check_zero_flags(args) -> None:
     """The JAX example's composition rules for the ZeRO flags: zero3
     implies zero1; zero3_blocks is a storage mode of its own, without
-    flash attention, MoE, tensor parallelism or the chunked head; zero1
-    without MoE or tensor parallelism. All compose with ``--seq-shards``."""
+    flash attention, MoE, tensor parallelism, the pipeline or the
+    chunked head; zero1 without MoE, tensor parallelism or the pipeline.
+    All compose with ``--seq-shards``."""
     tp = getattr(args, "tp_shards", None) or 1
+    pipeline = pipeline_family(args)
     if args.zero3_blocks:
         assert not (args.zero1 or args.zero3), (
             "--zero3-blocks is a storage mode of its own; drop "
             "--zero1/--zero3"
         )
         assert (
-            args.moe_experts == 0 and tp <= 1 and not args.flash
+            not pipeline and args.moe_experts == 0 and tp <= 1 and not args.flash
             and args.chunked_xent == 0
         ), (
             "--zero3-blocks shards parameter storage over the data "
@@ -139,11 +155,47 @@ def check_zero_flags(args) -> None:
     if args.zero3:
         args.zero1 = True  # zero3 implies the zero1 constraints below
     if args.zero1:
-        assert args.moe_experts == 0 and tp <= 1, (
+        assert not pipeline and args.moe_experts == 0 and tp <= 1, (
             "--zero1 shards optimizer state over the data axis and "
             "composes with dp/seq only; stage/expert/tensor axes "
             "manage their own optimizer layouts"
         )
+
+
+def pipeline_family(args) -> bool:
+    """Whether the job runs (or may be moved to) a stage axis: the JAX
+    example's ``--pipeline`` or a stage count above one."""
+    return bool(getattr(args, "pipeline", False)) or (
+        getattr(args, "stage_shards", None) or 1
+    ) > 1
+
+
+def check_pipeline_flags(args, seq_shards: int) -> None:
+    """The JAX example's rule for the pipeline family: the stage axis
+    composes with dp and tensor parallelism; ring or ulysses attention,
+    MoE, flash and the chunked head own their axes or loss head."""
+    if pipeline_family(args):
+        assert (
+            seq_shards <= 1 and args.moe_experts == 0 and not args.flash
+            and args.chunked_xent == 0
+        ), (
+            "this example composes the stage axis with dp and tensor "
+            "parallelism (ring attention / MoE / flash / chunked-xent "
+            "own their axes or loss head); drop "
+            "--pipeline/--stage-shards to use them"
+        )
+
+
+def pipeline_interleave(num_layers: int, stage_shards: int, micro: int) -> int:
+    """The JAX example's schedule choice: the interleaved schedule with
+    ``v = L / ss`` chunks per stage when ``L`` divides into more than one
+    chunk per stage and ``M >= ss``, else GPipe (``v = 1``)."""
+    if (
+        stage_shards > 1 and num_layers % stage_shards == 0
+        and num_layers // stage_shards > 1 and micro >= stage_shards
+    ):
+        return num_layers // stage_shards
+    return 1
 
 
 def max_seq_shards(args, seq_len: int, num_heads: int) -> int:
@@ -199,6 +251,10 @@ def main(argv=None):
     parser.add_argument("--seq-mode", choices=("ring", "ulysses"), default="ring")
     # Default: the scheduler's factorization (ADAPTDL_MODEL_SHARDS).
     parser.add_argument("--tp-shards", type=int, default=None)
+    # Defaults: ADAPTDL_STAGE_SHARDS / ADAPTDL_PIPELINE_MICRO.
+    parser.add_argument("--pipeline", action="store_true")
+    parser.add_argument("--stage-shards", type=int, default=None)
+    parser.add_argument("--pipeline-micro", type=int, default=None)
     args, unported = parser.parse_known_args(argv)
     if unported:
         raise NotImplementedError(
@@ -212,15 +268,24 @@ def main(argv=None):
     args.tp_shards = tp_shards
     # Expert shards: the scheduler's choice, only for a model with experts.
     expert_shards = env.expert_shards() if args.moe_experts > 0 else 1
+    stage_shards = args.stage_shards if args.stage_shards is not None else env.stage_shards()
+    args.stage_shards = stage_shards
+    if pipeline_family(args) and args.flash is None:
+        args.flash = False  # the pipelined blocks run plain attention
     check_zero_flags(args)
+    check_pipeline_flags(args, seq_shards)
+    if stage_shards > 1:
+        # Now: env.pipeline_micro()'s default and the trainer read it.
+        os.environ["ADAPTDL_STAGE_SHARDS"] = str(stage_shards)
     chips = env.num_replicas()
-    group = seq_shards * tp_shards * expert_shards
+    group = seq_shards * tp_shards * expert_shards * stage_shards
     if group > 1 and (chips % group or env.num_processes() != chips):
         raise ValueError(
             f"--seq-shards {seq_shards} runs one process per chip, as do "
-            f"--tp-shards {tp_shards} and {expert_shards} expert shards (python "
-            f"-m adaptdl_tpu_torch.launch): ADAPTDL_NUM_REPLICAS={chips} chips "
-            f"over ADAPTDL_NUM_PROCESSES={env.num_processes()}"
+            f"--tp-shards {tp_shards}, --stage-shards {stage_shards} and "
+            f"{expert_shards} expert shards (python -m adaptdl_tpu_torch.launch): "
+            f"ADAPTDL_NUM_REPLICAS={chips} chips over "
+            f"ADAPTDL_NUM_PROCESSES={env.num_processes()}"
         )
 
     import adaptdl_tpu_torch
@@ -228,7 +293,7 @@ def main(argv=None):
     from adaptdl_tpu_torch.data import AdaptiveDataLoader
     from adaptdl_tpu_torch.examples._report import RunReport
     from adaptdl_tpu_torch.models import (
-        init_transformer, init_zero3_lm, lm_loss_fn, lm_pair_loss_fn,
+        init_pipeline_lm, init_transformer, init_zero3_lm, lm_loss_fn, lm_pair_loss_fn,
     )
     from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
     from adaptdl_tpu_torch.optim import AdamW
@@ -257,15 +322,27 @@ def main(argv=None):
         args.moe_top_k, seq_shards, args.seq_mode, tp_shards, expert_shards,
     )
     if group > 1:
-        # ADAPTDL_NUM_REPLICAS counts chips at launch; a seq, tensor or
-        # expert group of chips is one data-parallel replica.
+        # ADAPTDL_NUM_REPLICAS counts chips at launch; a seq, tensor,
+        # stage or expert group of chips is one data-parallel replica.
         os.environ["ADAPTDL_SEQ_SHARDS"] = str(seq_shards)
         os.environ["ADAPTDL_MODEL_SHARDS"] = str(tp_shards)
+        os.environ["ADAPTDL_STAGE_SHARDS"] = str(stage_shards)
         os.environ["ADAPTDL_EXPERT_SHARDS"] = str(expert_shards)
         os.environ["ADAPTDL_NUM_REPLICAS"] = str(env.data_parallel_replicas())
     # The mesh first: the model takes this rank's shards from it.
     mesh = create_mesh_from_topology()
-    if args.zero3_blocks:
+    pipeline_micro = 1
+    if stage_shards > 1:
+        pipeline_micro = (
+            args.pipeline_micro if args.pipeline_micro is not None
+            else env.pipeline_micro()
+        )
+        loss_fn, model = init_pipeline_lm(
+            config, stage_shards, pipeline_micro,
+            pipeline_interleave(config.num_layers, stage_shards, pipeline_micro),
+            seed=0, device=device,
+        )
+    elif args.zero3_blocks:
         # Raw token rows through the per-block-gather layer loop.
         loss_fn, model = init_zero3_lm(config, seed=0, device=device)
     else:
@@ -288,6 +365,8 @@ def main(argv=None):
         zero3=args.zero3,
         zero3_blocks="blocks" if args.zero3_blocks else None,
         mesh=mesh,
+        # The M the pipelined loss was built with.
+        pipeline_micro=pipeline_micro if stage_shards > 1 else None,
     )
     holder = {"state": trainer.init_state()}
     ckpt = trainer.make_checkpoint_state(
@@ -308,10 +387,19 @@ def main(argv=None):
     loader.autoscale_batch_size(
         1024, local_bsz_bounds=(4, 128), gradient_accumulation=True
     )
+    # The pipeline family advertises only what it runs: the stage axis
+    # (the largest power of two dividing L, with the interleaved
+    # schedule's chunk pool, L) beside tensor parallelism, sp and ep 1.
+    # The flag is stable across restarts, so an ss 1 incarnation keeps
+    # advertising the stage axis.
+    stage_mode = pipeline_family(args)
     metrics.set_topology_config(
-        max_seq_shards=max_seq_shards(args, seq_len, config.num_heads),
+        max_seq_shards=1 if stage_mode else max_seq_shards(args, seq_len, config.num_heads),
         max_model_shards=max_model_shards(args, config.num_heads),
-        max_expert_shards=max_expert_shards(args),
+        max_stage_shards=(config.num_layers & -config.num_layers) if stage_mode else 1,
+        max_expert_shards=1 if stage_mode else max_expert_shards(args),
+        pipeline_microbatches=max(pipeline_micro, 1),
+        pipeline_chunks=config.num_layers if stage_mode else 0,
     )
     report = RunReport(
         args.report_dir, args.steps,

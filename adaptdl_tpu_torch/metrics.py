@@ -73,6 +73,12 @@ class MetricsState:
     max_model_shards: int = 1
     max_stage_shards: int = 1
     max_expert_shards: int = 1
+    # The pipeline M the job runs by default, the largest M the search
+    # may pick, and the interleaved schedule's uniform chunk count (0:
+    # GPipe only), as the JAX package keeps them.
+    pipeline_microbatches: int = 4
+    max_pipeline_micro: int = 8
+    pipeline_chunks: int = 0
     progress: float = 0.0
     # The last completed save: the seconds it blocked the training
     # thread (the snapshot), the seconds of its write (on the writer
@@ -163,9 +169,10 @@ def active_topology() -> tuple[int, int, int, int, int]:
     request."""
     if _active_topology is not None:
         return _active_topology
+    ss = env.stage_shards()
     return (
-        env.seq_shards(), env.model_shards(), env.stage_shards(),
-        env.expert_shards(), 1,
+        env.seq_shards(), env.model_shards(), ss, env.expert_shards(),
+        env.pipeline_micro() if ss > 1 else 1,
     )
 
 
@@ -186,13 +193,25 @@ def set_topology_config(
     max_model_shards: int = 1,
     max_stage_shards: int = 1,
     max_expert_shards: int = 1,
+    pipeline_microbatches: int = 4,
+    max_pipeline_micro: int | None = None,
+    pipeline_chunks: int = 0,
 ) -> None:
     """Advertise how far this job can shard each sample and the model
-    (persisted with the profiles)."""
+    (persisted with the profiles). ``pipeline_microbatches`` is the
+    pipeline M the job runs by default, ``max_pipeline_micro`` caps the
+    M the search may pick (default the larger of 8 and that M), and
+    ``pipeline_chunks`` is the interleaved schedule's uniform chunk
+    count (0: GPipe only), as in the JAX package."""
     _state.max_seq_shards = max(int(max_seq_shards), 1)
     _state.max_model_shards = max(int(max_model_shards), 1)
     _state.max_stage_shards = max(int(max_stage_shards), 1)
     _state.max_expert_shards = max(int(max_expert_shards), 1)
+    _state.pipeline_microbatches = max(int(pipeline_microbatches), 1)
+    if max_pipeline_micro is None:
+        max_pipeline_micro = max(8, _state.pipeline_microbatches)
+    _state.max_pipeline_micro = max(int(max_pipeline_micro), 1)
+    _state.pipeline_chunks = max(int(pipeline_chunks), 0)
 
 
 def _profile_key(atomic_bsz: int) -> tuple:
@@ -465,12 +484,10 @@ def fit_and_report_now() -> None:
     hints["maxModelShards"] = _state.max_model_shards
     hints["maxStageShards"] = _state.max_stage_shards
     hints["maxExpertShards"] = _state.max_expert_shards
-    # The pipeline fields at the JAX package's defaults for a job with
-    # no pipeline stages: the cap on M it would post (8), one
-    # microbatch, no interleaved schedule.
-    hints["maxPipelineMicro"] = 8
-    hints["pipelineMicrobatches"] = 1
-    hints["pipelineChunks"] = 0
+    hints["maxPipelineMicro"] = _state.max_pipeline_micro
+    _, _, ss, _, micro = active_topology()
+    hints["pipelineMicrobatches"] = micro if ss > 1 else 1
+    hints["pipelineChunks"] = _state.pipeline_chunks
     measured = measured_goodput()
     if measured is not None:
         hints["measuredGoodput"] = round(measured, 6)
@@ -528,11 +545,12 @@ _SAVED_FIELDS = (
     "max_seq_shards", "max_model_shards", "max_stage_shards",
     "max_expert_shards", "progress",
 )
-# Fields checkpoints from before the guard slice lack: read with their
-# defaults.
+# Fields checkpoints from before the guard slice (the pipeline fields:
+# before the stage axis) lack: read with their defaults.
 _OPTIONAL_FIELDS = (
     "ckpt_snapshot_s", "ckpt_save_bytes", "num_retunes",
     "raw_examples_ewma", "unhealthy_steps", "ckpt_write_s",
+    "pipeline_microbatches", "max_pipeline_micro", "pipeline_chunks",
 )
 
 

@@ -1,5 +1,5 @@
 """Models of the port: the transformer LM and the model zoo (SmallCNN,
-ResNet18, NeuMF, DCGAN) and the per-layer ZeRO-3 LM, each with an init helper and a loss of the
+ResNet18, NeuMF, DCGAN), the per-layer ZeRO-3 LM and the pipelined LM, each with an init helper and a loss of the
 trainer's ``loss_fn(model, batch, generator)`` form."""
 
 from adaptdl_tpu_torch.models.cnn import SmallCNN, cnn_loss_fn, init_cnn
@@ -11,6 +11,11 @@ from adaptdl_tpu_torch.models.dcgan import (
     make_generator_step,
 )
 from adaptdl_tpu_torch.models.ncf import NeuMF, init_ncf, ncf_loss_fn
+from adaptdl_tpu_torch.models.pipeline_lm import (
+    PipelineLM,
+    init_pipeline_lm,
+    pipeline_lm_loss_fn,
+)
 from adaptdl_tpu_torch.models.resnet import ResNet18, init_resnet18, resnet_loss_fn
 from adaptdl_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -31,6 +36,7 @@ __all__ = [
     "Discriminator",
     "Generator",
     "NeuMF",
+    "PipelineLM",
     "ResNet18",
     "SmallCNN",
     "TransformerConfig",
@@ -41,6 +47,7 @@ __all__ = [
     "init_cnn",
     "init_dcgan",
     "init_ncf",
+    "init_pipeline_lm",
     "init_resnet18",
     "init_transformer",
     "init_zero3_lm",
@@ -49,6 +56,7 @@ __all__ = [
     "make_generator_step",
     "mlm_loss_fn",
     "ncf_loss_fn",
+    "pipeline_lm_loss_fn",
     "resnet_loss_fn",
     "zero3_lm_loss_fn",
     "zero3_lm_metric_fn",

@@ -323,6 +323,23 @@ class Block(nn.Module):
         return x + reduce_out(_dense(y, self.ff_down.weight, dtype), group), None
 
 
+def apply_block(config: TransformerConfig, layer: Block, x, positions):
+    """``layer(x, positions)`` under ``config``'s rematerialisation: the
+    whole block recomputed in the backward (``remat``), selectively
+    under a ``remat_policy``, or nothing recomputed."""
+    saved = REMAT_POLICIES[config.remat_policy or "nothing_saveable"]
+    if not (config.remat and torch.is_grad_enabled()) or saved is None:
+        return layer(x, positions)
+    if not saved:
+        return checkpoint(layer, x, positions, use_reentrant=False)
+    return checkpoint(
+        layer, x, positions, use_reentrant=False,
+        context_fn=functools.partial(
+            create_selective_checkpoint_contexts, list(saved)
+        ),
+    )
+
+
 class TransformerLM(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
@@ -334,18 +351,7 @@ class TransformerLM(nn.Module):
         self.ln_f = LayerNorm(config.d_model, config.dtype)
 
     def _block(self, layer, x, positions):
-        cfg = self.config
-        saved = REMAT_POLICIES[cfg.remat_policy or "nothing_saveable"]
-        if not (cfg.remat and torch.is_grad_enabled()) or saved is None:
-            return layer(x, positions)
-        if not saved:
-            return checkpoint(layer, x, positions, use_reentrant=False)
-        return checkpoint(
-            layer, x, positions, use_reentrant=False,
-            context_fn=functools.partial(
-                create_selective_checkpoint_contexts, list(saved)
-            ),
-        )
+        return apply_block(self.config, layer, x, positions)
 
     def forward(self, tokens, return_hidden: bool = False, return_aux: bool = False):
         """Logits ``[b, s, vocab]`` (float32), or the final hidden states

@@ -10,9 +10,12 @@ that differ only in that axis's coordinate. Data is the outermost axis,
 as in the JAX package's device order: with a data and a seq axis, rank
 ``r`` sits at ``data = r // sp``, ``seq = r % sp``.
 
-The port runs the data, seq, model and expert axes, in the JAX order
-(data outermost, then seq, model, expert). A stage axis larger than one
-raises (ROADMAP Queue 1 item 6, the pipeline).
+The port runs every axis of the JAX package, in its order: data
+outermost, then seq, model, stage, expert. The stage and expert axes
+shard parameters (:data:`PARAM_SHARDED_AXES`): a pipeline stage owns
+its layers (:mod:`adaptdl_tpu_torch.parallel.pipeline`), an expert rank
+its experts; the data and seq axes replicate them, and the model axis
+splits each block by the Megatron table. Any other axis name raises.
 
 :func:`create_mesh` makes the mesh current: code that names an axis
 (the sequence-parallel attention, the transformer's RoPE positions)
@@ -34,7 +37,21 @@ MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
-PORTED_AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS, EXPERT_AXIS)
+PORTED_AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS, STAGE_AXIS, EXPERT_AXIS)
+
+# Axes whose parameters are sharded, not replicated: pipeline stages own
+# their layers, expert ranks their experts. Their gradients stay local;
+# the noise statistics sum each shard's squared norm over the axis.
+PARAM_SHARDED_AXES = (STAGE_AXIS, EXPERT_AXIS)
+
+
+def stack_params(per_shard: list) -> dict:
+    """Stack per-shard parameter trees (name -> tensor, one per pipeline
+    stage or expert) into one tree whose tensors carry a leading shard
+    axis, the JAX package's ``stack_params`` layout."""
+    import torch
+
+    return {name: torch.stack([tree[name] for tree in per_shard]) for name in per_shard[0]}
 
 
 def topology_axes(
@@ -143,12 +160,10 @@ def create_mesh(axes: dict[str, int] | None = None) -> ProcessMesh:
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     procs = env.num_processes()
     sizes = {DATA_AXIS: procs} if axes is None else dict(axes)
-    unported = {k: s for k, s in sizes.items() if k not in PORTED_AXES and s > 1}
-    if unported:
-        raise NotImplementedError(
-            f"the stage axis is not ported yet: {unported} (ROADMAP Queue 1 "
-            "item 6, the pipeline; the port runs the data, seq, model and "
-            "expert axes)"
+    unknown = sorted(k for k, s in sizes.items() if k not in PORTED_AXES and s > 1)
+    if unknown:
+        raise ValueError(
+            f"unknown mesh axes {unknown}: the axes are {list(PORTED_AXES)}"
         )
     total = math.prod(sizes.values())
     if total != procs:

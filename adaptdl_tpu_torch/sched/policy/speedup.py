@@ -8,13 +8,15 @@ points thousands of times per cycle, so results are cached in a table
 filled lazily, with one vectorised search per batch of new points.
 
 Each chip count is scored by :meth:`GoodputFunction.optimize_topology`:
-the best (data, seq, model, expert) factorisation of those chips, so a
-job advertising ``max_seq_shards``, ``max_model_shards`` or
-``max_expert_shards`` > 1 (or a ``mesh_shape_grid`` of such shapes)
-competes with the sharded configurations inside the same speedup
-number, and :meth:`SpeedupFunction.best_config` keeps the chosen one for
-the allocator to publish. The port's trainer runs no stage axis: a job
-advertising one raises here (ROADMAP Queue 1 item 6).
+the best (data, seq, model, stage, expert) factorisation of those chips
+and, with stages, the pipeline M (up to ``max_pipeline_micro``) and the
+interleaved schedule a job of ``pipeline_chunks`` chunks would run, so a
+job advertising ``max_seq_shards``, ``max_model_shards``,
+``max_stage_shards`` or ``max_expert_shards`` > 1 (or a
+``mesh_shape_grid`` of such shapes) competes with the sharded
+configurations inside the same speedup number, and
+:meth:`SpeedupFunction.best_config` keeps the chosen one for the
+allocator to publish.
 """
 
 from __future__ import annotations
@@ -36,15 +38,6 @@ class SpeedupFunction:
         pipeline_chunks: int = 0,
         mesh_shape_grid=None,
     ):
-        stage = int(max_stage_shards or 1) > 1 or any(
-            int(tuple(shape)[2]) > 1 for shape in mesh_shape_grid or ()
-        )
-        if stage:
-            raise NotImplementedError(
-                "the stage axis is not ported to adaptdl_tpu_torch yet "
-                "(ROADMAP Queue 1 item 6, the pipeline): max_stage_shards="
-                f"{max_stage_shards}, mesh_shape_grid={mesh_shape_grid}"
-            )
         self._goodput_fn = goodput_fn
         self._max_batch_size = max_batch_size
         self._atomic_bsz_range = atomic_bsz_range

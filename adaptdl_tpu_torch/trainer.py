@@ -20,6 +20,13 @@ optimizer step at a given (atomic_bsz, accum_steps):
   by the model's region operators, and the noise statistics and norms
   count each element once (a shard's squared norm summed over its
   group, a replicated leaf once);
+- under a stage axis a replica is a pipeline (:mod:`adaptdl_tpu_torch.
+  models.pipeline_lm`): each rank holds and steps its stage's blocks,
+  the replicated leaves (embedding, tied head, final LayerNorm) get a
+  partial gradient on each stage (the input path on the first, the head
+  on the last) that each microbatch sums over the stage group before
+  its noise statistics, and the blocks' squared norms are summed over
+  the stage group;
 - the gradient-noise statistics update, the scaling rule turns them
   into per-group LR factors, the optimizer applies them, and progress
   advances by the statistical gain.
@@ -245,8 +252,18 @@ class ElasticTrainer:
     shards), every rank of the group reads its replica's whole block,
     and the checkpoint holds the full logical tensors (gathered over the
     group on save, cut on restore), so a job moves between tp (ep) 1
-    and 2 across a restart. The ZeRO modes refuse both axes, and the
-    stage axis is not ported.
+    and 2 across a restart. Under a stage axis the model is a
+    :class:`~adaptdl_tpu_torch.models.pipeline_lm.PipelineLM` (with a
+    model axis too, its blocks built for it): a stage group is one
+    replica, every rank of it reads the replica's whole block, and the
+    checkpoint holds the dense LM's full logical tensors under its names
+    (gathered over the stage group on save, each stage's layers taken on
+    restore), so a job moves between ss 1 and 2, and between GPipe and
+    the interleaved schedule, across a restart. ``pipeline_micro`` is
+    the M the pipelined loss was built with (default
+    ``env.pipeline_micro()`` under a stage axis, else 1); the trainer
+    registers it with the topology. The ZeRO modes refuse the model,
+    stage and expert axes.
     """
 
     def __init__(
@@ -266,6 +283,7 @@ class ElasticTrainer:
         zero3: bool = False,
         zero3_blocks: str | None = None,
         mesh=None,
+        pipeline_micro: int | None = None,
     ):
         if mesh is None:
             mesh = pmesh.create_mesh_from_topology()
@@ -280,6 +298,7 @@ class ElasticTrainer:
         self.seq_shards = mesh.axis_size(pmesh.SEQ_AXIS)
         self.model_shards = mesh.axis_size(pmesh.MODEL_AXIS)
         self.expert_shards = mesh.axis_size(pmesh.EXPERT_AXIS)
+        self.stage_shards = mesh.axis_size(pmesh.STAGE_AXIS)
         self._data_group = mesh.group(pmesh.DATA_AXIS)
         if mesh.size != env.num_processes():
             raise NotImplementedError(
@@ -326,7 +345,9 @@ class ElasticTrainer:
             )
         self._names = [n for n, _ in named]
         self._shapes = [tuple(p.shape) for _, p in named]
-        sharded_axes = self.model_shards > 1 or self.expert_shards > 1
+        sharded_axes = (
+            self.model_shards > 1 or self.expert_shards > 1 or self.stage_shards > 1
+        )
         self.zero3_blocks = zero3_blocks
         if zero3_blocks is not None:
             if zero1 or zero3:
@@ -356,6 +377,8 @@ class ElasticTrainer:
                 "parameter and optimizer layouts"
             )
         self._shard_specs = self._leaf_shards(model, named)
+        self._stage_leaves = self._stage_leaf_flags(model, named)
+        self._param_group_fn = param_group_fn
         self.num_replicas = num_replicas
         self.layout = None
         if self.zero1 or zero3_blocks is not None:
@@ -369,8 +392,12 @@ class ElasticTrainer:
         self.smoothing = smoothing
         self.seed = seed
         self.has_aux = has_aux
+        if pipeline_micro is None:
+            pipeline_micro = env.pipeline_micro() if self.stage_shards > 1 else 1
+        self.pipeline_micro = max(int(pipeline_micro), 1)
         metrics.set_active_topology(
-            self.seq_shards, self.model_shards, 1, self.expert_shards, 1
+            self.seq_shards, self.model_shards, self.stage_shards,
+            self.expert_shards, self.pipeline_micro,
         )
         self._calibrated: set[int] = set()
         # One warm-up run plus this many timed runs per calibration.
@@ -414,10 +441,52 @@ class ElasticTrainer:
             specs.append(found if found is not None and found[0] in active else None)
         return specs
 
+    def _stage_leaf_flags(self, model, named) -> list:
+        """Per parameter, whether it is one of this stage's blocks (its
+        own, not replicated over the stage group); all False without a
+        stage axis. The model must be the pipelined LM built for the
+        mesh's stages."""
+        if self.stage_shards == 1:
+            return [False] * len(named)
+        from adaptdl_tpu_torch.models.pipeline_lm import PipelineLM
+
+        if not isinstance(model, PipelineLM) or model.num_stages != self.stage_shards:
+            raise ValueError(
+                f"the mesh {self.mesh.shape} runs {self.stage_shards} pipeline "
+                "stages: train models.pipeline_lm.init_pipeline_lm's model, "
+                "built for them after the mesh"
+            )
+        if model.stage != self.mesh.index(pmesh.STAGE_AXIS):
+            raise ValueError(
+                f"the model holds stage {model.stage}'s blocks, this rank runs "
+                f"stage {self.mesh.index(pmesh.STAGE_AXIS)}"
+            )
+        if self.seq_shards > 1:
+            raise ValueError(
+                "the pipelined blocks run the whole sequence: the stage axis "
+                "composes with the data and model axes, not the seq axis"
+            )
+        return [name.startswith("layers.") for name, _ in named]
+
     @property
     def sharded(self) -> bool:
-        """Whether some parameter is split over a model or expert axis."""
-        return any(s is not None for s in self._shard_specs)
+        """Whether some parameter is split over a model, expert or stage
+        axis."""
+        return self.stage_shards > 1 or any(s is not None for s in self._shard_specs)
+
+    def _sum_replicated_over_stages(self, grads) -> None:
+        """Under a stage axis: sum the replicated leaves' partial
+        gradients over the stage group, in place (one all-reduce), so
+        every stage holds the whole gradient of the embedding, the tied
+        head and the final LayerNorm (the sum the JAX step takes
+        implicitly over a stage-invariant leaf)."""
+        if self.stage_shards == 1:
+            return
+        shared = [g for g, own in zip(grads, self._stage_leaves) if not own]
+        flat = collective.allreduce_sum(
+            collective.pack(shared), group=self.mesh.group(pmesh.STAGE_AXIS)
+        )
+        collective.unpack(flat, shared)
 
     def _stat_normsqr(self, tensors, precond=None) -> torch.Tensor:
         """Per-group squared norms (G,) of a parameter-aligned gradient,
@@ -430,17 +499,26 @@ class ElasticTrainer:
         tensors = list(tensors)
         pre = list(precond) if precond is not None else [None] * len(tensors)
         by_axis: dict = {}
-        for i, found in enumerate(self._shard_specs):
-            by_axis.setdefault(None if found is None else found[0], []).append(i)
+        for i, (found, own) in enumerate(zip(self._shard_specs, self._stage_leaves)):
+            by_axis.setdefault((None if found is None else found[0], own), []).append(i)
         total = torch.zeros(self.num_param_groups, device=self.device)
-        for axis, idx in by_axis.items():
+        staged = torch.zeros(self.num_param_groups, device=self.device)
+        for (axis, own), idx in by_axis.items():
             part = gns.group_normsqr(
                 [tensors[i] for i in idx], [self._group_ids[i] for i in idx],
                 self.num_param_groups, [pre[i] for i in idx],
             )
             if axis is not None:
                 part = collective.allreduce_sum(part, group=self.mesh.group(axis))
-            total = total + part
+            if own:
+                staged = staged + part
+            else:
+                total = total + part
+        if self.stage_shards > 1:
+            # Each stage's blocks once: their terms summed over the group.
+            total = total + collective.allreduce_sum(
+                staged, group=self.mesh.group(pmesh.STAGE_AXIS)
+            )
         return total
 
     def logical_tensor(self, index: int, t: torch.Tensor) -> torch.Tensor:
@@ -485,16 +563,109 @@ class ElasticTrainer:
 
     def logical_payload(self, payload: dict) -> dict:
         """This rank's dense payload -> the full logical one, as a tp 1
-        (ep 1) trainer saves it: the shards gathered over their groups
-        (a collective every rank joins)."""
-        return self._map_payload(payload, self.logical_tensor)
+        (ep 1, ss 1) trainer saves it: the shards gathered over their
+        groups, and under a stage axis every stage's layers gathered under
+        the dense LM's names (a collective every rank joins)."""
+        payload = self._map_payload(payload, self.logical_tensor)
+        if self.stage_shards > 1:
+            payload = self._gather_stages(payload)
+        return payload
 
     def local_payload(self, payload: dict) -> dict:
         """A full logical payload -> this rank's shards of it (no
         collective)."""
+        if self.stage_shards > 1:
+            payload = self._select_stage(payload)
         return self._map_payload(
             payload, lambda i, t: self.local_tensor(i, torch.as_tensor(t))
         )
+
+    def _stage_dense(self, values: list) -> dict:
+        """A family of this stage's tensors in parameter order (full
+        logical tensors) -> name -> tensor of the dense LM over every
+        stage: the block tensors packed and gathered over the stage
+        group once (a collective every rank joins), each stage's share
+        renamed to its layers; the replicated ones as they are."""
+        model, stages = self.model, self.stage_shards
+        own = [i for i, flag in enumerate(self._stage_leaves) if flag]
+        mine = [values[i] for i in own]
+        flat = collective.all_gather_rows(
+            collective.pack(mine), group=self.mesh.group(pmesh.STAGE_AXIS)
+        )
+        rows = flat.view(stages, -1)
+        out = {self._names[i]: v for i, v in enumerate(values) if not self._stage_leaves[i]}
+        for d in range(stages):
+            off = 0
+            for i, t in zip(own, mine):
+                part = rows[d, off : off + t.numel()].view(t.shape).to(t.dtype)
+                out[model.peer_name(self._names[i], d)] = part
+                off += t.numel()
+        return out
+
+    def _gather_stages(self, payload: dict) -> dict:
+        """A stage's payload (full logical tensors, its own names) -> the
+        dense LM's payload: each family (parameters, each moment, the
+        carry) gathered over the stage group once."""
+        names = self.model.dense_names()
+        params = self._stage_dense([payload["model"][n] for n in self._names])
+        opt = payload["optimizer"]
+        entries = [opt["state"].get(i) for i in range(len(self._names))]
+        keys = [k for k in (entries[0] or {}) if k != "step"]
+        per_key = {k: self._stage_dense([e[k] for e in entries]) for k in keys}
+        state = {}
+        if keys:
+            for j, name in enumerate(names):
+                state[j] = {"step": entries[0]["step"], **{k: per_key[k][name] for k in keys}}
+        groups = []
+        for g in opt["param_groups"]:
+            members = {
+                self.model.peer_name(self._names[i], d)
+                for i in g["params"] for d in range(self.stage_shards)
+            }
+            groups.append({**g, "params": [j for j, n in enumerate(names) if n in members]})
+        prev = self._stage_dense(list(payload["prev_grad"]))
+        if self._param_group_fn is None:
+            group_ids = [0] * len(names)
+        else:
+            group_ids = [int(self._param_group_fn(n, params[n])) for n in names]
+        return {
+            **payload,
+            "model": {n: params[n] for n in names},
+            "optimizer": {"state": state, "param_groups": groups},
+            "prev_grad": [prev[n] for n in names],
+            "group_ids": group_ids,
+            "param_names": names,
+        }
+
+    def _select_stage(self, payload: dict) -> dict:
+        """The dense LM's payload -> this stage's (its replicated leaves
+        and its layers, under its names; no collective)."""
+        saved = payload.get("param_names") or list(payload["model"])
+        where = {n: j for j, n in enumerate(saved)}
+        missing = [n for n in self._names if n not in where]
+        if missing:
+            raise ValueError(
+                f"the checkpoint lacks this stage's parameters {missing[:3]}: "
+                "the pipelined LM restores the dense LM's layout"
+            )
+        index = [where[n] for n in self._names]
+        opt = payload["optimizer"]
+        state = {
+            i: opt["state"][j] for i, j in enumerate(index) if j in opt["state"]
+        }
+        groups = []
+        for g in opt["param_groups"]:
+            members = set(g["params"])
+            groups.append({**g, "params": [i for i, j in enumerate(index) if j in members]})
+        ids = payload.get("group_ids")
+        return {
+            **payload,
+            "model": {n: payload["model"][n] for n in self._names},
+            "optimizer": {"state": state, "param_groups": groups},
+            "prev_grad": [payload["prev_grad"][j] for j in index],
+            "group_ids": None if ids is None else [ids[j] for j in index],
+            "param_names": list(self._names),
+        }
 
     # ---- ZeRO storage: rows ------------------------------------------
 
@@ -742,6 +913,7 @@ class ElasticTrainer:
 
         def on_grads(grads, loss):
             loss = loss.detach().float().reshape(1)
+            self._sum_replicated_over_stages(grads)
             if self.seq_shards > 1:
                 # A seq group is one logical replica: average its shard
                 # gradients and losses before the noise statistics, so
@@ -917,6 +1089,9 @@ class ElasticTrainer:
                 name: self.logical_tensor(i, p)
                 for i, (name, p) in enumerate(self.model.named_parameters())
             }
+            if self.stage_shards > 1:
+                dense = self._stage_dense([tree[n] for n in self._names])
+                tree = {n: dense[n] for n in self.model.dense_names()}
         else:
             tree = dict(self.model.named_parameters())
         return {n: p.detach().clone() for n, p in tree.items()}
@@ -946,8 +1121,10 @@ class ElasticTrainer:
                     if self.zero3:
                         self._release()
             local = {k: torch.as_tensor(v).detach().cpu() for k, v in out.items()}
-            if self.mesh.index(pmesh.MODEL_AXIS) or self.mesh.index(pmesh.EXPERT_AXIS):
-                # A model or expert group computes one replica's sums.
+            if any(self.mesh.index(axis) for axis in (
+                pmesh.MODEL_AXIS, pmesh.STAGE_AXIS, pmesh.EXPERT_AXIS,
+            )):
+                # A model, stage or expert group computes one replica's sums.
                 local = {k: torch.zeros_like(v) for k, v in local.items()}
             totals = collective.allreduce(
                 local, lambda parts: {k: sum(p[k] for p in parts) for k in parts[0]}
@@ -1299,7 +1476,7 @@ class TrainerCheckpoint(checkpoint.State):
                 return synced
             if collective.world_size() > 1:
                 raise RuntimeError(
-                    "a ZeRO-mode or model/expert-sharded checkpoint gathers "
+                    "a ZeRO-mode or model/expert/stage-sharded checkpoint gathers "
                     "its rows or shards in sync(), which every rank runs "
                     "before the snapshot"
                 )
@@ -1325,8 +1502,9 @@ class TrainerCheckpoint(checkpoint.State):
 
     def sync(self) -> None:
         """Every rank: under a ZeRO mode, join the gather of the rows to
-        the canonical layout; under a model or expert axis, the gather of
-        the shards to the full logical tensors. Rank 0's snapshot then
+        the canonical layout; under a model, expert or stage axis, the
+        gather of the shards to the full logical tensors (under the dense
+        LM's names). Rank 0's snapshot then
         copies it (the snapshot issues no collective)."""
         trainer = self._trainer
         if trainer.zero_mode is not None:
@@ -1395,12 +1573,7 @@ class TrainerCheckpoint(checkpoint.State):
     def _apply(self, payload: dict) -> None:
         trainer = self._trainer
         device = trainer.device
-        trainer.check_group_ids(payload.get("group_ids"))
-        state = self._get_state()
-        valid = None
-        if trainer.zero_mode is not None:
-            carry, valid = trainer.restore_payload(payload)
-        else:
+        if trainer.zero_mode is None:
             if payload.get("layout", "dense") != "dense":
                 raise ValueError(
                     f"a {payload['layout']} checkpoint restores into a "
@@ -1408,6 +1581,12 @@ class TrainerCheckpoint(checkpoint.State):
                 )
             if trainer.sharded:
                 payload = trainer.local_payload(payload)
+        trainer.check_group_ids(payload.get("group_ids"))
+        state = self._get_state()
+        valid = None
+        if trainer.zero_mode is not None:
+            carry, valid = trainer.restore_payload(payload)
+        else:
             state.model.load_state_dict(payload["model"])
             state.optimizer.load_state_dict(payload["optimizer"])
             carry = [t.to(device) for t in payload["prev_grad"]]

@@ -37,6 +37,11 @@ flax                              port
 ``layer_i/moe/w_down [E, f, d]``  ``layers.i.moe.w_down`` (as is)
 ================================  ===================================
 
+The pipelined LM (``init_pipeline_lm``) stacks the blocks ``[S, (v,)
+lpc, ...]`` under ``blocks``: :func:`flax_pipeline_to_state_dict` gives
+the dense LM's names, global layer by global layer, and
+:func:`flax_pipeline_to_rank_state_dict` one stage's share of them.
+
 The per-layer ZeRO-3 LM (``init_zero3_lm``) stacks the same blocks
 under ``blocks``: :func:`flax_zero3_lm_to_state_dict` maps
 ``blocks/<Block path> [L, ...]`` onto
@@ -103,6 +108,56 @@ def flax_to_rank_state_dict(
     from adaptdl_tpu_torch.parallel.tensor_parallel import shard_state_dict
 
     return shard_state_dict(flax_to_state_dict(params), model, expert)
+
+
+def flax_pipeline_to_state_dict(params, num_stages: int, interleave: int = 1) -> dict[str, torch.Tensor]:
+    """The dense ``TransformerLM``'s ``state_dict`` for a flax
+    ``init_pipeline_lm`` tree: ``embed``, ``ln_f`` and ``blocks`` stacked
+    ``[S, lpc, ...]`` (GPipe) or ``[S, v, lpc, ...]`` (interleaved), where
+    global layer ``l = (k * S + d) * lpc + i`` sits at ``[d, (k,) i]``."""
+    blocks = params["blocks"]
+    shape = np.asarray(_first_leaf(blocks)).shape
+    lpc = shape[2] if interleave > 1 else shape[1]
+    dense = {"embed": params["embed"], "LayerNorm_0": params["ln_f"]}
+    for d in range(num_stages):
+        for k in range(interleave):
+            for i in range(lpc):
+                at = (d, k, i) if interleave > 1 else (d, i)
+                dense[f"layer_{(k * num_stages + d) * lpc + i}"] = _index(blocks, at)
+    return flax_to_state_dict(dense)
+
+
+def flax_pipeline_to_rank_state_dict(
+    params, num_stages: int, interleave: int, stage: int,
+    model: tuple[int, int] = (0, 1),
+) -> dict[str, torch.Tensor]:
+    """Stage ``stage``'s :class:`adaptdl_tpu_torch.models.PipelineLM`
+    ``state_dict`` for a flax ``init_pipeline_lm`` tree: the replicated
+    leaves and the stage's own layers, cut for model rank ``model =
+    (index, size)`` by the Megatron table."""
+    from adaptdl_tpu_torch.models.pipeline_lm import stage_layers
+    from adaptdl_tpu_torch.parallel.tensor_parallel import shard_state_dict
+
+    full = flax_pipeline_to_state_dict(params, num_stages, interleave)
+    num_layers = sum(1 for n in full if n.endswith(".ln1.scale"))
+    mine = stage_layers(num_layers, num_stages, interleave, stage)
+    keep = {
+        n: v for n, v in full.items()
+        if not n.startswith("layers.") or int(n.split(".")[1]) in mine
+    }
+    # PipelineLM's order: the embedding, its layers in visit order, ln_f.
+    ordered = {"embed.weight": keep["embed.weight"]}
+    for layer in mine:
+        prefix = f"layers.{layer}."
+        ordered.update((n, v) for n, v in keep.items() if n.startswith(prefix))
+    ordered["ln_f.scale"] = keep["ln_f.scale"]
+    return shard_state_dict(ordered, model)
+
+
+def _index(tree, at):
+    if isinstance(tree, dict):
+        return {k: _index(v, at) for k, v in tree.items()}
+    return np.asarray(tree)[at]
 
 
 def dense(p, prefix: str) -> dict[str, torch.Tensor]:

@@ -235,8 +235,8 @@ Phases (any failure exits non-zero before the result line):
       zero3_blocks to the dense plain-attention run, parameters within
       ZERO_PARAM_TOL of the largest and losses within ZERO_LOSS_RTOL
       (bit-equal expected: the element arithmetic is the same);
-   b. two ranks on the one card over gloo (the launcher), 2 steps at
-      (16, 0) each: the ranks' parameters bit-equal, each mode held to
+   b. two ranks on the one card over gloo (the launcher), ZERO_PAIR_STEPS
+      (1) steps at (16, 0) each: the ranks' parameters bit-equal, each mode held to
       its dense reference as in 11a; per-rank resident and peak memory
       and the median step (host-staged collectives: correctness and
       memory, not a scaling figure);
@@ -258,10 +258,10 @@ Phases (any failure exits non-zero before the result line):
    reset just before the steps, launch counts and collective.TRAFFIC
    reset just before and read just after:
    a. one rank (a fresh process) runs each mode's one-rank counterpart
-      (flash attention; plain attention) 2 steps; beside
+      (flash attention; plain attention) SEQ_STEPS (1) steps; beside
       it two ranks on the one card over gloo (the launcher,
       ADAPTDL_NUM_REPLICAS=2 ADAPTDL_SEQ_SHARDS=2: dp 1 x sp 2, each rank
-      the example's rewrite to one replica) run each mode 2 steps on the
+      the example's rewrite to one replica) run each mode as many steps on the
       same batches, each comparison waiting for the one-rank run's file: finite
       losses, the ranks' parameters bit-equal, losses within SEQ_LOSS_RTOL
       and parameters within SEQ_PARAM_RL2 (the L2 norm of the difference
@@ -308,7 +308,28 @@ Phases (any failure exits non-zero before the result line):
       (checksums).
    Host-staged collectives on one card: correctness and per-rank memory,
    not the axes' speed.
-14. result: the kernels line, the card line, then the device line. Each
+14. the stage axis: from the seed-0 full-width weights, plain attention
+   (the pipelined blocks' own), AdamW + AdamScale + the Adam
+   preconditioner, PIPE_STEPS bare steps at (8, 0) on raw token rows at
+   M PIPE_MICRO, against a one-rank dense LM with plain attention on the
+   same batches (a fresh process beside the launches; each comparison
+   waits for its file); launch counts, collective.TRAFFIC and per-rank
+   peak memory reset just before the steps and read just after:
+   a. dp 1 x ss 2 under GPipe (two gloo ranks on the one card);
+   b. dp 1 x ss 2 under the example's interleaved schedule (v 6);
+   c. dp 1 x tp 2 x ss 2, interleaved (four gloo ranks);
+   each: losses within AXES_LOSS_RTOL and the full parameters within
+   AXES_PARAM_RL2 of the one-rank update, the replicated leaves and the
+   gathered parameters bit-equal across the ranks, 0 launches of either
+   flash kernel on every rank, ppermute and all-reduce bytes per step;
+   d. checkpoint-restart: a's and b's trainers saved after their steps
+      (the dense LM's tensors, gathered in sync()) and restored by the
+      one-rank dense LM, which resumes at the saved step with the saved
+      parameters (checksums); the one-rank save restored at ss 2.
+   Host-staged collectives on one card: correctness, per-rank memory and
+   bytes, not the stage axis's speed. Every phase prints its seconds,
+   then the whole run's.
+15. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
@@ -322,8 +343,9 @@ Phases (any failure exits non-zero before the result line):
    "zero_launches" in each mode of 11a and
    on each rank of 11b, and "seq_launches" on each rank of each mode of
    12a (the sm90 row's "seq_gathered" is its time at 12a's gathered
-   shape), and "tp_launches" on each rank of 13a and 13b (the sm90 row's
-   "tp_local" is its time at 13a's local shape). The
+   shape), "tp_launches" on each rank of 13a and 13b (the sm90 row's
+   "tp_local" is its time at 13a's local shape), and
+   "pipeline_launches" on each rank of 14a-14c (0: plain attention). The
    sm90 row is timed on bf16 and the f32 kernel's on f32, each with its
    own bound (the f32 kernel's: 3xTF32 at TF32's peak), plain version and
    SDPA on the same inputs; the f32 row's "bf16_input_ms" is the f32
@@ -3989,7 +4011,7 @@ ZERO_MODES = {
 }
 ZERO_REFERENCE = {"zero1": "dense", "zero3": "dense", "zero3_blocks": "dense_plain"}
 ZERO_SINGLE_STEPS = 4  # 11a, at (32, 0)
-ZERO_PAIR_STEPS = 2  # 11b, at (16, 0) on each of two ranks
+ZERO_PAIR_STEPS = 1  # 11b, at (16, 0) on each of two ranks
 ZERO_RESCALE_STEPS = 2  # 11c: before the stop and after the restore
 ZERO_RESCALES = [
     ("zero1", "trainer"), ("zero1", "sharded"),
@@ -4392,7 +4414,7 @@ def phase_zero(kernel_rows):
 
 
 SEQ_MODES = ("ulysses", "ring")  # ulysses runs the flash forward inside
-SEQ_STEPS = 2  # 12a, each mode, at (8, 0)
+SEQ_STEPS = 1  # 12a, each mode, at (8, 0)
 SEQ_ATOMIC = 8
 SEQ_LONG = 4096  # 12b's long sequence, at atomic 2
 SEQ_CKPT_STEPS = 2  # 12c: the one-rank steps before its save
@@ -5207,6 +5229,354 @@ def phase_axes(kernel_rows):
     print(f"axes: phase {time.perf_counter() - start:.1f} s")
 
 
+PIPE_STEPS = 2  # 14a-14c, each run at (PIPE_ATOMIC, 0)
+PIPE_ATOMIC = 8
+PIPE_MICRO = 4  # the LM example's default M under a stage axis
+# 14's pipelined runs: (part, tp, schedule); "interleaved" is the LM
+# example's choice, at 12 layers over ss 2 and M 4 the interleaved
+# schedule with v 6.
+PIPE_RUNS = [("14a", 1, "gpipe"), ("14b", 1, "interleaved"), ("14c", 2, "interleaved")]
+PIPE_REPLICATED = ("embed.weight", "ln_f.scale")
+
+
+def pipe_mesh(tp=1, ss=1):
+    """The launcher's chips as dp 1 x tp x ss, the example's rewrite."""
+    from adaptdl_tpu_torch import env
+    from adaptdl_tpu_torch.parallel.mesh import create_mesh_from_topology
+
+    os.environ["ADAPTDL_SEQ_SHARDS"] = "1"
+    os.environ["ADAPTDL_EXPERT_SHARDS"] = "1"
+    os.environ["ADAPTDL_MODEL_SHARDS"] = str(tp)
+    os.environ["ADAPTDL_STAGE_SHARDS"] = str(ss)
+    os.environ["ADAPTDL_NUM_REPLICAS"] = str(env.data_parallel_replicas())
+    return create_mesh_from_topology()
+
+
+def pipe_trainer(device, mesh, schedule="gpipe"):
+    """A full-width LM trainer of 14 on ``mesh`` (current), plain
+    attention (the pipelined blocks' own): the dense LM at ss 1, else
+    this rank's PipelineLM (GPipe, or the example's interleaved schedule,
+    at M PIPE_MICRO, cut to its model shards under tp). Weights from
+    seed 0, drawn once per process."""
+    import dataclasses as dc
+
+    from adaptdl_tpu_torch.examples.transformer_lm import lm_config, pipeline_interleave
+    from adaptdl_tpu_torch.models import (
+        PipelineLM, TransformerLM, init_transformer, lm_loss_fn, pipeline_lm_loss_fn,
+    )
+    from adaptdl_tpu_torch.optim import AdamW
+    from adaptdl_tpu_torch.parallel.tensor_parallel import shard_transformer
+    from adaptdl_tpu_torch.scaling_rules import AdamScale
+    from adaptdl_tpu_torch.trainer import ElasticTrainer
+
+    tp, ss = mesh.axis_size("model"), mesh.axis_size("stage")
+    config = lm_config(cpu=False, seq_len=512, flash=False, tp_shards=tp)
+    full = _ZERO_WEIGHTS.get("pipe")
+    if full is None:
+        drawn = init_transformer(dc.replace(config, model_axis=None), seed=0, device="cpu")
+        full = _ZERO_WEIGHTS["pipe"] = {k: v.detach().clone() for k, v in drawn.state_dict().items()}
+        del drawn
+    interleave = 1
+    if schedule == "interleaved":
+        interleave = pipeline_interleave(config.num_layers, ss, PIPE_MICRO)
+    if ss == 1:
+        with torch.device("meta"):
+            model = TransformerLM(config)
+        model.to_empty(device="cpu")
+        model.load_state_dict(full)
+        loss_fn = lm_loss_fn
+    else:
+        with torch.device("meta"):
+            model = PipelineLM(config, ss, PIPE_MICRO, interleave, mesh.index("stage"))
+        model.to_empty(device="cpu")
+        model.load_state_dict({n: full[n] for n in model.state_dict()})
+        if tp > 1:
+            model = shard_transformer(model, (mesh.index("model"), tp))
+        loss_fn = pipeline_lm_loss_fn
+    model = model.to(device)
+    return ElasticTrainer(
+        loss_fn, model, AdamW(model.parameters(), lr=3e-4), init_batch_size=32,
+        scaling_rule=AdamScale(), precondition="adam", device=device, mesh=mesh,
+        pipeline_micro=PIPE_MICRO if ss > 1 else None,
+    )
+
+
+def pipe_flat(trainer, state):
+    """The full logical parameters in the dense LM's order as one flat
+    float32 vector on the host (a collective under a stage or model axis)."""
+    tree = trainer.params_tree(state)
+    names = trainer.model.dense_names() if trainer.stage_shards > 1 else trainer._names
+    return torch.cat([tree[name].reshape(-1).float().cpu() for name in names])
+
+
+def pipe_drive(trainer, device, steps):
+    """``steps`` bare train_step runs at (PIPE_ATOMIC, 0) on 14's global
+    batches of raw token rows (every rank of a stage group reads the
+    replica's whole block); returns the record and the flat logical
+    parameters before and after."""
+    import numpy as np
+
+    from adaptdl_tpu_torch import collective
+    from adaptdl_tpu_torch.ops import _build
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    state = trainer.init_state()
+    before = pipe_flat(trainer, state)
+    host = [{"tokens": np.concatenate([b["inputs"], b["targets"][:, -1:]], axis=1)}
+            for b in seq_batches(steps, 512, PIPE_ATOMIC)]
+    batches = [trainer.to_device(b) for b in host]
+    step = trainer.train_step(PIPE_ATOMIC, 0)
+    gc_cuda()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    collective.reset_traffic()
+    losses, seconds = [], []
+    for batch in batches:
+        torch.cuda.synchronize(device)
+        start = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - start)
+        losses.append(float(m["loss"]))
+    launches = {k: _build.LAUNCHES[k] for k in (KERNEL_SM90, KERNEL)}
+    traffic = {k: v / steps for k, v in collective.TRAFFIC.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    after = pipe_flat(trainer, state)
+    check(all(math.isfinite(x) for x in losses), f"14: losses {losses}")
+    named = dict(trainer.model.named_parameters())
+    replicated = torch.cat([named[n].detach().reshape(-1).float().cpu() for n in PIPE_REPLICATED])
+    record = {
+        "mesh": dict(trainer.mesh.shape), "losses": losses, "step_s": seconds,
+        "median_step_ms": _median(seconds) * 1e3, "launches": launches,
+        "traffic_bytes_per_step": traffic, "peak_gib": peak / 2**30,
+        "checksum": _bits_checksum(after), "step": state.host_step,
+        "replicated_checksum": _bits_checksum(replicated),
+        "local_params": sum(p.numel() for p in trainer.model.parameters()),
+    }
+    return record, before, after, state
+
+
+def pipe_save(trainer, state, root, tag):
+    """14d: save ``trainer``'s state to ``root/ckpt-<tag>`` (every rank
+    joins the gather in sync()); returns the saved step and checksum."""
+    from adaptdl_tpu_torch import checkpoint
+
+    os.environ["ADAPTDL_CHECKPOINT_PATH"] = os.path.join(root, f"ckpt-{tag}")
+    checkpoint._reset_registry()
+    holder = {"state": state}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s), name="pipe-lm"
+    )
+    start = time.perf_counter()
+    checkpoint.save_all_states()
+    entry = {"save_s": time.perf_counter() - start, "step": state.host_step,
+             "checksum": _bits_checksum(pipe_flat(trainer, state))}
+    ckpt.unregister()
+    del os.environ["ADAPTDL_CHECKPOINT_PATH"]
+    return entry
+
+
+def pipe_restore(root, tag, device, mesh, expect):
+    """14d: restore ``root/ckpt-<tag>`` into a fresh trainer on ``mesh``:
+    the resumed step and parameter checksum must equal the saved ones."""
+    from adaptdl_tpu_torch import checkpoint
+
+    os.environ["ADAPTDL_CHECKPOINT_PATH"] = os.path.join(root, f"ckpt-{tag}")
+    checkpoint._reset_registry()
+    trainer = pipe_trainer(device, mesh)
+    holder = {"state": trainer.init_state()}
+    ckpt = trainer.make_checkpoint_state(
+        lambda: holder["state"], lambda s: holder.__setitem__("state", s), name="pipe-lm"
+    )
+    start = time.perf_counter()
+    restored = checkpoint.load_state(ckpt)
+    entry = {"restore_s": time.perf_counter() - start, "restored": restored,
+             "resumed_at": holder["state"].host_step,
+             "resumed_checksum": _bits_checksum(pipe_flat(trainer, holder["state"]))}
+    check(
+        restored and entry["resumed_at"] == expect["step"]
+        and entry["resumed_checksum"] == expect["checksum"],
+        f"14d {tag} into {dict(mesh.shape)}: resumed at step {entry['resumed_at']} "
+        f"(saved {expect['step']}), parameters "
+        f"{'equal' if entry['resumed_checksum'] == expect['checksum'] else 'differ'}",
+    )
+    ckpt.unregister()
+    del os.environ["ADAPTDL_CHECKPOINT_PATH"], trainer, holder, ckpt
+    gc_cuda()
+    return entry
+
+
+def pipe_worker(kind, root):
+    """Phase 14's processes, run side by side: ``single`` (one rank: the
+    dense LM's steps, its save, then, once the pair has saved them, 14d's
+    one-rank restores of 14a and 14b), ``pair`` (a rank of two over gloo:
+    14a, 14b, their saves, then 14d's restore of the dense save at ss 2)
+    and ``quad`` (a rank of four: 14c). Each waits for the files the
+    others publish."""
+    import adaptdl_tpu_torch
+    from adaptdl_tpu_torch import env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = adaptdl_tpu_torch.initialize_job(device="cuda")
+    rank = env.process_rank()
+    if kind != "single":
+        import torch.distributed as dist
+
+        check(dist.get_backend() == "gloo", f"14 {kind} backend {dist.get_backend()}")
+    records, saved, seconds = {}, {}, {}
+    if kind == "single":
+        t0 = time.perf_counter()
+        trainer = pipe_trainer(device, pipe_mesh())
+        rec, before, after, state = pipe_drive(trainer, device, PIPE_STEPS)
+        _publish_tensors({"before": before, "after": after, "losses": rec["losses"]},
+                         os.path.join(root, "single-flat.pt"))
+        saved["dense"] = pipe_save(trainer, state, root, "dense")
+        _publish_json(os.path.join(root, "saved-dense.json"), saved["dense"])
+        records["dense"] = rec
+        del trainer, state, before, after
+        gc_cuda()
+        seconds["dense"] = time.perf_counter() - t0
+        back = {}
+        for part in ("14a", "14b"):
+            with open(_wait_file(os.path.join(root, f"saved-{part}.json"), f"14d {part}")) as f:
+                back[part] = pipe_restore(root, part, device, pipe_mesh(), json.load(f))
+        records["back"] = back
+    else:
+        runs = [r for r in PIPE_RUNS if (r[1] > 1) == (kind == "quad")]
+        for part, tp, schedule in runs:
+            t0 = time.perf_counter()
+            trainer = pipe_trainer(device, pipe_mesh(tp=tp, ss=2), schedule)
+            rec, before, after, state = pipe_drive(trainer, device, PIPE_STEPS)
+            one = torch.load(_wait_file(os.path.join(root, "single-flat.pt"), part))
+            check(torch.equal(one["before"], before), f"{part}: initial weights differ")
+            update = (one["after"] - one["before"]).norm().item()
+            rec["param_rl2"] = (after - one["after"]).norm().item() / update
+            rec["param_max_abs"] = (after - one["after"]).abs().max().item()
+            rec["one_losses"] = one["losses"]
+            rec["interleave"] = trainer.model.interleave
+            if kind == "pair":
+                saved[part] = pipe_save(trainer, state, root, part)
+                if rank == 0:
+                    _publish_json(os.path.join(root, f"saved-{part}.json"), saved[part])
+            records[part] = rec
+            del trainer, state, before, after
+            gc_cuda()
+            seconds[part] = time.perf_counter() - t0
+        if kind == "pair":
+            with open(_wait_file(os.path.join(root, "saved-dense.json"), "14d dense")) as f:
+                records["back"] = pipe_restore(root, "dense", device, pipe_mesh(ss=2),
+                                               json.load(f))
+    records["seconds"] = seconds
+    records["saved"] = saved
+    name = kind if kind == "single" else f"{kind}-rank{rank}"
+    _publish_json(os.path.join(root, f"{name}.json"), records)
+
+
+def phase_pipeline(kernel_rows):
+    """Phase 14: the stage axis on the card."""
+    from adaptdl_tpu_torch.ops.flash_attention import KERNEL, KERNEL_SM90
+
+    start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-pipe-")
+    base = _clean_environ()
+
+    def spawn(kind, replicas):
+        run_env = dict(base, ADAPTDL_NUM_REPLICAS=str(replicas), ADAPTDL_NUM_RESTARTS="0")
+        cmd = [os.path.join(here, "chip_smoke.py"), "--pipe-worker", kind, root]
+        if replicas > 1:
+            cmd = ["-m", "adaptdl_tpu_torch.launch"] + cmd
+        return subprocess.Popen(
+            [sys.executable, *cmd], cwd=here, env=run_env, start_new_session=True
+        )
+
+    def load(tag):
+        with open(os.path.join(root, f"{tag}.json")) as f:
+            return json.load(f)
+
+    try:
+        walls = _run_side_by_side(
+            "14", {"single": spawn("single", 1), "pair": spawn("pair", 2),
+                   "quad": spawn("quad", 4)},
+        )
+        single = load("single")
+        groups = {"pair": [load(f"pair-rank{r}") for r in range(2)],
+                  "quad": [load(f"quad-rank{r}") for r in range(4)]}
+        one = single["dense"]
+        print(f"pipeline 14 (one rank {walls['single']:.1f} s beside two ranks "
+              f"{walls['pair']:.1f} s and four ranks {walls['quad']:.1f} s over gloo on "
+              "the one card; correctness, per-rank memory and bytes, not the stage "
+              f"axis's speed; seconds of each run inside them: one rank "
+              f"{single['seconds']}, two ranks {groups['pair'][0]['seconds']}, four "
+              f"ranks {groups['quad'][0]['seconds']}):")
+        print(f"  one rank (dense LM, plain attention): losses {one['losses']}, launches "
+              f"{one['launches']}, peak {one['peak_gib']:.2f} GiB, median step "
+              f"{one['median_step_ms']:.1f} ms")
+        check(one["launches"][KERNEL_SM90] == 0 and one["launches"][KERNEL] == 0,
+              f"14 one rank: flash launches {one['launches']}")
+        launches = {}
+        for part, tp, _ in PIPE_RUNS:
+            recs = [g[part] for g in groups["quad" if tp > 1 else "pair"]]
+            interleave = recs[0]["interleave"]
+            want_mesh = {"data": 1, **({"model": tp} if tp > 1 else {}), "stage": 2}
+            check(recs[0]["mesh"] == want_mesh, f"{part} mesh {recs[0]['mesh']}")
+            check(len({r["replicated_checksum"] for r in recs}) == 1
+                  and len({r["checksum"] for r in recs}) == 1
+                  and all(r["losses"] == recs[0]["losses"] for r in recs),
+                  f"{part}: the ranks' replicated leaves, losses or gathered parameters differ")
+            launches[part] = [r["launches"][KERNEL_SM90] + r["launches"][KERNEL] for r in recs]
+            check(all(n == 0 for n in launches[part]),
+                  f"{part}: flash launches {[r['launches'] for r in recs]}, expected 0")
+            loss_rdiff = max(abs(x - y) / abs(y) for x, y in zip(recs[0]["losses"], one["losses"]))
+            recs[0]["loss_rdiff"] = loss_rdiff
+            check(
+                loss_rdiff <= AXES_LOSS_RTOL and recs[0]["param_rl2"] <= AXES_PARAM_RL2,
+                f"{part} against one rank: losses {loss_rdiff:.3g} (bound "
+                f"{AXES_LOSS_RTOL:.3g}), parameters {recs[0]['param_rl2']:.3g} of the "
+                f"update (bound {AXES_PARAM_RL2})",
+            )
+            traffic = ", ".join(
+                f"{k} {v / 1e6:.2f}" for k, v in recs[0]["traffic_bytes_per_step"].items() if v
+            )
+            schedule = "GPipe" if interleave == 1 else f"interleaved v {interleave}"
+            print(
+                f"  {part} {recs[0]['mesh']} {schedule} M {PIPE_MICRO}: ranks agree "
+                f"(replicated leaves bit-equal); losses {recs[0]['losses']} (max rel diff "
+                f"{loss_rdiff:.3g}); parameters against one rank: L2 "
+                f"{recs[0]['param_rl2']:.3g} of its update, max abs "
+                f"{recs[0]['param_max_abs']:.3g}; flash launches {launches[part]}; "
+                f"collectives per step (MB) {traffic}; per-rank peak "
+                f"{[round(r['peak_gib'], 2) for r in recs]} GiB, local parameters "
+                f"{[r['local_params'] for r in recs]}; median step "
+                f"{[round(r['median_step_ms'], 1) for r in recs]} ms"
+            )
+        pair = groups["pair"]
+        for part in ("14a", "14b"):
+            saved = pair[0]["saved"][part]
+            check(pair[1]["saved"][part] == {**saved, "save_s": pair[1]["saved"][part]["save_s"]},
+                  f"14d {part}: the ranks saved different states")
+            back = single["back"][part]
+            print(f"pipeline 14d {part} ss 2 -> 1: saved at step {saved['step']} "
+                  f"({saved['save_s']:.2f} s); one rank resumed at step "
+                  f"{back['resumed_at']} with its parameters ({back['restore_s']:.2f} s)")
+        dense = single["saved"]["dense"]
+        for r in pair:
+            check(r["back"]["resumed_at"] == dense["step"]
+                  and r["back"]["resumed_checksum"] == dense["checksum"],
+                  "14d dense -> ss 2: a rank resumed another state")
+        print(f"pipeline 14d dense 1 -> ss 2: saved at step {dense['step']} "
+              f"({dense['save_s']:.2f} s); both ranks resumed at step "
+              f"{pair[0]['back']['resumed_at']} with its parameters "
+              f"({pair[0]['back']['restore_s']:.2f} s)")
+        for row in kernel_rows:
+            row["pipeline_launches"] = launches
+        print(json.dumps({"pipeline": {"single": single, **groups}}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"pipeline: phase {time.perf_counter() - start:.1f} s")
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -5227,6 +5597,9 @@ def main():
     if sys.argv[1:2] == ["--axes-worker"]:
         axes_worker(*sys.argv[2:4])
         return
+    if sys.argv[1:2] == ["--pipe-worker"]:
+        pipe_worker(*sys.argv[2:4])
+        return
     # The kernel cache lives on the share path (ops/_build.py): phase 2
     # builds into it, and every later process (phase 5's ranks, phase 8's
     # incarnations) loads from it.
@@ -5238,28 +5611,39 @@ def main():
         shutil.rmtree(share, ignore_errors=True)
 
 
+def timed(name, fn, *args):
+    """``fn(*args)``, printing its seconds."""
+    start = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
 def smoke():
-    smi = phase_device()
-    phase_build()
-    kernel_rows = phase_flash()
-    main_step_s = phase_main_path(kernel_rows)
+    start = time.perf_counter()
+    smi = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    kernel_rows = timed("3 flash", phase_flash)
+    main_step_s = timed("4 main path", phase_main_path, kernel_rows)
     recorder = SupervisorRecorder({
         PAIR_JOB: ["slot-0"] * 2, SUPERVISED_JOB: ["slot-0"],
         RESCALE_JOB: ["slot-0"],
     })
     recorder.start()
     try:
-        phase_multi_replica(kernel_rows, recorder)
-        phase_supervised(kernel_rows, recorder, main_step_s)
-        phase_zoo(kernel_rows)
-        phase_rescale(kernel_rows, recorder)
+        timed("5 multi replica", phase_multi_replica, kernel_rows, recorder)
+        timed("6 supervised", phase_supervised, kernel_rows, recorder, main_step_s)
+        timed("7 zoo", phase_zoo, kernel_rows)
+        timed("8 rescale", phase_rescale, kernel_rows, recorder)
     finally:
         recorder.stop()
-    phase_options(kernel_rows)
-    phase_control(kernel_rows)
-    phase_zero(kernel_rows)
-    phase_seq(kernel_rows)
-    phase_axes(kernel_rows)
+    timed("9 options", phase_options, kernel_rows)
+    timed("10 control", phase_control, kernel_rows)
+    timed("11 zero", phase_zero, kernel_rows)
+    timed("12 seq", phase_seq, kernel_rows)
+    timed("13 axes", phase_axes, kernel_rows)
+    timed("14 pipeline", phase_pipeline, kernel_rows)
+    print(f"smoke: whole run {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

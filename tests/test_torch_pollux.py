@@ -15,8 +15,8 @@ inventories, base allocations) go to ``adaptdl_tpu.sched.policy`` and to
   objective math, and the dp default of ``best_config``; plus an
   incremental cycle and a partitioned one.
 
-The port's speedup function prices the data and seq axes; model, stage
-and expert hints raise.
+The port's speedup function prices every mesh axis as the JAX package
+does: seq, model, stage (with the pipeline M) and expert hints.
 """
 
 import numpy as np
@@ -150,21 +150,18 @@ def test_speedup_best_config_pure_dp_defaults():
      {"max_expert_shards": 2}, {"mesh_shape_grid": [(1, 1, 1, 1), (1, 2, 1, 1)]}],
 )
 def test_mesh_hints_raise(kw):
-    """The seq, model and expert axes are ported: their hints give the
-    JAX package's table and configurations (``mesh_shape_grid`` shapes
-    are (sp, tp, ss, ep), so (1, 2, 1, 1) is a model axis). The stage
-    axis still raises."""
-    if "max_stage_shards" not in kw:
-        nodes, chips = np.array([1, 1, 1, 2, 2]), np.array([1, 2, 4, 4, 8])
-        fns = [_speedup_fn(pkg, **kw) for pkg in PACKAGES]
-        np.testing.assert_allclose(
-            fns[1](nodes, chips), fns[0](nodes, chips), rtol=1e-12, atol=0
-        )
-        for n, c in zip(nodes.tolist(), chips.tolist()):
-            assert fns[1].best_config(n, c) == fns[0].best_config(n, c)
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _speedup_fn("port", **kw)
+    """Every mesh axis is ported: the seq, model, stage and expert hints
+    give the JAX package's table and configurations (``mesh_shape_grid``
+    shapes are (sp, tp, ss, ep), so (1, 2, 1, 1) is a model axis; a
+    stage configuration carries the pipeline M the search picked). The
+    name is kept from when the stage hint raised."""
+    nodes, chips = np.array([1, 1, 1, 2, 2]), np.array([1, 2, 4, 4, 8])
+    fns = [_speedup_fn(pkg, **kw) for pkg in PACKAGES]
+    np.testing.assert_allclose(
+        fns[1](nodes, chips), fns[0](nodes, chips), rtol=1e-12, atol=0
+    )
+    for n, c in zip(nodes.tolist(), chips.tolist()):
+        assert fns[1].best_config(n, c) == fns[0].best_config(n, c)
 
 
 # ---- the policy, cycle after cycle ----------------------------------------

@@ -157,6 +157,11 @@ def test_mesh_layout_is_data_outermost(monkeypatch):
     x = torch.arange(8.0).reshape(2, 4)
     assert collective.all_to_all(x, None, 1, 0) is x
     assert collective.ppermute(x, None) is x
-    with pytest.raises(NotImplementedError, match="stage axis"):
-        pmesh.create_mesh({"data": 1, "stage": 2})
+    # The stage axis is ported: a one-process stage mesh is built (its
+    # hops are the identity); an unknown axis raises.
+    mesh = pmesh.create_mesh({"data": 1, "stage": 1})
+    assert mesh.axis_size("stage") == 1 and pmesh.axis_index("stage") == 0
+    assert pmesh.topology_axes(1, 1, 1, 2) == {"data": 1, "stage": 2}
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        pmesh.create_mesh({"data": 1, "pipe": 2})
     pmesh._reset()

@@ -8,8 +8,9 @@ expressions), at ``max_seq_shards`` 1, 2 and 4, with and without
 accumulation. ``SpeedupFunction`` tables and configurations at
 ``max_seq_shards=2`` and under a seq-only ``mesh_shape_grid`` equal the
 JAX package's, hysteresis included. The same holds with model and
-expert limits (the JAX functions over a grid of sp, tp and ep limits);
-stage limits still raise.
+expert limits (the JAX functions over a grid of sp, tp and ep limits),
+and with stage limits, where the search also picks the pipeline M and,
+for a job of ``pipeline_chunks`` chunks, the interleaved schedule.
 """
 
 import numpy as np
@@ -93,20 +94,32 @@ def test_speedup_tables_with_seq_shards_match_jax(kw):
 @pytest.mark.parametrize(
     "kw",
     [{"max_model_shards": 2}, {"max_stage_shards": 2}, {"max_expert_shards": 2},
-     {"mesh_shape_grid": [(2, 1, 1, 1), (1, 1, 2, 1)]}],
+     {"mesh_shape_grid": [(2, 1, 1, 1), (1, 1, 2, 1)]},
+     {"mesh_shape_grid": [(1, 1, 1, 1), (2, 1, 1, 1), (1, 1, 2, 1)]},
+     {"max_stage_shards": 4, "max_model_shards": 2, "pipeline_chunks": 12},
+     {"max_stage_shards": 2, "max_pipeline_micro": 2}],
 )
 def test_model_stage_expert_limits_raise(kw):
-    """Model and expert limits give the JAX package's tables and
-    configurations; a stage limit, or a stage shape in the grid, still
-    raises."""
-    if "max_stage_shards" in kw or "mesh_shape_grid" in kw:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            _speedup_fn("port", max_seq_shards=2, **kw)
-        return
+    """Model, stage and expert limits, and stage shapes in the grid, give
+    the JAX package's tables and configurations (a stage configuration
+    carries the pipeline M the search picked). A grid without the
+    one-chip shape has no base goodput: both packages divide by zero on
+    the table. The name is kept from when stage limits raised."""
     fns = [_speedup_fn(pkg, max_seq_shards=2, **kw) for pkg in PACKAGES]
+    if (1, 1, 1, 1) not in kw.get("mesh_shape_grid", [(1, 1, 1, 1)]):
+        for fn in fns:
+            assert fn._base_goodput == 0.0
+            with pytest.raises(ZeroDivisionError):
+                fn(NODES, CHIPS)
+        return
     np.testing.assert_allclose(fns[1](NODES, CHIPS), fns[0](NODES, CHIPS), rtol=1e-12, atol=0)
-    for n, c in zip(NODES.tolist(), CHIPS.tolist()):
-        assert fns[1].best_config(n, c) == fns[0].best_config(n, c)
+    configs = [fns[1].best_config(n, c) for n, c in zip(NODES.tolist(), CHIPS.tolist())]
+    assert configs == [fns[0].best_config(n, c) for n, c in zip(NODES.tolist(), CHIPS.tolist())]
+    cap = kw.get("max_pipeline_micro", 8)
+    assert all(micro <= cap for *_, micro in configs)
+    if kw.get("max_stage_shards", 1) > 1 and cap == 8:
+        # At M up to 8 a stage configuration wins somewhere.
+        assert any(ss > 1 for _, _, _, _, ss, _, _ in configs)
 
 
 # ---- the model and expert axes of the search ------------------------------

@@ -216,15 +216,22 @@ def test_unported_modes_raise(monkeypatch):
     opt = AdamW(model.parameters(), lr=1e-3)
     with pytest.raises(TypeError, match="meshes"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, mesh=object(), device="cpu")
-    # A seq axis needs one process per chip; the stage axis is not ported.
+    # A seq or stage axis needs one process per chip: the stage axis is
+    # ported (tests/test_torch_pipeline_trainer.py trains it at two and
+    # four ranks), so one process asks for the processes it lacks; an
+    # unknown axis raises.
     monkeypatch.setenv("ADAPTDL_SEQ_SHARDS", "2")
     with pytest.raises(NotImplementedError, match="one per chip under a seq axis"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, device="cpu")
     monkeypatch.setenv("ADAPTDL_SEQ_SHARDS", "1")
     monkeypatch.setenv("ADAPTDL_STAGE_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="stage axis"):
+    with pytest.raises(NotImplementedError, match=r"\{'data': 1, 'stage': 2\} needs 2"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, device="cpu")
     monkeypatch.setenv("ADAPTDL_STAGE_SHARDS", "1")
+    from adaptdl_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        pmesh.create_mesh({"data": 1, "pipe": 2})
     monkeypatch.setenv("ADAPTDL_NUM_REPLICAS", "2")
     with pytest.raises(NotImplementedError, match="multi-replica"):
         ElasticTrainer(lm_loss_fn, model, opt, 4, device="cpu")

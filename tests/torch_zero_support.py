@@ -1,9 +1,10 @@
 """Shared set-up of the port's ZeRO tests (``tests/test_torch_zero.py``,
 ``test_torch_zero3_blocks.py``, ``test_torch_sharded_checkpoint.py``):
 the JAX reference run in a given storage mode on the conftest's CPU mesh
-(``_pcast`` bound to a keyword call in both ``adaptdl_tpu.trainer`` and
-``adaptdl_tpu.parallel.zero3``, as ``jax.lax.pcast`` takes ``to`` by
-keyword under the installed jax), the launch of
+(``_pcast`` bound to a keyword call in ``adaptdl_tpu.trainer``,
+``adaptdl_tpu.parallel.zero3`` and ``adaptdl_tpu.parallel.pipeline``,
+as ``jax.lax.pcast`` takes ``to`` by keyword under the installed jax),
+the launch of
 ``tests/torch_zero_worker.py`` at two gloo ranks, and the comparisons at
 ``test_torch_multi_replica.py``'s tolerances: loss, gain, LR factor and
 progress rtol 1e-5; parameters rtol 1e-5 and atol 2e-6; the noise
@@ -53,9 +54,11 @@ def finish(proc):
 
 def bind_pcast():
     """A MonkeyPatch context binding the JAX package's ``_pcast`` to a
-    keyword call where the ZeRO paths import it."""
+    keyword call where the trainer, the ZeRO paths and the pipeline
+    schedules import it."""
     import jax
 
+    import adaptdl_tpu.parallel.pipeline as jax_pipeline
     import adaptdl_tpu.parallel.zero3 as jax_zero3
     import adaptdl_tpu.trainer as jax_trainer_mod
 
@@ -63,6 +66,7 @@ def bind_pcast():
     pcast = lambda x, axes, to: jax.lax.pcast(x, axes, to=to)  # noqa: E731
     patch.setattr(jax_trainer_mod, "_pcast", pcast)
     patch.setattr(jax_zero3, "_pcast", pcast)
+    patch.setattr(jax_pipeline, "_pcast", pcast)
     return patch
 
 
