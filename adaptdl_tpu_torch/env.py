@@ -22,6 +22,11 @@ from __future__ import annotations
 
 import os
 
+# Env keys also written by other modules (the tuner writes them into its
+# trials' environments): one spelling each.
+TRIAL_CONFIG_KEY = "ADAPTDL_TRIAL_CONFIG"
+TRIAL_RESULT_KEY = "ADAPTDL_TRIAL_RESULT_FILE"
+
 
 def _get_int(name: str, default: int) -> int:
     value = os.environ.get(name)
@@ -391,9 +396,52 @@ def preempt_backoff_after() -> int:
 # ---- the control plane (``sched/``) -----------------------------------
 
 
+def watch_buffer_size() -> int:
+    """Samples kept per watch time series (per job, per tenant and for
+    the cluster): the oldest are evicted first."""
+    return max(_get_int("ADAPTDL_WATCH_BUFFER", 512), 8)
+
+
+def watch_drift_window() -> int:
+    """Samples in the rolling measured/predicted goodput window behind
+    ``adaptdl_goodput_drift``: the ratio is the mean of the last N."""
+    return max(_get_int("ADAPTDL_WATCH_DRIFT_WINDOW", 16), 3)
+
+
+def watch_drift_threshold() -> float:
+    """Relative deviation of the drift ratio from 1.0 past which a job
+    is flagged for re-profiling (ratio outside ``[1/(1+t), 1+t]``); a
+    metric and a /watch field, never a policy input."""
+    return max(_get_float("ADAPTDL_WATCH_DRIFT_THRESHOLD", 0.25), 0.01)
+
+
 def watch_explain_topk() -> int:
     """Losing candidates kept per allocator cycle's explain record."""
     return max(_get_int("ADAPTDL_WATCH_EXPLAIN_TOPK", 3), 0)
+
+
+def watch_straggler_factor() -> float:
+    """A rank's step-time EWMA above this multiple of its job's median
+    marks its slot suspect (``adaptdl_slot_suspect``); needs three or
+    more reporting ranks."""
+    return max(_get_float("ADAPTDL_WATCH_STRAGGLER_FACTOR", 1.5), 1.0)
+
+
+def watch_slo_rho() -> float:
+    """Per-tenant fairness SLO: each watch sample whose mean slowdown
+    rho exceeds it bumps ``adaptdl_tenant_slo_burn_total``."""
+    return max(_get_float("ADAPTDL_WATCH_SLO_RHO", 3.0), 0.1)
+
+
+def trial_config_raw() -> str | None:
+    """This tuner trial's hyperparameters as JSON (``tune.py`` sets it
+    in the trial's environment)."""
+    return _get_str(TRIAL_CONFIG_KEY)
+
+
+def trial_result_file() -> str | None:
+    """JSON-lines file a trial appends its result rows to."""
+    return _get_str(TRIAL_RESULT_KEY)
 
 
 def lease_ttl() -> float:

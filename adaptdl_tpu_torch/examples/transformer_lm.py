@@ -12,7 +12,8 @@ On the CPU (tiny): python -m adaptdl_tpu_torch.examples.transformer_lm --cpu --e
 Flash attention (the sm_90a kernel) is on by default on the card and
 off on the CPU, where it would run its plain version. As in the JAX
 example: ``--chunked-xent N`` streams the output head in vocab chunks
-of N (``ops/chunked_xent.py``), ``--remat-policy`` names a
+of N (``ops/chunked_xent.py``; under ``--seq-shards`` each rank over its
+own block of positions), ``--remat-policy`` names a
 jax.checkpoint_policies policy, and ``--moe-experts E --moe-top-k K``
 makes every second block a mixture of E experts (one expert shard).
 ``--steps`` and ``--report-dir`` bound a run under an elastic runner and
@@ -295,7 +296,9 @@ def main(argv=None):
     from adaptdl_tpu_torch.models import (
         init_pipeline_lm, init_transformer, init_zero3_lm, lm_loss_fn, lm_pair_loss_fn,
     )
-    from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_loss_fn
+    from adaptdl_tpu_torch.ops.chunked_xent import (
+        chunked_lm_loss_fn, chunked_lm_pair_loss_fn,
+    )
     from adaptdl_tpu_torch.optim import AdamW
     from adaptdl_tpu_torch.parallel.mesh import create_mesh_from_topology
     from adaptdl_tpu_torch.scaling_rules import AdamScale
@@ -314,9 +317,6 @@ def main(argv=None):
         and (seq_shards == 1 or args.seq_mode == "ulysses")
     )
     args.flash = flash
-    assert not (seq_shards > 1 and args.chunked_xent > 0), (
-        "--chunked-xent under --seq-shards > 1 is not ported yet"
-    )
     config = lm_config(
         args.cpu, seq_len, flash, args.remat_policy, args.moe_experts,
         args.moe_top_k, seq_shards, args.seq_mode, tp_shards, expert_shards,
@@ -347,11 +347,16 @@ def main(argv=None):
         loss_fn, model = init_zero3_lm(config, seed=0, device=device)
     else:
         model = init_transformer(config, seed=0, device=device)
-        loss_fn = (
-            chunked_lm_loss_fn(args.chunked_xent) if args.chunked_xent > 0
-            else lm_pair_loss_fn if seq_shards > 1
-            else lm_loss_fn
-        )
+        if seq_shards > 1:
+            loss_fn = (
+                chunked_lm_pair_loss_fn(args.chunked_xent)
+                if args.chunked_xent > 0 else lm_pair_loss_fn
+            )
+        else:
+            loss_fn = (
+                chunked_lm_loss_fn(args.chunked_xent)
+                if args.chunked_xent > 0 else lm_loss_fn
+            )
 
     trainer = ElasticTrainer(
         loss_fn,

@@ -25,7 +25,6 @@ from typing import NamedTuple
 
 import numpy as np
 import scipy.optimize
-import torch
 
 class PerfParams(NamedTuple):
     """Fitted performance-model parameters.
@@ -643,18 +642,38 @@ def _fit_objective(
 
 class _TorchOps:
     """The slice of the array namespace the model formulas use, over
-    torch tensors (the second operand of ``maximum`` is a number)."""
+    torch tensors (the second operand of ``maximum`` is a number).
+    torch is imported at the call: the control plane evaluates the model
+    with numpy and never imports it."""
 
-    log = staticmethod(torch.log)
-    sum = staticmethod(torch.sum)
-    sqrt = staticmethod(torch.sqrt)
+    @staticmethod
+    def log(x):
+        import torch
+
+        return torch.log(x)
+
+    @staticmethod
+    def sum(x, *args, **kwargs):
+        import torch
+
+        return torch.sum(x, *args, **kwargs)
+
+    @staticmethod
+    def sqrt(x):
+        import torch
+
+        return torch.sqrt(x)
 
     @staticmethod
     def maximum(x, floor):
+        import torch
+
         return torch.clamp(x, min=floor)
 
     @staticmethod
     def where(cond, x, y):
+        import torch
+
         return torch.where(cond, x, y)
 
 
@@ -744,6 +763,8 @@ def fit_perf_params(
     if not ep_observed:
         init[13] = upper[13] = lower[13]  # all_to_all unidentifiable
         init[14] = upper[14] = lower[14]
+
+    import torch
 
     args = tuple(
         torch.as_tensor(a, dtype=torch.float64)

@@ -112,23 +112,45 @@ def chunked_softmax_xent(x, embedding, targets, chunk_size: int = 4096):
     return ChunkedSoftmaxXent.apply(x, embedding, targets, chunk_size)
 
 
+def _chunked_lm_loss(model, inputs, targets, chunk_size):
+    """The mean chunked cross-entropy of the model's final hidden states
+    of ``inputs`` against ``targets`` (the tied table ``model.embed``),
+    plus the weighted MoE aux loss."""
+    from adaptdl_tpu_torch.models.transformer import apply_with_moe_aux
+
+    hidden, aux = apply_with_moe_aux(model, inputs, return_hidden=True)
+    losses = chunked_softmax_xent(
+        hidden.reshape(-1, hidden.shape[-1]),
+        model.embed.weight,
+        targets.reshape(-1),
+        chunk_size,
+    )
+    return losses.mean() + aux
+
+
 def chunked_lm_loss_fn(chunk_size: int = 4096):
     """Next-token LM loss streaming the vocab axis, a drop-in for
     ``models.lm_loss_fn``: the model returns its final hidden states
     (no logits tensor anywhere in the step) and the loss reads the tied
     table from ``model.embed.weight`` (float32). Adds the weighted MoE
     aux loss. batch = {"tokens": [b, s+1] int}."""
-    from adaptdl_tpu_torch.models.transformer import apply_with_moe_aux
 
     def loss_fn(model, batch, generator=None):
         tokens = batch["tokens"]
-        hidden, aux = apply_with_moe_aux(model, tokens[:, :-1], return_hidden=True)
-        losses = chunked_softmax_xent(
-            hidden.reshape(-1, hidden.shape[-1]),
-            model.embed.weight,
-            tokens[:, 1:].reshape(-1),
-            chunk_size,
-        )
-        return losses.mean() + aux
+        return _chunked_lm_loss(model, tokens[:, :-1], tokens[:, 1:], chunk_size)
+
+    return loss_fn
+
+
+def chunked_lm_pair_loss_fn(chunk_size: int = 4096):
+    """:func:`chunked_lm_loss_fn` over inputs and targets aligned on the
+    host, a drop-in for ``models.lm_pair_loss_fn`` (the JAX example's
+    chunked loss): under a seq axis each rank streams the head over its
+    own block of positions, and the trainer averages the loss over the
+    seq group as it does the dense pair loss. batch = {"inputs": [b, s]
+    int, "targets": [b, s] int}."""
+
+    def loss_fn(model, batch, generator=None):
+        return _chunked_lm_loss(model, batch["inputs"], batch["targets"], chunk_size)
 
     return loss_fn

@@ -1,8 +1,9 @@
 """Allocator: turns posted hints into Pollux allocations.
 
 The port's copy of ``adaptdl_tpu.sched.allocator``, over the port's
-goodput model and policy; the watch-store sample is not ported (the
-cycle's explain record stays on the policy, ``policy.last_explain``).
+goodput model and policy. After each cycle it hands the policy's explain
+record and one goodput sample of every active job to the state's watch
+store (best effort: a watch failure never fails a cycle).
 
 Builds a :class:`JobInfo` per job from its sched hints — notably
 ``max_replicas = min(2 x maxProfiledReplicas, spec max)`` so a job can
@@ -36,6 +37,7 @@ from adaptdl_tpu_torch.sched.state import (
     ClusterState,
     normalize_topology,
 )
+from adaptdl_tpu_torch.watch import tenant_of
 
 LOG = logging.getLogger(__name__)
 
@@ -264,7 +266,59 @@ class Allocator:
                 "explain": self._policy.last_explain,
             }
         )
+        # The cycle's provenance and its goodput sample. Observability
+        # only: a watch failure must not fail a cycle whose publishes
+        # already committed.
+        try:
+            self._note_explain(mode)
+            self._watch_sample(elapsed)
+        except Exception:  # noqa: BLE001 - observability is best-effort
+            LOG.exception("watch sampling failed")
         return allocations
+
+    def _watch_sample(self, cycle_s: float) -> None:
+        """One goodput sample per cycle: every active job's published
+        allocation and posted hints, the inventory's capacity, and the
+        cycle's wall time (the denominator of the sampling-overhead
+        share)."""
+        watch = getattr(self._state, "watch", None)
+        if watch is None:
+            return
+        nodes = self._current_nodes()
+        # "tpu" is the wire name of a slot's chips, shared with the JAX
+        # package's state files.
+        sizes = [n.resources.get("tpu", 0) for n in nodes.values()]
+        chips_per_slice = max(
+            sizes + [self._template.resources.get("tpu", 1), 1]
+        )
+        jobs_view = []
+        for key, record in sorted(self._state.jobs().items()):
+            if record.status in FINISHED:
+                continue
+            spec = record.spec or {}
+            jobs_view.append(
+                {
+                    "key": key,
+                    "tenant": tenant_of(key, spec),
+                    "alloc": list(record.allocation),
+                    "topology": record.topology,
+                    "batchConfig": record.batch_config,
+                    "hints": record.hints,
+                    # The fairness denominator: the job's asked-for
+                    # fixed allocation (spec "requested", else its max).
+                    "requested": int(
+                        spec.get("requested")
+                        or spec.get("max_replicas")
+                        or 1
+                    ),
+                }
+            )
+        watch.sample_cycle(
+            jobs_view,
+            total_chips=sum(sizes),
+            chips_per_slice=chips_per_slice,
+            cycle_s=cycle_s,
+        )
 
     def _optimize_once_traced(
         self, decide_attrs: dict, dirty: set[str]
@@ -539,6 +593,24 @@ class Allocator:
                 )
                 self._state.publish_retune(key, batch_config)
         return allocations, mode
+
+    def _note_explain(self, mode: str) -> None:
+        """Hand the policy's explain record to the watch store, each job
+        enriched with its PUBLISHED mesh shape (what actually ships)."""
+        watch = getattr(self._state, "watch", None)
+        explain = getattr(self._policy, "last_explain", None)
+        if watch is None or explain is None:
+            return
+        # One locked snapshot of the job table, not a get_job per key.
+        records = self._state.jobs()
+        jobs = {}
+        for key, rec in (explain.get("jobs") or {}).items():
+            record = records.get(key)
+            enriched = dict(rec)
+            if record is not None and record.allocation:
+                enriched["meshShape"] = normalize_topology(record.topology)
+            jobs[key] = enriched
+        watch.note_explain(self._cycle, mode, explain, jobs)
 
     def start(self) -> None:
         # The kick baseline is snapshotted BEFORE each cycle —

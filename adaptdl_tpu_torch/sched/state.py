@@ -25,9 +25,15 @@ leases get grace deadlines and pending epochs fresh commit deadlines, so
 live workers reattach before anything expires. The files are the JAX
 package's, byte for byte, so either package recovers what the other wrote.
 
+**Watch** (``self.watch``, ``watch.WatchStore``): measured goodput from
+the hints, step-time EWMAs from the beats, incidents, and the allocator's
+per-cycle samples and explain records. In memory only, never journaled:
+a recovered state starts with empty series. The store's lock is never
+taken under ``_cond``.
+
 Not ported yet (ROADMAP Queue 1): the tenant migration half (the reshard
 ``pending`` and ``moved`` tables and the op-log stream: the snapshot
-carries them empty) and the watch store.
+carries them empty).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Any
 
 from adaptdl_tpu_torch import env, faults, trace
 from adaptdl_tpu_torch.sched.journal import StateJournal
+from adaptdl_tpu_torch.watch import WatchStore, tenant_of
 
 LOG = logging.getLogger(__name__)
 
@@ -49,15 +56,6 @@ LOG = logging.getLogger(__name__)
 # consumer — allocator skip-list, operator cleanup, runner threads —
 # agrees on one definition.
 FINISHED = ("Succeeded", "Failed", "Stopped")
-
-
-def tenant_of(key: str, spec: dict | None = None) -> str:
-    """A job's accounting tenant (the JAX package's ``watch.tenant_of``):
-    an explicit ``spec["tenant"]`` wins, else the namespace half of the
-    ``namespace/name`` job key."""
-    if spec and spec.get("tenant"):
-        return str(spec["tenant"])
-    return key.split("/", 1)[0] if "/" in key else "default"
 
 
 # Allocator decision-latency buckets (adaptdl_alloc_decide_seconds):
@@ -439,6 +437,11 @@ class ClusterState:
         self._recoveries = 0  # guarded-by: _cond
         self._last_recovery_s: float | None = None  # guarded-by: _cond
         self._torn_records = 0  # guarded-by: _cond
+        # The goodput-accounting, provenance and drift store: in memory,
+        # never journaled (a recovered state starts with empty series).
+        # Assigned once before any other thread holds a reference; the
+        # store carries its own lock.
+        self.watch = WatchStore(clock=self._clock)
         # Assigned once, before any other thread can hold a reference
         # to this state: mutators then only read it (under _cond).
         self._journal: StateJournal | None = None
@@ -1201,6 +1204,8 @@ class ClusterState:
             self._journal_append(op)
             self._apply_remove_locked(op, self._clock.monotonic())
             self._cond.notify_all()
+        # The job's watch series go with it.
+        self.watch.forget_job(key)
 
     def update(self, key: str, **fields: Any) -> None:
         with self._cond:
@@ -1679,6 +1684,8 @@ class ClusterState:
             # optimization interval.
             self._alloc_kick += 1
             self._cond.notify_all()
+        # The watch store's lock never nests under _cond.
+        self.watch.note_incident(key, kind, blame, slot)
         return blame, slot
 
     def incident_info(self) -> dict:
@@ -1898,6 +1905,35 @@ class ClusterState:
                 },
                 "last_dirty": self._alloc_last_dirty,
             }
+
+    # -- watch intake (in memory, not journaled) ------------------------
+
+    def observe_measured(self, key: str, goodput: float) -> bool:
+        """A job's trainer-reported measured goodput, into the watch
+        store under its tenant."""
+        with self._cond:
+            record = self._jobs.get(key)
+            if record is None:
+                return False
+            tenant = tenant_of(key, record.spec)
+        self.watch.observe_measured(key, goodput, tenant=tenant)
+        return True
+
+    def note_step_time(self, key: str, rank: int, seconds: float) -> bool:
+        """One rank's heartbeat step-time EWMA, attributed to the slot its
+        replica runs on (the straggler rule's intake)."""
+        with self._cond:
+            record = self._jobs.get(key)
+            if record is None:
+                return False
+            rank = int(rank)
+            slot = (
+                record.allocation[rank]
+                if 0 <= rank < len(record.allocation)
+                else None
+            )
+        self.watch.note_step_time(key, rank, slot, seconds)
+        return True
 
     # -- readers -------------------------------------------------------
 

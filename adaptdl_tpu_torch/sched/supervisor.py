@@ -22,7 +22,14 @@ JSON bodies, so either control plane drives either job side:
   advertisements and the predicted next launch config.
 - ``PUT`` / ``GET /trace/{namespace}/{name}``: worker span intake (a
   bounded, de-duplicated store per job) and the stitched timeline.
-- ``GET /healthz``, ``GET /status``.
+- ``GET /healthz``, ``GET /status`` (with each job's watch fields).
+- ``GET /watch``: the watch store's bounded snapshot (cluster
+  utilization, per-tenant share and fairness, per-job goodput and drift,
+  suspect slots, cycle summaries); ``GET /explain/{namespace}/{name}``:
+  the job's latest allocator decision and its provenance.
+- ``GET /metrics``: Prometheus text built with ``trace.PromBuilder``, so
+  every family has its ``# HELP`` and ``# TYPE`` line and every label
+  value is escaped; the JAX supervisor's families, names and help text.
 
 Durability: with a journaled ``ClusterState`` (``state_dir``) every
 mutating request fsyncs its journal record under the state's condition
@@ -40,13 +47,14 @@ allocation withdrawn for re-placement) and rolls back allocation epochs
 that missed their commit deadline. Handlers are fault-injection points
 (``sup.*.pre``) whose injected faults become 500s.
 
-Not ported yet (ROADMAP Queue 1): ``/watch``, ``/explain``, ``/metrics``
-and the ``/shard/*`` routes with their reshard gate.
+Not ported yet (ROADMAP Queue 1): the ``/shard/*`` routes and their
+reshard gate.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -65,6 +73,108 @@ from adaptdl_tpu_torch.sched.state import ClusterState
 LOG = logging.getLogger(__name__)
 
 _DISCOVER_TIMEOUT = 300.0
+
+# The /metrics families, in exposition order: (name, type, HELP), the
+# JAX supervisor's names, types and HELP text, so one dashboard reads
+# either control plane.
+_METRIC_FAMILIES = (
+    ("adaptdl_jobs", "gauge", "Known jobs by lifecycle status."),
+    ("adaptdl_job_replicas", "gauge",
+     "Chips currently allocated to each job."),
+    ("adaptdl_job_degraded", "gauge",
+     "1 while a job runs short-handed after a lease expiry."),
+    ("adaptdl_job_batch_size", "gauge",
+     "Initial global batch size from the job's sched hints."),
+    ("adaptdl_job_retunes_total", "counter",
+     "Live batch-config re-tunes adopted without a restart."),
+    ("adaptdl_job_submissions_total", "counter",
+     "Jobs ever submitted to this cluster."),
+    ("adaptdl_job_completion_seconds", "summary",
+     "Time from submission to a terminal status."),
+    ("adaptdl_alloc_epoch", "gauge",
+     "Allocation epoch counter (bumped at every prepare)."),
+    ("adaptdl_alloc_pending", "gauge",
+     "1 while an allocation epoch awaits its commit quorum."),
+    ("adaptdl_alloc_rollbacks_total", "counter",
+     "Allocation epochs rolled back at the commit deadline."),
+    ("adaptdl_slot_strikes", "gauge",
+     "Consecutive failed-allocation strikes per slot."),
+    ("adaptdl_slot_quarantined", "gauge",
+     "1 for slots quarantined away from the allocator."),
+    ("adaptdl_preemption_notices_total", "counter",
+     "Reclaim notices observed, by slot kind."),
+    ("adaptdl_slot_draining", "gauge",
+     "1 for slots draining under an active reclaim notice."),
+    ("adaptdl_job_draining", "gauge",
+     "1 while a job drains after a preemption notice."),
+    ("adaptdl_hazard_rate", "gauge",
+     "EWMA reclaim hazard per slot kind (notices per slot-second)."),
+    ("adaptdl_ckpt_delta_ratio", "gauge",
+     "Last delta checkpoint's bytes over the last full snapshot's (from "
+     "restartStats; 1 until a delta lands)."),
+    ("adaptdl_ckpt_save_bytes", "gauge",
+     "Serialized bytes of the job's last checkpoint save, by kind (full "
+     "vs delta)."),
+    ("adaptdl_handoff_seconds", "gauge",
+     "Duration of the job's last peer-to-peer state handoff fetch "
+     "(successor side)."),
+    ("adaptdl_handoff_bytes", "gauge",
+     "Bytes transferred in the job's last peer-to-peer state handoff."),
+    ("adaptdl_alloc_decide_seconds", "histogram",
+     "Allocator decision latency per cycle, by mode (full Pollux search "
+     "vs incremental dirty-job re-optimization)."),
+    ("adaptdl_alloc_dirty_jobs", "gauge",
+     "Dirty jobs consumed by the last allocator cycle."),
+    ("adaptdl_goodput_measured", "gauge",
+     "Trainer-measured goodput (useful examples/s) per job, from the "
+     "measuredGoodput sched hint."),
+    ("adaptdl_goodput_predicted", "gauge",
+     "Model-predicted goodput per job at its PUBLISHED allocation \u2014 what"
+     " the scheduler believed when it allocated."),
+    ("adaptdl_goodput_drift", "gauge",
+     "Rolling measured/predicted goodput ratio per job (1 = the fitted "
+     "model is right; the drift monitor's signal)."),
+    ("adaptdl_goodput_reprofile_flag", "gauge",
+     "1 while a job's goodput drift sits outside the "
+     "ADAPTDL_WATCH_DRIFT_THRESHOLD band \u2014 the model needs re-profiling "
+     "(observability-only signal)."),
+    ("adaptdl_tenant_goodput_share", "gauge",
+     "Each tenant's share of the cluster's current total goodput."),
+    ("adaptdl_tenant_fairness_rho", "gauge",
+     "Mean finish-time-fairness slowdown per tenant (requested-ideal "
+     "goodput over actual; 1 = running at the ask)."),
+    ("adaptdl_tenant_jobs", "gauge",
+     "Active jobs per tenant, by whether they hold an allocation."),
+    ("adaptdl_tenant_slo_burn_total", "counter",
+     "Watch samples in which the tenant's fairness rho exceeded the "
+     "ADAPTDL_WATCH_SLO_RHO target."),
+    ("adaptdl_slot_suspect", "gauge",
+     "Step-time EWMA of the slot's rank over its job's median \u2014 above "
+     "the straggler factor the slot is suspect."),
+    ("adaptdl_cluster_utilization", "gauge",
+     "Allocated chips over total inventory chips at the last allocator "
+     "cycle."),
+    ("adaptdl_supervisor_recoveries_total", "counter",
+     "Durable-state recoveries this cluster has performed."),
+    ("adaptdl_supervisor_recovery_seconds", "gauge",
+     "Duration of the last snapshot+journal replay."),
+    ("adaptdl_journal_torn_records_total", "counter",
+     "Torn journal records dropped during recovery."),
+    ("adaptdl_incidents_total", "counter",
+     "Numeric-health incidents accepted by the supervisor, by kind "
+     "(nan_loss/nan_grad/loss_spike)."),
+    ("adaptdl_job_incidents_total", "counter",
+     "Numeric-health incidents accepted per job."),
+    ("adaptdl_guard_rollbacks_total", "counter",
+     "Last-known-good checkpoint rollbacks performed per job (from the "
+     "guardStats sched hint)."),
+    ("adaptdl_ckpt_last_good_age_seconds", "gauge",
+     "Age of the job's newest health-confirmed (good-marked) checkpoint."),
+    ("adaptdl_goodput_raw", "gauge",
+     "Unguarded throughput-EWMA goodput per job \u2014 includes the "
+     "unhealthy/rolled-back steps the guarded adaptdl_goodput_measured "
+     "excludes."),
+)
 
 
 def _group_param(request: Request) -> int | None:
@@ -173,11 +283,27 @@ class Supervisor(ThreadedHttpServer):
         key = _job_key(request)
         rank = int(request.match_info["rank"])
         group = _group_param(request)
-        # A beat's body may carry the rank's step-time EWMA, which the
-        # JAX supervisor hands its watch store (not ported): a beat is
-        # a lease renewal here whatever it carries.
+        # A beat's body may carry the rank's step-time EWMA, the
+        # straggler rule's intake; a beat without one is a plain lease
+        # renewal.
+        step_ewma = None
+        if request.can_read_body:
+            try:
+                body = request.json()
+            except ValueError:
+                body = None
+            if isinstance(body, dict):
+                raw = body.get("stepTimeEwma")
+                if (
+                    isinstance(raw, (int, float))
+                    and not isinstance(raw, bool)
+                    and raw > 0
+                ):
+                    step_ewma = float(raw)
         if not self._state.renew_lease(key, rank, self._lease_ttl, group=group):
             return error_response("no such job", 404)
+        if step_ewma is not None:
+            self._state.note_step_time(key, rank, step_ewma)
         return json_response({"ok": True, "ttl": self._lease_ttl})
 
     @_faultable("sup.hints.pre")
@@ -192,6 +318,11 @@ class Supervisor(ThreadedHttpServer):
         if self._state.get_job(key) is None:
             return error_response("no such job", 404)
         self._state.update(key, hints=hints)
+        # The trainer's measured goodput rides the hints; the watch
+        # store pairs it with the model's prediction each cycle.
+        measured = hints.get("measuredGoodput")
+        if isinstance(measured, (int, float)) and measured >= 0:
+            self._state.observe_measured(key, float(measured))
         # Hints are posted from rank 0's fit thread: a liveness beat.
         self._renew(key, 0, group=group)
         return json_response({"ok": True})
@@ -343,7 +474,35 @@ class Supervisor(ThreadedHttpServer):
         payload["incidentsByKind"] = incidents["incidentsByKind"]
         payload["incidentSlotBlame"] = incidents["slotBlame"]
         payload["incidentDataBlame"] = incidents["dataBlame"]
+        # Measured against predicted goodput, drift and the re-profiling
+        # flag per job: "is this job healthy" from /status alone.
+        watch_fields = self._state.watch.status_fields()
+        for key, job in payload["jobs"].items():
+            job.update(watch_fields.get(key, {}))
         return payload
+
+    # -- goodput accounting and decision provenance --------------------------
+
+    @_faultable("sup.watch.pre")
+    def _watch(self, request: Request) -> Response:
+        """The watch store's bounded snapshot (what ``cli top`` renders)."""
+        return json_response(self._state.watch.snapshot())
+
+    @_faultable("sup.explain.pre")
+    def _explain(self, request: Request) -> Response:
+        """One job's decision provenance: its latest explain record, the
+        last real decision, retained history and that cycle's losers."""
+        key = _job_key(request)
+        if self._state.get_job(key) is None:
+            return error_response("no such job", 404)
+        payload = self._state.watch.explain_for(key)
+        if payload is None:
+            return error_response(
+                "no explain record yet (no allocator cycle has covered "
+                "this job)",
+                404,
+            )
+        return json_response(payload)
 
     # -- worker span intake and the stitched per-job timeline ----------------
 
@@ -389,6 +548,10 @@ class Supervisor(ThreadedHttpServer):
                 seen.add(span_id)
                 fresh.append(rec)
             store.extend(fresh)
+        # Worker phases fold into this process's registry, so /metrics
+        # covers both sides of a rescale; spans this process recorded
+        # itself were observed when recorded.
+        trace.absorb([rec for rec in fresh if rec.get("pid") != os.getpid()])
         return json_response({"ok": True, "accepted": len(fresh)})
 
     def _job_trace_spans(self, key: str) -> list[dict]:
@@ -435,6 +598,246 @@ class Supervisor(ThreadedHttpServer):
                 "spans": self._job_trace_spans(key),
             }
         )
+
+    @_faultable("sup.metrics.pre")
+    def _metrics(self, request: Request) -> Response:
+        """Prometheus text exposition of the cluster's gauges, counters
+        and histograms, and the trace registry's phases and events."""
+        return Response(
+            200,
+            self._metrics_text().encode("utf-8"),
+            {"Content-Type": "text/plain; charset=utf-8"},
+        )
+
+    def _metrics_text(self) -> str:
+        b = trace.PromBuilder()
+        for name, mtype, help_text in _METRIC_FAMILIES:
+            b.family(name, mtype, help_text)
+        lifecycle = self._state.lifecycle_metrics()
+        b.sample(
+            "adaptdl_job_submissions_total",
+            value=lifecycle["submitted_total"],
+        )
+        for status, (count, total) in sorted(
+            lifecycle["completions"].items()
+        ):
+            b.sample(
+                "adaptdl_job_completion_seconds",
+                {"status": status},
+                count,
+                suffix="_count",
+            )
+            b.sample(
+                "adaptdl_job_completion_seconds",
+                {"status": status},
+                round(total, 3),
+                suffix="_sum",
+            )
+        jobs = self._state.jobs()
+        by_status: dict[str, int] = {}
+        for record in jobs.values():
+            by_status[record.status] = by_status.get(record.status, 0) + 1
+        for status, count in sorted(by_status.items()):
+            b.sample("adaptdl_jobs", {"status": status}, count)
+        for key, record in sorted(jobs.items()):
+            labels = {"job": key}
+            b.sample(
+                "adaptdl_job_replicas", labels, len(record.allocation)
+            )
+            b.sample(
+                "adaptdl_job_retunes_total", labels, record.retunes
+            )
+            b.sample(
+                "adaptdl_job_degraded", labels, int(record.degraded)
+            )
+            hints = record.hints or {}
+            if hints.get("initBatchSize"):
+                b.sample(
+                    "adaptdl_job_batch_size",
+                    labels,
+                    hints["initBatchSize"],
+                )
+            stats = hints.get("restartStats") or {}
+            if stats.get("saveBytes") is not None:
+                b.sample(
+                    "adaptdl_ckpt_save_bytes",
+                    {**labels, "kind": stats.get("saveKind", "full")},
+                    stats["saveBytes"],
+                )
+            if stats.get("deltaRatio") is not None:
+                b.sample(
+                    "adaptdl_ckpt_delta_ratio",
+                    labels,
+                    stats["deltaRatio"],
+                )
+            if stats.get("handoffS") is not None:
+                b.sample(
+                    "adaptdl_handoff_seconds",
+                    labels,
+                    stats["handoffS"],
+                )
+                b.sample(
+                    "adaptdl_handoff_bytes",
+                    labels,
+                    stats.get("handoffBytes", 0),
+                )
+            b.sample("adaptdl_alloc_epoch", labels, record.alloc_epoch)
+            b.sample(
+                "adaptdl_alloc_pending",
+                labels,
+                int(record.alloc_state == "pending"),
+            )
+            b.sample(
+                "adaptdl_job_draining", labels, int(record.draining)
+            )
+        # Rollbacks, strikes and quarantine, drains and hazards.
+        health = self._state.slot_health()
+        for key, count in sorted(health["rollbacks"].items()):
+            b.sample(
+                "adaptdl_alloc_rollbacks_total", {"job": key}, count
+            )
+        for slot, count in sorted(health["strikes"].items()):
+            b.sample("adaptdl_slot_strikes", {"slot": slot}, count)
+        for slot in sorted(health["quarantined"]):
+            b.sample("adaptdl_slot_quarantined", {"slot": slot}, 1)
+        preempt = self._state.preemption_info()
+        for kind, count in sorted(
+            preempt["noticesByKind"].items()
+        ):
+            b.sample(
+                "adaptdl_preemption_notices_total",
+                {"kind": kind},
+                count,
+            )
+        for slot in sorted(preempt["drainingSlots"]):
+            b.sample("adaptdl_slot_draining", {"slot": slot}, 1)
+        for kind, rate in sorted(preempt["hazardRates"].items()):
+            b.sample(
+                "adaptdl_hazard_rate", {"kind": kind}, round(rate, 9)
+            )
+        incidents = self._state.incident_info()
+        for kind, count in sorted(
+            incidents["incidentsByKind"].items()
+        ):
+            b.sample(
+                "adaptdl_incidents_total", {"kind": kind}, count
+            )
+        # Incremental-allocator telemetry: per-mode decision-latency
+        # histograms + the last cycle's dirty-job count.
+        alloc = self._state.alloc_cycle_metrics()
+        for mode in sorted(alloc["modes"]):
+            raw = alloc["modes"][mode]
+            snap = trace.Histogram(tuple(alloc["buckets"]))
+            snap.counts = list(raw["counts"])
+            snap.total = raw["sum"]
+            snap.count = raw["count"]
+            b.histogram(
+                "adaptdl_alloc_decide_seconds", {"mode": mode}, snap
+            )
+        b.sample("adaptdl_alloc_dirty_jobs", value=alloc["last_dirty"])
+        # Goodput accounting, per-tenant fairness and SLO burn, the drift
+        # flags, straggler suspects and cluster utilization.
+        watch = self._state.watch.metrics_view()
+        for key, job in sorted(watch["jobs"].items()):
+            labels = {"job": key, "tenant": job["tenant"]}
+            if job["measured"] is not None:
+                b.sample(
+                    "adaptdl_goodput_measured", labels, job["measured"]
+                )
+            if job["predicted"] is not None:
+                b.sample(
+                    "adaptdl_goodput_predicted",
+                    labels,
+                    job["predicted"],
+                )
+            if job["drift"] is not None:
+                b.sample(
+                    "adaptdl_goodput_drift", labels, job["drift"]
+                )
+                b.sample(
+                    "adaptdl_goodput_reprofile_flag",
+                    labels,
+                    int(job["reprofile"]),
+                )
+            if job.get("incidents"):
+                b.sample(
+                    "adaptdl_job_incidents_total",
+                    labels,
+                    job["incidents"],
+                )
+            if job.get("rollbacks"):
+                b.sample(
+                    "adaptdl_guard_rollbacks_total",
+                    labels,
+                    job["rollbacks"],
+                )
+            if job.get("lastGoodAge") is not None:
+                b.sample(
+                    "adaptdl_ckpt_last_good_age_seconds",
+                    labels,
+                    job["lastGoodAge"],
+                )
+            if job.get("rawGoodput") is not None:
+                b.sample(
+                    "adaptdl_goodput_raw", labels, job["rawGoodput"]
+                )
+        for tenant, agg in sorted(watch["tenants"].items()):
+            labels = {"tenant": tenant}
+            if agg.get("share") is not None:
+                b.sample(
+                    "adaptdl_tenant_goodput_share",
+                    labels,
+                    agg["share"],
+                )
+            if agg.get("rho") is not None:
+                b.sample(
+                    "adaptdl_tenant_fairness_rho", labels, agg["rho"]
+                )
+            if agg.get("jobs") is not None:
+                b.sample(
+                    "adaptdl_tenant_jobs",
+                    {**labels, "state": "running"},
+                    agg.get("running", 0),
+                )
+                b.sample(
+                    "adaptdl_tenant_jobs",
+                    {**labels, "state": "queued"},
+                    agg["jobs"] - agg.get("running", 0),
+                )
+            b.sample(
+                "adaptdl_tenant_slo_burn_total",
+                labels,
+                agg.get("burn", 0),
+            )
+        for slot, suspect in sorted(watch["suspects"].items()):
+            b.sample(
+                "adaptdl_slot_suspect",
+                {"slot": slot, "job": suspect["job"]},
+                suspect["ratio"],
+            )
+        if watch["cluster"] is not None:
+            b.sample(
+                "adaptdl_cluster_utilization",
+                value=watch["cluster"]["utilization"],
+            )
+        recovery = self._state.recovery_info()
+        b.sample(
+            "adaptdl_supervisor_recoveries_total",
+            value=recovery["recoveries"],
+        )
+        if recovery["lastRecoveryS"] is not None:
+            b.sample(
+                "adaptdl_supervisor_recovery_seconds",
+                value=round(recovery["lastRecoveryS"], 4),
+            )
+        b.sample(
+            "adaptdl_journal_torn_records_total",
+            value=recovery["tornRecords"],
+        )
+        # Phase histograms and event counters: this process's spans and
+        # the ones its workers posted.
+        trace.render_into(b)
+        return b.render()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -513,5 +916,8 @@ class Supervisor(ThreadedHttpServer):
             ("GET", "/candidate/{namespace}/{name}", self._get_candidate),
             ("GET", "/healthz", self._healthz),
             ("GET", "/status", self._status),
+            ("GET", "/watch", self._watch),
+            ("GET", "/explain/{namespace}/{name}", self._explain),
+            ("GET", "/metrics", self._metrics),
         ]
         return [(m, p, self._timed(h)) for m, p, h in table]

@@ -16,9 +16,12 @@
 - **Flush**: :func:`flush_to_supervisor` PUTs the spans not yet sent to
   ``/trace/{job}`` (on the hint and heartbeat cadence).
   :func:`phase_summary` gives the median duration of each span name.
-
-The Perfetto, Prometheus and waterfall renderers of the JAX module are
-supervisor and CLI side and are not part of the port.
+- **Registry**: every recorded span lands in a per-phase Prometheus
+  histogram and every event bumps a counter; the supervisor
+  :func:`absorb` s the spans its workers post, so its ``/metrics``
+  (:class:`PromBuilder`, :func:`render_into`) covers both sides.
+- **Renderers**: :func:`to_perfetto` (Chrome ``trace_event`` JSON) and
+  :func:`render_waterfall` (the CLI's ASCII phase waterfall).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import os
 import random
 import threading
 import time
+import zlib
+from bisect import bisect_left
 from collections import deque
 from contextlib import contextmanager
 
@@ -172,7 +177,27 @@ def _record(rec: dict) -> None:
         _seq += 1
         rec["seq"] = _seq
         _buffer_locked().append(rec)
+    _observe(rec)
     _journal_write(rec)
+
+
+def _observe(rec: dict) -> None:
+    """Fold one span record into the Prometheus registry: an event bumps
+    its counter, a span its phase histogram."""
+    if rec.get("kind") == "event":
+        with _metrics_lock:
+            _counters[rec["name"]] = _counters.get(rec["name"], 0) + 1
+    else:
+        observe_phase(rec["name"], float(rec.get("dur", 0.0)))
+
+
+def absorb(records: list[dict]) -> None:
+    """Observe span records posted by workers into this process's
+    registry (the supervisor's ``PUT /trace``), without buffering or
+    journaling them."""
+    for rec in records:
+        if isinstance(rec, dict) and "name" in rec:
+            _observe(rec)
 
 
 def _parent(traceparent: str | None) -> tuple[str, str]:
@@ -347,6 +372,217 @@ def read_journal(path: str) -> list[dict]:
     return records
 
 
+def _tid_int(name: str) -> int:
+    """A stable small integer for a thread name (``trace_event`` wants
+    numeric tids)."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+
+
+def to_perfetto(records: list[dict]) -> dict:
+    """Chrome ``trace_event`` JSON (the object form): complete ("X")
+    events for spans, instants ("i") for events, and process and thread
+    name metadata; loads in ui.perfetto.dev and chrome://tracing."""
+    events: list[dict] = []
+    named: set[tuple[int, int]] = set()
+    for rec in records:
+        pid = int(rec.get("pid", 0))
+        thread = str(rec.get("tid", "main"))
+        tid = _tid_int(thread)
+        if (pid, tid) not in named:
+            named.add((pid, tid))
+            events.append({
+                "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                "args": {"name": thread},
+            })
+            events.append({
+                "name": "process_name", "ph": "M", "pid": pid, "tid": tid,
+                "args": {"name": f"pid {pid} (inc {rec.get('inc', 0)})"},
+            })
+        args = dict(rec.get("attrs") or {})
+        args["trace_id"] = rec.get("trace", "")
+        args["span_id"] = rec.get("span", "")
+        base = {
+            "name": rec["name"],
+            "cat": "adaptdl",
+            "pid": pid,
+            "tid": tid,
+            "ts": float(rec.get("ts", 0.0)) * 1e6,
+            "args": args,
+        }
+        if rec.get("kind") == "event":
+            base["ph"] = "i"
+            base["s"] = "p"
+        else:
+            base["ph"] = "X"
+            base["dur"] = max(float(rec.get("dur", 0.0)), 0.0) * 1e6
+        events.append(base)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+# Per-phase latency buckets: rpc attempts in the millisecond band,
+# checkpoint, restore and build phases up to a minute.
+_DEFAULT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+_RPC_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+    0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+def _buckets_for(phase: str) -> tuple[float, ...]:
+    return _RPC_BUCKETS if phase.startswith("rpc.") else _DEFAULT_BUCKETS
+
+
+class Histogram:
+    """One Prometheus histogram series: per-bucket counts (the last is
+    +Inf), sum and count. Mutated under the registry lock."""
+
+    __slots__ = ("buckets", "counts", "total", "count")
+
+    def __init__(self, buckets: tuple[float, ...]):
+        self.buckets = buckets
+        self.counts = [0] * (len(buckets) + 1)
+        self.total = 0.0
+        self.count = 0
+
+    def observe_locked(self, value: float) -> None:  # holds-lock: _metrics_lock
+        self.counts[bisect_left(self.buckets, value)] += 1
+        self.total += value
+        self.count += 1
+
+
+_metrics_lock = threading.Lock()
+_histograms: dict[str, Histogram] = {}  # guarded-by: _metrics_lock
+_counters: dict[str, int] = {}  # guarded-by: _metrics_lock
+
+
+def observe_phase(phase: str, seconds: float) -> None:
+    with _metrics_lock:
+        hist = _histograms.get(phase)
+        if hist is None:
+            hist = Histogram(_buckets_for(phase))
+            _histograms[phase] = hist
+        hist.observe_locked(max(float(seconds), 0.0))
+
+
+def escape_label_value(value: str) -> str:
+    """Prometheus label escaping: backslash, double quote, newline."""
+    return (
+        str(value)
+        .replace("\\", r"\\")
+        .replace('"', r"\"")
+        .replace("\n", r"\n")
+    )
+
+
+def _fmt_value(value) -> str:
+    if isinstance(value, bool):
+        return str(int(value))
+    if isinstance(value, int):
+        return str(value)
+    as_float = float(value)
+    if as_float == int(as_float) and abs(as_float) < 1e15:
+        return str(int(as_float))
+    return repr(as_float)
+
+
+def _fmt_le(bound: float) -> str:
+    return "+Inf" if bound == float("inf") else _fmt_value(bound)
+
+
+class PromBuilder:
+    """Prometheus text exposition in which every family has one ``#
+    HELP`` and one ``# TYPE`` line, its samples sit under it, and label
+    values are escaped: the supervisor's ``/metrics`` is built with it,
+    so a malformed series cannot be emitted."""
+
+    def __init__(self):
+        self._order: list[str] = []
+        # family -> (type, help, [sample lines])
+        self._families: dict[str, tuple[str, str, list[str]]] = {}
+
+    def family(self, name: str, mtype: str, help_text: str) -> None:
+        if name not in self._families:
+            self._order.append(name)
+            self._families[name] = (mtype, help_text, [])
+
+    def sample(self, family: str, labels: dict | None = None, value=0,
+               suffix: str = "") -> None:
+        if family not in self._families:
+            raise ValueError(
+                f"sample for undeclared family {family!r}: declare it "
+                "with family() first (HELP and TYPE are mandatory)"
+            )
+        label_text = ""
+        if labels:
+            inner = ",".join(
+                f'{key}="{escape_label_value(val)}"'
+                for key, val in labels.items()
+            )
+            label_text = "{" + inner + "}"
+        self._families[family][2].append(
+            f"{family}{suffix}{label_text} {_fmt_value(value)}"
+        )
+
+    def histogram(self, family: str, labels: dict, hist: Histogram) -> None:
+        cumulative = 0
+        for bound, count in zip(tuple(hist.buckets) + (float("inf"),), hist.counts):
+            cumulative += count
+            self.sample(
+                family, dict(labels, le=_fmt_le(bound)), cumulative,
+                suffix="_bucket",
+            )
+        self.sample(family, labels, hist.total, suffix="_sum")
+        self.sample(family, labels, hist.count, suffix="_count")
+
+    def render(self) -> str:
+        lines: list[str] = []
+        for name in self._order:
+            mtype, help_text, samples = self._families[name]
+            lines.append(f"# HELP {name} {help_text}")
+            lines.append(f"# TYPE {name} {mtype}")
+            lines.extend(samples)
+        return "\n".join(lines) + "\n"
+
+
+def render_into(builder: PromBuilder) -> None:
+    """Add the registry's phase histograms and event counters to an
+    exposition (the supervisor's ``/metrics``)."""
+    builder.family(
+        "adaptdl_trace_phase_seconds",
+        "histogram",
+        "Duration of traced rescale-lifecycle phases, by span name.",
+    )
+    builder.family(
+        "adaptdl_trace_events_total",
+        "counter",
+        "Traced point events (retries, circuit opens, cache "
+        "hits/misses, epoch transitions), by event name.",
+    )
+    with _metrics_lock:
+        hists = {
+            phase: (hist.buckets, list(hist.counts), hist.total, hist.count)
+            for phase, hist in _histograms.items()
+        }
+        counters = dict(_counters)
+    for phase in sorted(hists):
+        buckets, counts, total, count = hists[phase]
+        snap = Histogram(buckets)
+        snap.counts, snap.total, snap.count = counts, total, count
+        builder.histogram("adaptdl_trace_phase_seconds", {"phase": phase}, snap)
+    for name in sorted(counters):
+        builder.sample("adaptdl_trace_events_total", {"event": name}, counters[name])
+
+
+def prometheus_lines() -> str:
+    """The registry's families as an exposition of their own."""
+    builder = PromBuilder()
+    render_into(builder)
+    return builder.render()
+
+
 def flush_to_supervisor(job_id: str | None = None) -> bool:
     """PUT the spans not yet sent to the supervisor's ``/trace/{job}``;
     best effort. The flush itself is not traced."""
@@ -396,6 +632,35 @@ def phase_summary(records: list[dict]) -> dict[str, float]:
     return summary
 
 
+def render_waterfall(records: list[dict], width: int = 32) -> str:
+    """An ASCII phase waterfall of spans in wall-start order (the CLI's
+    ``trace`` prints it)."""
+    spans = [r for r in records if r.get("kind") != "event"]
+    if not spans:
+        return "(no spans)"
+    spans.sort(key=lambda r: float(r.get("ts", 0.0)))
+    t0 = float(spans[0]["ts"])
+    horizon = max(
+        float(r["ts"]) + float(r.get("dur", 0.0)) for r in spans
+    ) - t0 or 1e-9
+    lines = [
+        f"{'PHASE':<28} {'SIDE':<12} {'START(ms)':>10} "
+        f"{'DUR(ms)':>10}  TIMELINE"
+    ]
+    for rec in spans:
+        offset = float(rec["ts"]) - t0
+        dur = float(rec.get("dur", 0.0))
+        lead = int(width * offset / horizon)
+        bar = max(int(width * dur / horizon), 1)
+        side = f"pid{rec.get('pid', '?')}/i{rec.get('inc', 0)}"
+        lines.append(
+            f"{rec['name']:<28} {side:<12} {offset * 1e3:>10.2f} "
+            f"{dur * 1e3:>10.2f}  "
+            f"{' ' * lead}{'#' * min(bar, width - lead or 1)}"
+        )
+    return "\n".join(lines)
+
+
 def _reset_state() -> None:
     """Drop all trace state (tests)."""
     global _buffer, _seq, _flushed_seq, _incarnation
@@ -404,6 +669,9 @@ def _reset_state() -> None:
         _buffer = None
         _seq = 0
         _flushed_seq = 0
+    with _metrics_lock:
+        _histograms.clear()
+        _counters.clear()
     with _ctx_lock:
         _trace_id = None
         _root_span_id = None

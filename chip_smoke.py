@@ -109,7 +109,7 @@ Phases (any failure exits non-zero before the result line):
    (ADAPTDL_TRACE_DIR); the launch counts of each incarnation are reset
    just before its steps and read just after (sm90 only):
    a. incarnation 0 loads the kernels from the cache on the share path
-      (phase 2 built it there), takes 10 steps with a save every 3 in
+      (phase 2 built it there), takes 7 steps with a save every 3 in
       the background (each save's blocking
       snapshot and background write seconds, the step after each save
       against the others, the pinned host buffers), the guard grading
@@ -182,7 +182,21 @@ Phases (any failure exits non-zero before the result line):
       spec edit to the publish, the SIGTERM, the exit 143 and the
       successor's first step, the cycle's p50 and max ms, the hint and
       heartbeat round trips as the job's span journal saw them (p50,
-      p99) and the median step at 1 and 2 ranks;
+      p99) and the median step at 1 and 2 ranks. The operator's surface,
+      after the last edit: once the allocator publishes the last
+      allocation, GET /explain/{job} holds the publishing cycle's record
+      with that allocation; once the last incarnation runs (its spans and
+      a watch sample after its launch arrived), GET /watch (goodput
+      samples, measured and predicted, drift), /explain (the last
+      decision is the running allocation), /metrics (text/plain, passes
+      tests/promcheck.py, drift and the job's tenant families) and
+      /status (each job's watch fields) from the live supervisor, then
+      `python -m adaptdl_tpu_torch.cli status|top|explain|trace
+      --perfetto FILE` as four processes at once, each exit 0, the
+      Perfetto file one trace id, the decision's, with the last
+      incarnation's spans in it. Printed: one {"watch": ...} line (the
+      routes' and verbs' ms, /metrics bytes and families, the watch
+      store's sampling seconds over the allocator's cycle seconds);
    b. MultiJobRunner over two slots, co-scheduling that forces a
       decision: linear regression (examples/linear_regression.py) starts
       alone at min = max = 2 and holds both slots; once it posts hints,
@@ -197,7 +211,7 @@ Phases (any failure exits non-zero before the result line):
       Printed: every restart with the cycle that caused it, the seconds
       from the LM's submit to the publish, the SIGTERM, the exit 143 and
       each job's first step.
-   c. 10a's job and edits (step budget 200: the incumbent steps on
+   c. 10a's job and edits (step budget 140: the incumbent steps on
       through each warm-up window) with the warm successor
       (ADAPTDL_WARMUP_ENABLED, ADAPTDL_WARMUP_DEADLINE_S=120), the peer
       handoff (ADAPTDL_HANDOFF) and a journaled cluster state
@@ -220,6 +234,23 @@ Phases (any failure exits non-zero before the result line):
       successor's first) beside 10a's; the incumbent's median step while
       the successor warmed against before; the hint and heartbeat round
       trips with the journal against 10a's. 10a also prints its stall.
+      10c reads the operator's surface as 10a does, after its last
+      cutover.
+   d. elastic tuning: tune.TrialScheduler runs three trials of
+      examples/tune_trial.py (linear regression, lr 0.05, 0.02 and a
+      hopeless 1e-6) on the card through the port's MultiJobRunner over
+      three slots (one per trial: on two, a trial paused at its rung gate
+      would hold its slot and the third could never reach the rung),
+      halving at rungs of 2 results; beside it `python -m
+      adaptdl_tpu_torch.cli submit examples/linear_regression.py --chips
+      1` runs 3 epochs. 10d runs beside 10b (after 10a, before 10c): all
+      its jobs are small, and the script's time limit has no room for it
+      after 10c. Checked: the 1e-6 trial stopped at a rung and
+      exited 143 after a checkpoint, the best trial one of the good two,
+      DONE, its last loss under 0.1; submit exits 0 with weights within
+      0.05 of the true ones. Printed: each trial's results, exits, first
+      launch and run seconds, the order of the stops, and the tuner's
+      and submit's seconds.
 11. ZeRO storage modes: the full-width LM (12 x 768, 12 heads, seq 512,
    vocab 32000, bf16 compute, f32 params, remat, AdamW + AdamScale with
    the Adam-preconditioned statistics) from the same weights under
@@ -248,7 +279,9 @@ Phases (any failure exits non-zero before the result line):
       losses; save and restore seconds.
    Each process draws the seed-0 weights once per model kind (the dense
    LM, the zero3 LM) through init_transformer / init_zero3_lm and loads
-   them into its later trainers.
+   them into its later trainers. 11a's process runs beside 11b's launch
+   (neither reads the other's results), so their step times are taken
+   side by side. The phase runs beside phase 12's worker processes.
 12. the sequence axis: the full-width LM with inputs and targets aligned
    on the host (lm_pair_loss_fn), AdamW(3e-4) + AdamScale + the Adam
    preconditioner, bare train_step runs at (8, 0) from the seed-0
@@ -276,7 +309,9 @@ Phases (any failure exits non-zero before the result line):
       step with its parameters (checksums), take a step and save; the
       one-rank process restores that.
    Host-staged collectives on one card: correctness and per-rank memory,
-   not the seq axis's speed.
+   not the seq axis's speed. Phase 11 runs beside phase 12's worker
+   processes, started once phase 12 has timed its kernel in this process
+   (neither reads the other's results).
 13. the model and expert axes, and the ZeRO modes under a seq axis: two
    ranks on the one card over gloo (the launcher, ADAPTDL_NUM_REPLICAS=2),
    each run from the seed-0 full-width weights (every rank cut to its
@@ -327,8 +362,10 @@ Phases (any failure exits non-zero before the result line):
       one-rank dense LM, which resumes at the saved step with the saved
       parameters (checksums); the one-rank save restored at ss 2.
    Host-staged collectives on one card: correctness, per-rank memory and
-   bytes, not the stage axis's speed. Every phase prints its seconds,
-   then the whole run's.
+   bytes, not the stage axis's speed. Phase 14 runs beside phase 13's
+   worker processes, started once phase 13 has timed its kernel in this
+   process (neither reads the other's results). Every phase
+   prints its seconds, then the whole run's.
 15. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
@@ -368,6 +405,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -2300,7 +2338,7 @@ def phase_zoo(kernel_rows):
 RESCALE_JOB = "smoke/rescale"
 RESCALE_PLAN = {
     # mode: (restarts, steps taken, step whose body raises the exit flag)
-    "first": (0, 10, 9),
+    "first": (0, 7, 6),
     "successor": (1, 3, 2),
     "fallback": (2, 4, None),
 }
@@ -2578,8 +2616,12 @@ def phase_rescale(kernel_rows, recorder):
         # 1. Incarnation 0: periodic saves in the background, then a stop.
         first = run("first")
         saves = first["saves"]
-        check(len(saves) == 3 and all(s["write_s"] is not None for s in saves),
-              f"first: saves {saves}")
+        # A periodic save after every RESCALE_SAVE_EVERY-th step but the
+        # last (whose stop saves blocking).
+        periodic = (RESCALE_PLAN["first"][1] - 1) // RESCALE_SAVE_EVERY["first"]
+        check(len(saves) == periodic
+              and all(s["write_s"] is not None for s in saves),
+              f"first: saves {saves}, expected {periodic}")
         seconds = [s["seconds"] for s in first["steps"]]
         after = {s["after_step"] + 1 for s in saves}
         others = [t for i, t in enumerate(seconds, 1) if i not in after and i > 1]
@@ -3384,6 +3426,182 @@ def _clean_environ():
             if not k.startswith("ADAPTDL_") or k == "ADAPTDL_SHARE_PATH"}
 
 
+def _load_promcheck():
+    """``tests/promcheck.py`` (a stdlib-only exposition parser) by its
+    path: the card's machine has an installed package named ``tests``
+    that hides this checkout's."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "promcheck.py")
+    spec = importlib.util.spec_from_file_location("smoke_promcheck", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _get_route(url, route):
+    """One GET: (ms, status, content type, body)."""
+    start = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url + route, timeout=10) as r:
+            status, ctype, body = r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as exc:
+        with exc:
+            status, ctype, body = exc.code, exc.headers.get("Content-Type", ""), exc.read()
+    return (time.perf_counter() - start) * 1e3, status, ctype, body
+
+
+def _get_json(url, route, what):
+    ms, status, _, body = _get_route(url, route)
+    check(status == 200, f"{what}: GET {route} answered {status}: {body[:200]!r}")
+    return ms, json.loads(body)
+
+
+def explain_after_publish(runner, job, edited, what, wait):
+    """Right after the last edit's publish: ``/explain`` holds a record
+    of the cycle that published the job's allocation, and its allocation
+    is the published one; returns (the cycle, the allocation)."""
+    url = runner.supervisor.url
+
+    def published():
+        return [(at, a) for at, key, a in list(runner.allocator.published)
+                if key == job and at >= edited]
+
+    wait(lambda: published(), f"{what}: the last edit's publish", 60.0)
+    at, alloc = published()[0]
+    wait(lambda: any(c["time"] >= at for c in list(runner.allocator.cycles)),
+         f"{what}: the publishing cycle's end", 30.0)
+    cycle = next(c["cycle"] for c in list(runner.allocator.cycles) if c["time"] >= at)
+
+    def records():
+        history = _get_json(url, f"/explain/{job}", what)[1]["history"]
+        return [r for r in history if r["cycle"] == cycle]
+
+    wait(lambda: records(), f"{what}: the explain record of cycle {cycle}", 30.0)
+    record = records()[-1]
+    check(record["alloc"] == alloc and not record.get("pinned"),
+          f"{what}: cycle {cycle} published {alloc}, its explain record {record}")
+    return cycle, alloc
+
+
+def operator_reads(runner, job, root, what, wait, restarts=2):
+    """After the job's last rescale, while its last incarnation trains:
+    ``/watch``, ``/explain``, ``/metrics`` and ``/status`` from the live
+    supervisor, then the read-only CLI verbs against it, each a process
+    of its own, all at once; returns the watch line's figures."""
+    from adaptdl_tpu_torch import trace
+    from adaptdl_tpu_torch.watch import tenant_of
+
+    url = runner.supervisor.url
+    launch = [e["time"] for e in runner.events if e["event"] in ("launch", "cutover")][-1]
+
+    def ready():
+        # Twice a second: each poll asks the supervisor for the job's
+        # spans, and a busy supervisor would answer the jobs late.
+        time.sleep(0.4)
+        if runner.state.get_job(job).restarts != restarts:
+            return False
+        view = _get_json(url, "/watch", what)[1]["jobs"].get(job) or {}
+        latest = view.get("latest") or {}
+        spans = _get_json(url, f"/trace/{job}", what)[1]["spans"]
+        return (latest.get("measured") is not None and latest["t"] >= launch
+                and view.get("drift") is not None
+                and any(r.get("inc") == restarts for r in spans))
+
+    wait(ready, f"{what}: the last incarnation's watch sample and spans", 120.0)
+    ms = {}
+    ms["watch"], snap = _get_json(url, "/watch", what)
+    ms["explain"], explain = _get_json(url, f"/explain/{job}", what)
+    ms["metrics"], status, ctype, body = _get_route(url, "/metrics")
+    ms["status"], status_payload = _get_json(url, "/status", what)
+    ms["hints"], hints = _get_json(url, f"/hints/{job}", what)
+    # /watch: goodput samples, measuredGoodput through the hints.
+    view = snap["jobs"][job]
+    check(view["latest"]["measured"] is not None and view["latest"]["predicted"],
+          f"{what}: /watch sample {view['latest']}")
+    check(hints.get("measuredGoodput") is not None, f"{what}: hints {sorted(hints)}")
+    # /explain: the last decision is the allocation the job runs on.
+    allocation = runner.state.get_job(job).allocation
+    check(explain["lastDecision"]["alloc"] == allocation,
+          f"{what}: last decision {explain['lastDecision']} against {allocation}")
+    # /metrics: a conformant exposition with drift and the tenant families.
+    check(status == 200 and ctype.startswith("text/plain"),
+          f"{what}: /metrics {status} {ctype}")
+    text = body.decode("utf-8")
+    families = _load_promcheck().validate_exposition(text)["families"]
+    tenant = tenant_of(job)
+    check(any(labels.get("job") == job
+              for _, labels, _ in families["adaptdl_goodput_drift"]["samples"]),
+          f"{what}: no adaptdl_goodput_drift sample for {job}")
+    for name in ("adaptdl_tenant_goodput_share", "adaptdl_tenant_jobs",
+                 "adaptdl_tenant_slo_burn_total"):
+        check(any(labels.get("tenant") == tenant
+                  for _, labels, _ in families[name]["samples"]),
+              f"{what}: no {name} sample for tenant {tenant}")
+    # /status: the job carries its watch fields.
+    fields = status_payload["jobs"][job]
+    missing = [k for k in ("tenant", "goodputMeasured", "goodputPredicted",
+                           "goodputDrift", "reprofile", "incidents", "rollbacks",
+                           "lastGoodAge") if k not in fields]
+    check(not missing, f"{what}: /status lacks {missing}")
+    # The read-only verbs, each a process of its own, run side by side.
+    here = os.path.dirname(os.path.abspath(__file__))
+    perfetto = os.path.join(root, f"trace-{what}.json")
+    verbs = {
+        "status": ["status"], "top": ["top"], "explain": ["explain", job],
+        "trace": ["trace", job, "--perfetto", perfetto],
+    }
+    env = dict(os.environ, PYTHONPATH=here)
+    procs, started = {}, time.perf_counter()
+    for verb, argv in verbs.items():
+        procs[verb] = subprocess.Popen(
+            [sys.executable, "-m", "adaptdl_tpu_torch.cli", *argv, "--supervisor", url],
+            cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+    cli_ms, outs = {}, {}
+    for verb, proc in procs.items():
+        outs[verb], err = proc.communicate(timeout=60)
+        cli_ms[verb] = (time.perf_counter() - started) * 1e3
+        check(proc.returncode == 0, f"{what}: cli {verb} exited {proc.returncode}: {err}")
+    current = trace.parse_traceparent(runner.state.get_job(job).trace_parent)[0]
+    for verb, text in (("status", job), ("top", "cluster:"), ("top", job),
+                       ("explain", f"job {job}"), ("trace", f"trace {current}")):
+        check(text in outs[verb], f"{what}: cli {verb} printed no {text!r}: {outs[verb]}")
+    with open(perfetto) as f:
+        events = json.load(f)["traceEvents"]
+    ids = {e["args"]["trace_id"] for e in events if e["ph"] in ("X", "i")}
+    check(ids == {current}, f"{what}: the Perfetto file holds traces {ids}, "
+          f"the decision's {current}")
+    incs = {}
+    for e in events:
+        if e["name"] == "process_name" and e["pid"] != os.getpid():
+            incs[e["pid"]] = int(e["args"]["name"].rsplit("inc ", 1)[1].rstrip(")"))
+    check(restarts in incs.values(),
+          f"{what}: no span of incarnation {restarts} in the decision's trace: {incs}")
+    overhead = snap["overhead"]
+    line = {
+        "job": job,
+        "metrics_bytes": len(body),
+        "metrics_families": len(families),
+        "metrics_samples": sum(len(f["samples"]) for f in families.values()),
+        "route_ms": ms,
+        "cli_ms": cli_ms,
+        "watch_samples": snap["samples"],
+        "sample_s": overhead["sampleS"],
+        "cycle_s": overhead["cycleS"],
+        "sample_share": overhead["sampleS"] / overhead["cycleS"],
+        "measured": view["latest"]["measured"],
+        "predicted": view["latest"]["predicted"],
+        "drift": view["drift"],
+        "rho": view["latest"]["rho"],
+        "trace_incarnations": sorted(set(incs.values())),
+        "trace_spans": sum(1 for e in events if e["ph"] in ("X", "i")),
+    }
+    print(json.dumps({"watch": dict(line, phase=what)}), flush=True)
+    return line
+
+
 def control_single(root):
     """10a: one LM job under the port's LocalElasticRunner, 1 -> 2 -> 1."""
     from adaptdl_tpu_torch.sched.local_runner import LocalElasticRunner
@@ -3401,7 +3619,7 @@ def control_single(root):
         script_args=["--flash", "--steps", str(CONTROL_STEPS),
                      "--report-dir", reports_dir],
     )
-    edits, errors, degraded = [], [], []
+    edits, errors, degraded, operator = [], [], [], {}
     start = time.time()
     done = threading.Event()
 
@@ -3429,6 +3647,9 @@ def control_single(root):
             wait(lambda: hints().get("maxProfiledReplicas", 0) >= 2,
                  "the two-rank incarnation's hints")
             edit(min_replicas=1, max_replicas=1)
+            operator["publish"] = explain_after_publish(
+                runner, CONTROL_JOB, edits[-1][0], "10a", wait)
+            operator.update(operator_reads(runner, CONTROL_JOB, root, "10a", wait))
             wait(lambda: runner.state.get_job(CONTROL_JOB).status
                  in ("Succeeded", "Failed"), "the end")
         except Exception as exc:  # noqa: BLE001 - checked below
@@ -3511,6 +3732,7 @@ def control_single(root):
             step_ms.setdefault(key, []).append(t * 1e3)
     summary = {
         "rescales": rescales,
+        "watch": operator,
         "pollux_cycle_ms": {"p50": _percentile(cycle_ms, 50),
                             "max": max(cycle_ms), "cycles": len(cycle_ms)},
         "route_ms": {k: {"p50": _percentile(v, 50), "p99": _percentile(v, 99),
@@ -3538,7 +3760,7 @@ CONTROL_WARM_JOB = "smoke/warm-lm"
 # The incumbent steps on through each warm-up window (at one rank about
 # five steps a second), so 10c's budget is larger than 10a's: the job
 # must still be training when the second edit lands.
-CONTROL_WARM_STEPS = 200
+CONTROL_WARM_STEPS = 140
 WARM_ENV = {
     "ADAPTDL_WARMUP_ENABLED": "1", "ADAPTDL_HANDOFF": "1",
     "ADAPTDL_WARMUP_DEADLINE_S": "120",
@@ -3633,7 +3855,7 @@ def control_warm(root, single):
         script_args=["--flash", "--steps", str(CONTROL_WARM_STEPS),
                      "--report-dir", reports_dir],
     )
-    edits, errors, degraded, published, restart = [], [], [], [], {}
+    edits, errors, degraded, published, restart, operator = [], [], [], [], {}, {}
     start = time.time()
     done = threading.Event()
 
@@ -3663,6 +3885,10 @@ def control_warm(root, single):
             wait(lambda: hints().get("maxProfiledReplicas", 0) >= 2,
                  "the two-rank incarnation's hints")
             edit(min_replicas=1, max_replicas=1)
+            operator["publish"] = explain_after_publish(
+                runner, CONTROL_WARM_JOB, edits[-1][0], "10c", wait)
+            operator.update(
+                operator_reads(runner, CONTROL_WARM_JOB, root, "10c", wait))
             wait(lambda: runner.state.get_job(CONTROL_WARM_JOB).status
                  in ("Succeeded", "Failed"), "the end")
         except Exception as exc:  # noqa: BLE001 - checked below
@@ -3769,6 +3995,7 @@ def control_warm(root, single):
         f"{single['route_ms'][k]['p99']:.2f}" for k, v in route.items()))
     return {
         "rescales": rescales, "restart": restart, "route_ms": route,
+        "watch": operator,
         "launches": {str(k): [r["launches"] for r in v] for k, v in reports.items()},
         "ends": {str(k): v[0]["end_step"] for k, v in reports.items()},
     }
@@ -3953,6 +4180,109 @@ def control_multi(root):
             "linear_step_ms": step_ms, "w_err": w_err}
 
 
+# 10d: elastic tuning on the card. Three trials of the committed
+# linear-regression trial script; one slot each (three trials on two
+# slots would deadlock at the first rung: a trial paused at its rung gate
+# keeps its slot, and the third never gets one to reach the rung).
+TUNE_LRS = [0.05, 0.02, 1e-6]
+TUNE_SLOTS = 3
+TUNE_LOSS_BOUND = 0.1  # the best trial's last loss (tests/test_tune.py's bound)
+SUBMIT_EPOCHS = 3
+SUBMIT_W_TOL = 0.05  # cli submit's linear regression: weights to the true ones
+
+
+def control_tune(root):
+    """10d: TrialScheduler over the port's MultiJobRunner on the card, with
+    halving; beside it ``cli submit`` runs linear regression to completion
+    at one slot."""
+    from adaptdl_tpu_torch import tune
+    from adaptdl_tpu_torch.examples.linear_regression import TRUE_W
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(root)
+    submit_log = os.path.join(root, "submit.log")
+    start = time.time()
+    submit = subprocess.Popen(
+        [sys.executable, "-m", "adaptdl_tpu_torch.cli", "submit",
+         os.path.join(here, "adaptdl_tpu_torch", "examples", "linear_regression.py"),
+         "--chips", "1", "--checkpoint-dir", os.path.join(root, "submit"),
+         "--name", "smoke/cli-linear", "--log-file", submit_log,
+         "--", "--epochs", str(SUBMIT_EPOCHS)],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here),
+    )
+    try:
+        sched = tune.TrialScheduler(
+            os.path.join(here, "adaptdl_tpu_torch", "examples", "tune_trial.py"),
+            {"lr": TUNE_LRS}, num_chips=TUNE_SLOTS, metric="loss", mode="min",
+            grace_results=2, reduction_factor=2,
+            checkpoint_root=os.path.join(root, "tune"),
+            runner_kwargs={"allocator_interval": 2.0, "pop_size": 8,
+                           "generations": 4},
+            poll_interval=0.25,
+        )
+        best = sched.run()
+        tune_s = time.time() - start
+        code = submit.wait(timeout=600)
+    finally:
+        if submit.poll() is None:
+            submit.kill()
+            submit.wait()
+    submit_s = time.time() - start
+    check(sched.stopped_trials, "10d: early stopping never fired")
+    by_lr = {t.config["lr"]: key for key, t in sched.trials.items()}
+    hopeless = by_lr[1e-6]
+    check(hopeless in sched.stopped_trials
+          and sched.trials[hopeless].status == "STOPPED",
+          f"10d: the hopeless trial {hopeless} ended "
+          f"{sched.trials[hopeless].status}; stopped {sched.stopped_trials}")
+    runner = sched.runner
+    exits = [e["code"] for e in runner.events[hopeless] if e["event"] == "exit"]
+    check(runner.exit_codes.get(hopeless) == 143 and exits and exits[-1] == 143,
+          f"10d: the hopeless trial exited {exits}")
+    ckpt = os.path.join(root, "tune", hopeless.split("/")[1])
+    check(any(n.startswith("checkpoint-") for n in os.listdir(ckpt)),
+          f"10d: the stopped trial left no checkpoint in {os.listdir(ckpt)}")
+    check(best.config["lr"] in TUNE_LRS[:2] and best.status == "DONE"
+          and best.last("loss") < TUNE_LOSS_BOUND,
+          f"10d: best trial {best.trial_id} lr {best.config['lr']} "
+          f"{best.status} loss {best.last('loss')}")
+    with open(submit_log) as f:
+        log = f.read()
+    check(code == 0, f"10d: cli submit exited {code}: {log[-2000:]}")
+    found = re.search(r"w: \[([^\]]*)\]", log)
+    weights = [float(x) for x in found.group(1).split()] if found else []
+    check(len(weights) == 4 and max(abs(a - b) for a, b in zip(weights, TRUE_W))
+          < SUBMIT_W_TOL, f"10d: cli submit's weights {weights} against {TRUE_W}")
+    trials = {}
+    for key, trial in sched.trials.items():
+        events = runner.events[key]
+        launch = [e["time"] for e in events if e["event"] == "launch"]
+        ended = [e["time"] for e in events if e["event"] == "exit"]
+        trials[key] = {
+            "lr": trial.config["lr"], "status": trial.status,
+            "results": len(trial.results), "last_loss": trial.last("loss"),
+            "launches": len(launch),
+            "exits": [e["code"] for e in events if e["event"] == "exit"],
+            "first_launch_s": launch[0] - start if launch else None,
+            "run_s": ended[-1] - launch[0] if launch and ended else None,
+        }
+        t = trials[key]
+        print(f"10d {key}: lr {t['lr']} {t['status']} after {t['results']} "
+              f"results (last loss {t['last_loss']}), {t['launches']} launch(es), "
+              f"exits {t['exits']}, first launch {t['first_launch_s']:.2f} s after "
+              f"the start, ran {t['run_s']:.2f} s", flush=True)
+    print(f"10d: stopped {sched.stopped_trials} (in order), best {best.trial_id} "
+          f"(lr {best.config['lr']}, loss {best.last('loss'):.6f}); the tuner "
+          f"{tune_s:.2f} s, cli submit (linear regression, {SUBMIT_EPOCHS} epochs, "
+          f"--chips 1) beside it exit {code} after {submit_s:.2f} s, weights "
+          f"{weights}", flush=True)
+    return {
+        "trials": trials, "stopped": list(sched.stopped_trials),
+        "best": best.trial_id, "tune_s": tune_s, "submit_s": submit_s,
+        "submit_weights": weights,
+    }
+
+
 def phase_control(kernel_rows):
     """Phase 10: the port's control plane on the card."""
     from adaptdl_tpu_torch.ops import _build
@@ -3966,8 +4296,31 @@ def phase_control(kernel_rows):
     try:
         single = control_single(os.path.join(root, "a"))
         print(f"control 10a: {time.perf_counter() - start:.1f} s")
-        multi = control_multi(os.path.join(root, "b"))
+        # 10d's trials and submit run beside 10b's two jobs: all are small
+        # jobs on the card, and the script's time limit leaves no room
+        # for 10d after 10c. Their jobs post hints every 2 s, as 10a's.
+        os.environ["ADAPTDL_FIT_INTERVAL"] = CONTROL_ENV["ADAPTDL_FIT_INTERVAL"]
+        at = time.perf_counter()
+        tuned, tune_errors = {}, []
+
+        def run_tune():
+            try:
+                tuned.update(control_tune(os.path.join(root, "d")))
+                tuned["seconds"] = time.perf_counter() - at
+            except BaseException as exc:  # noqa: BLE001 - raised below
+                tune_errors.append(exc)
+
+        tuner = threading.Thread(target=run_tune, name="smoke-10d")
+        tuner.start()
+        try:
+            multi = control_multi(os.path.join(root, "b"))
+        finally:
+            tuner.join()
+        if tune_errors:
+            raise tune_errors[0]
         check(not _children(), f"processes left behind: {_children()}")
+        print(f"control 10b beside 10d: {time.perf_counter() - at:.1f} s "
+              f"(10d {tuned['seconds']:.1f} s)")
         at = time.perf_counter()
         warm = control_warm(os.path.join(root, "c"), single)
         # The rescales' shard servers exit on their successors' /done.
@@ -3992,7 +4345,7 @@ def phase_control(kernel_rows):
                 for k, v in part["launches"].items()
             }
     print(json.dumps({"control_plane": {"single": single, "multi": multi,
-                                        "warm": warm}}))
+                                        "warm": warm, "tune": tuned}}))
     print(f"control: phase {time.perf_counter() - start:.1f} s")
     _build.reset_launches()
 
@@ -4280,7 +4633,7 @@ def phase_zero(kernel_rows):
     root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-zero-")
     base = {k: v for k, v in os.environ.items() if not k.startswith("ADAPTDL_")}
 
-    def run(kind, replicas, restarts=0, launcher=True):
+    def spawn(kind, replicas, restarts=0, launcher=True):
         run_env = dict(
             base, ADAPTDL_NUM_REPLICAS=str(replicas),
             ADAPTDL_NUM_RESTARTS=str(restarts),
@@ -4289,10 +4642,16 @@ def phase_zero(kernel_rows):
         cmd = [os.path.join(here, "chip_smoke.py"), "--zero-worker", kind, root]
         if launcher:
             cmd = ["-m", "adaptdl_tpu_torch.launch"] + cmd
-        t0 = time.perf_counter()
-        code = subprocess.run(
-            [sys.executable, *cmd], cwd=here, env=run_env, timeout=900,
-        ).returncode
+        return subprocess.Popen(
+            [sys.executable, *cmd], cwd=here, env=run_env, start_new_session=True
+        )
+
+    def finish(proc, t0, what):
+        try:
+            code = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            _kill_groups([proc])
+            check(False, f"{what} still running after 900 s")
         return code, time.perf_counter() - t0
 
     def load(tag):
@@ -4300,8 +4659,13 @@ def phase_zero(kernel_rows):
             return json.load(f)
 
     per_pass = 12 * 2  # the sm90 kernel: forward + remat recompute per block
+    pair_proc = None
     try:
-        code, wall = run("single", 1, launcher=False)
+        # 11a's one rank runs beside 11b's two: neither reads the other's
+        # results (each holds its modes to its own dense run).
+        t0 = time.perf_counter()
+        single_proc, pair_proc = spawn("single", 1, launcher=False), spawn("pair", 2)
+        code, wall = finish(single_proc, t0, "11a")
         check(code == 0, f"11a exited {code}")
         single = load("single")["records"]
         for mode, rec in single.items():
@@ -4319,7 +4683,7 @@ def phase_zero(kernel_rows):
                 f"{rec['param_diff']:.3g}, losses {rec['loss_rdiff']:.3g}",
             )
         print("zero 11a (one rank, NCCL at world size 1, (32, 0), "
-              f"{ZERO_SINGLE_STEPS} steps each, {wall:.1f} s):")
+              f"{ZERO_SINGLE_STEPS} steps each, {wall:.1f} s, beside 11b):")
         for mode, rec in single.items():
             against = (
                 f"; against {rec['reference']}: parameters {rec['param_diff']:.3g} "
@@ -4334,7 +4698,7 @@ def phase_zero(kernel_rows):
                 f"sm90 launches {rec['launches'][KERNEL_SM90]}{against}"
             )
 
-        code, wall = run("pair", 2)
+        code, wall = finish(pair_proc, t0, "11b")
         # The launch goes on to 11c's two-rank stop, which exits 143.
         check(code == 143, f"11b and 11c's stop exited {code}, expected 143")
         pair = [load(f"pair-rank{r}") for r in (0, 1)]
@@ -4383,7 +4747,8 @@ def phase_zero(kernel_rows):
                 f"{[r['launches'][KERNEL_SM90] for r in recs]}{against}"
             )
 
-        code, wall_succ = run("successor", 1, restarts=1)
+        code, wall_succ = finish(spawn("successor", 1, restarts=1),
+                                 time.perf_counter(), "11c")
         check(code == 0, f"11c: the one-rank successor exited {code}")
         stop, succ = load("stop"), load("successor")
         print(f"zero 11c (2 ranks -> exit 143 -> 1 rank; successor "
@@ -4409,6 +4774,8 @@ def phase_zero(kernel_rows):
             "rescale": {"stop": stop, "successor": succ},
         }}))
     finally:
+        if pair_proc is not None and pair_proc.poll() is None:
+            _kill_groups([pair_proc])
         shutil.rmtree(root, ignore_errors=True)
     print(f"zero: phase {time.perf_counter() - start:.1f} s")
 
@@ -4680,8 +5047,10 @@ def _run_side_by_side(phase, procs, timeout=900.0):
     return walls
 
 
-def phase_seq(kernel_rows):
-    """Phase 12: the sequence axis on the card."""
+def phase_seq(kernel_rows, after_timing=None):
+    """Phase 12: the sequence axis on the card. ``after_timing`` is called
+    once the in-process kernel timing is done (smoke() starts phase 11
+    beside the rest of it there)."""
     import torch.nn.functional as F
 
     from adaptdl_tpu_torch.ops.flash_attention import (
@@ -4742,6 +5111,8 @@ def phase_seq(kernel_rows):
         print(f"seq 12a: {KERNEL_SM90} at the gathered shape {shape} (causal): {gathered}")
         del q, k, v, a, b, c, out, lse, ref, ref_lse
         gc_cuda()
+        if after_timing is not None:
+            after_timing()
 
         walls = _run_side_by_side(
             "12", {"single": spawn("single", 1, 0, launcher=False),
@@ -5087,8 +5458,10 @@ def axes_worker(kind, root):
     _publish_json(os.path.join(root, f"{name}.json"), records)
 
 
-def phase_axes(kernel_rows):
-    """Phase 13: the model and expert axes, and seq x ZeRO, on the card."""
+def phase_axes(kernel_rows, after_timing=None):
+    """Phase 13: the model and expert axes, and seq x ZeRO, on the card.
+    ``after_timing`` is called once the in-process kernel timing is done
+    (smoke() starts phase 14 beside the rest of it there)."""
     import torch.nn.functional as F
 
     from adaptdl_tpu_torch.ops.flash_attention import (
@@ -5147,6 +5520,8 @@ def phase_axes(kernel_rows):
         print(f"axes 13a: {KERNEL_SM90} at the tensor-parallel local shape {shape} "
               f"(causal): {local}")
         del q, k, v, a, b, c, out, lse, ref, ref_lse
+        if after_timing is not None:
+            after_timing()
         gc_cuda()
 
         walls = _run_side_by_side(
@@ -5611,6 +5986,33 @@ def main():
         shutil.rmtree(share, ignore_errors=True)
 
 
+def _beside(name, phase, kernel_rows):
+    """``phase(kernel_rows)`` in a thread of its own, to run beside another
+    phase's worker processes: returns (start, finish); ``finish`` waits
+    for it and raises what it raised."""
+    state = {"thread": None, "errors": []}
+
+    def run():
+        at = time.perf_counter()
+        try:
+            phase(kernel_rows)
+        except BaseException as exc:  # noqa: BLE001 - raised by finish
+            state["errors"].append(exc)
+        print(f"phase {name}: {time.perf_counter() - at:.1f} s (beside)", flush=True)
+
+    def start():
+        state["thread"] = threading.Thread(target=run, name=f"smoke-phase-{name}")
+        state["thread"].start()
+
+    def finish():
+        if state["thread"] is not None:
+            state["thread"].join()
+        if state["errors"]:
+            raise state["errors"][0]
+
+    return start, finish
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, printing its seconds."""
     start = time.perf_counter()
@@ -5639,10 +6041,20 @@ def smoke():
         recorder.stop()
     timed("9 options", phase_options, kernel_rows)
     timed("10 control", phase_control, kernel_rows)
-    timed("11 zero", phase_zero, kernel_rows)
-    timed("12 seq", phase_seq, kernel_rows)
-    timed("13 axes", phase_axes, kernel_rows)
-    timed("14 pipeline", phase_pipeline, kernel_rows)
+    # Phase 11 runs beside phase 12's worker processes and phase 14 beside
+    # phase 13's, each started once the other phase has timed its kernel
+    # in this process: all four phases' work is in worker processes of
+    # their own, and none reads another's results.
+    start_zero, finish_zero = _beside("11 zero", phase_zero, kernel_rows)
+    try:
+        timed("12 seq", phase_seq, kernel_rows, start_zero)
+    finally:
+        finish_zero()
+    start_pipe, finish_pipe = _beside("14 pipeline", phase_pipeline, kernel_rows)
+    try:
+        timed("13 axes", phase_axes, kernel_rows, start_pipe)
+    finally:
+        finish_pipe()
     print(f"smoke: whole run {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

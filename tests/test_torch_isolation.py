@@ -32,12 +32,19 @@ SCHED_MODULES = tuple(
         "allocator", "local_runner", "multi_runner", "journal", "warmup",
     )
 ) + ("adaptdl_tpu_torch.sched.policy",)
+# The operator's surface: the watch store, the CLI, the tuner and its
+# trial script. Like the JAX package's copies they need no framework:
+# the control plane, the CLI and the tuner's scheduler import no torch.
+OPERATOR_MODULES = (
+    "adaptdl_tpu_torch.watch", "adaptdl_tpu_torch.cli", "adaptdl_tpu_torch.tune",
+    "adaptdl_tpu_torch.examples.tune_trial",
+)
 # Modules of the MoE, chunked-head, loader-option and tutorial paths and
 # the control plane, which the walk below must reach.
 NEW_MODULES = (
     "adaptdl_tpu_torch.models.moe", "adaptdl_tpu_torch.ops.chunked_xent",
     "adaptdl_tpu_torch.iterator", "adaptdl_tpu_torch.flops",
-) + tuple(
+) + OPERATOR_MODULES + tuple(
     f"adaptdl_tpu_torch.tutorial.mnist_step_{i}" for i in range(1, 6)
 ) + SCHED_MODULES
 
@@ -117,6 +124,41 @@ def test_the_control_plane_runs_without_jax_or_aiohttp():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_operator_surface_loads_no_torch():
+    """The control plane, the watch store, the CLI and the tuner's scheduler
+    import neither torch nor anything in FORBIDDEN, and the supervisor
+    serves /watch, /explain and /metrics from them."""
+    code = (
+        "import importlib, sys, urllib.request\n"
+        f"for name in {SCHED_MODULES + OPERATOR_MODULES[:3]!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from adaptdl_tpu_torch import cli\n"
+        "from adaptdl_tpu_torch.sched.allocator import Allocator\n"
+        "from adaptdl_tpu_torch.sched.policy import NodeInfo, PolluxPolicy\n"
+        "from adaptdl_tpu_torch.sched.state import ClusterState\n"
+        "from adaptdl_tpu_torch.sched.supervisor import Supervisor\n"
+        "state = ClusterState()\n"
+        "state.create_job('ns/job', {'max_replicas': 2})\n"
+        "sup = Supervisor(state)\n"
+        "url = sup.start()\n"
+        "Allocator(state, {'local': NodeInfo(resources={'tpu': 2})}, "
+        "policy=PolluxPolicy(pop_size=8, generations=2)).optimize_once()\n"
+        "for route in ('/watch', '/explain/ns/job', '/metrics'):\n"
+        "    assert urllib.request.urlopen(url + route).status == 200\n"
+        "assert cli.main(['top', '--supervisor', url]) == 0\n"
+        "sup.stop()\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN | {'torch'}!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize(
     "path", _port_sources(), ids=lambda p: str(p.relative_to(REPO))
 )
@@ -156,7 +198,7 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "example",
-    ["cifar_resnet18", "ncf", "dcgan", "bert_mlm", "linear_regression"]
+    ["cifar_resnet18", "ncf", "dcgan", "bert_mlm", "linear_regression", "tune_trial"]
     + [f"tutorial.mnist_step_{i}" for i in range(1, 6)],
 )
 def test_zoo_examples_refuse_to_run_without_cuda(monkeypatch, example):

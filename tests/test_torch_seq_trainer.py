@@ -13,6 +13,13 @@ per-block remat, so its backward re-runs the seq exchanges. Tolerances
 noise scalars (``grad_sqr``, ``grad_var``) rtol 1e-4. Every rank ends
 with the same parameters.
 
+The chunked head under a seq axis: at dp 1 x sp 2, ring and ulysses,
+the loss of ``ops/chunked_xent.py`` over each rank's block of positions
+(vocab chunks of ``CHUNK``, the last one padded) equals the port's
+one-process chunked run on the same batches (loss rtol 1e-5, parameters
+at the bound above, so the gradients agree) and the JAX
+``chunked_softmax_xent`` over the full sequence (loss rtol 1e-5).
+
 Also: the loader's rows under a seq group (a seq group's processes get
 their data replica's rows), and a checkpoint written at sp 1 (in this
 process) resumed at sp 2 with equal parameters and step, stepped and
@@ -50,6 +57,9 @@ RUNS = [
     ("ulysses-dp2-accum1", "ulysses", 2, 2, 1),
     ("ring-dp2", "ring", 2, 4, 0),
 ]
+# (name, seq mode): chunked-head runs at dp 1 x sp 2, atomic 8.
+CHUNKED_RUNS = [("ring-dp1-chunked", "ring"), ("ulysses-dp1-chunked", "ulysses")]
+CHUNK = 24
 LOSS_RTOL = 1e-5
 PARAM_ATOL, PARAM_RTOL = 2e-6, 1e-5
 GNS_RTOL = 1e-4
@@ -92,6 +102,45 @@ def _jax_run(params, mode, dp, atomic, accum, batches):
         return {"steps": steps, "params": flax_to_state_dict(tree)}
     finally:
         patch.undo()
+
+
+def _jax_chunked_loss(params, batch):
+    """The JAX example's chunked loss on the full sequence."""
+    from adaptdl_tpu.ops.chunked_xent import chunked_softmax_xent
+
+    config = JaxConfig(**worker.LM_SIZES, max_seq_len=16, dtype=jnp.float32, remat=False)
+    model, _ = jax_init(config, seq_len=16)
+    hidden = model.apply(
+        {"params": params}, batch["inputs"], train=False, return_hidden=True
+    )
+    losses = chunked_softmax_xent(
+        hidden.reshape(-1, hidden.shape[-1]), params["embed"]["embedding"],
+        batch["targets"].reshape(-1), CHUNK,
+    )
+    return float(losses.mean())
+
+
+def _sp1_chunked_run(out, batches):
+    """The chunked head in one process (sp 1), ``STEPS`` steps at atomic 8."""
+    with pytest.MonkeyPatch.context() as patch:
+        for key in ("ADAPTDL_NUM_REPLICAS", "ADAPTDL_SEQ_SHARDS", "ADAPTDL_NUM_PROCESSES"):
+            patch.delenv(key, raising=False)
+        checkpoint._reset_registry()
+        metrics._reset_state()
+        trainer = worker.build_trainer(
+            "ring", 1, INIT_BATCH, torch.load(out / "lm.pt"), chunked=CHUNK
+        )
+        state = trainer.init_state()
+        step = trainer.train_step(8, 0)
+        steps = []
+        for i in range(STEPS):
+            state, m = step(state, trainer.to_device({k: v[i] for k, v in batches.items()}))
+            steps.append({k: float(v) for k, v in m.items()})
+        params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+        checkpoint._reset_registry()
+        metrics._reset_state()
+        pmesh._reset()
+        return {"steps": steps, "params": params}
 
 
 def _sp1_run(out, batches, restarts, first, steps):
@@ -153,6 +202,12 @@ def runs(tmp_path_factory):
             for name, mode, run_dp, atomic, accum in RUNS if run_dp == dp
         ] + [{"kind": "loader", "name": "loader", "dp": dp, "sp": 2, "batch": 8}]
         if ranks == 2:
+            plan += [
+                {"kind": "train", "name": name, "dp": 1, "sp": 2, "seq_mode": mode,
+                 "init_batch": INIT_BATCH, "atomic": 8, "accum": 0, "steps": STEPS,
+                 "batches": "lm.npz", "chunked": CHUNK}
+                for name, mode in CHUNKED_RUNS
+            ]
             saved = _sp1_run(d, batches, restarts=0, first=0, steps=STEPS)
             plan.append({
                 "kind": "train", "name": "resume", "dp": 1, "sp": 2, "seq_mode": "ulysses",
@@ -171,6 +226,10 @@ def runs(tmp_path_factory):
     try:
         for name, mode, dp, atomic, accum in RUNS:
             reference[name] = _jax_run(params, mode, dp, atomic, accum, batches)
+        reference["chunked-loss"] = _jax_chunked_loss(
+            params, {k: v[0] for k, v in batches.items()}
+        )
+        one_rank_chunked = _sp1_chunked_run(out / "2", batches)
     finally:
         for proc in procs.values():
             support.finish(proc)
@@ -182,7 +241,8 @@ def runs(tmp_path_factory):
                 for r in range(ranks)
             ]
     back = _sp1_run(out / "2", batches, restarts=2, first=STEPS + 1, steps=0)
-    return {"jax": reference, "port": port, "saved": saved, "back": back}
+    return {"jax": reference, "port": port, "saved": saved, "back": back,
+            "chunked": one_rank_chunked}
 
 
 @pytest.mark.parametrize("name", [r[0] for r in RUNS])
@@ -209,6 +269,25 @@ def test_seq_step_matches_jax(runs, name):
             assert torch.equal(other["params"][key], value), key
         for key, value in ranks[0]["gns"].items():
             assert torch.equal(other["gns"][key], value), key
+
+
+@pytest.mark.parametrize("name", [r[0] for r in CHUNKED_RUNS])
+def test_seq_chunked_xent_matches_one_rank(runs, name):
+    want = runs["chunked"]
+    ranks = runs["port"][name]
+    assert ranks[0]["mesh"] == {"data": 1, "seq": 2}
+    np.testing.assert_allclose(
+        ranks[0]["steps"][0]["loss"], runs["jax"]["chunked-loss"], rtol=LOSS_RTOL
+    )
+    for got_step, want_step in zip(ranks[0]["steps"], want["steps"]):
+        np.testing.assert_allclose(got_step["loss"], want_step["loss"], rtol=LOSS_RTOL)
+    for key, value in want["params"].items():
+        np.testing.assert_allclose(
+            ranks[0]["params"][key].numpy(), value.numpy(),
+            atol=PARAM_ATOL, rtol=PARAM_RTOL, err_msg=key,
+        )
+    for key, value in ranks[0]["params"].items():
+        assert torch.equal(ranks[1]["params"][key], value), key
 
 
 def test_loader_rows_follow_the_data_rank(runs):

@@ -14,6 +14,11 @@
   Their spans (``ckpt.snapshot``, ``ckpt.write``, ``ckpt.restore``,
   ``restart.first_step``, ``rpc.request``) reach ``/trace/{job}`` under
   one trace id, and ``python -m adaptdl_tpu.cli trace`` renders it.
+- The renderers and the registry: the same records give equal
+  ``to_perfetto`` dicts and ``render_waterfall`` text; the same spans,
+  events and absorbed worker spans give equal ``prometheus_lines`` text,
+  which passes ``tests/promcheck.validate_exposition``; label values
+  escape as the JAX package's; an undeclared family is refused.
 """
 
 import json
@@ -211,3 +216,101 @@ def jax_trace_spans(url):
     from adaptdl_tpu import rpc as jax_rpc
 
     return jax_rpc.default_client().get(f"{url}/trace/{JOB}").json()["spans"]
+
+
+# -- the registry and the renderers --------------------------------------
+
+
+def _records(seed=3, n=24):
+    """Span and event records of two processes, three threads and two
+    incarnations, from a seed."""
+    rng = random.Random(seed)
+    names = ["ckpt.snapshot", "ckpt.write", "rpc.request", "restart.first_step",
+             "alloc.decide"]
+    records = []
+    for i in range(n):
+        rec = {
+            "name": rng.choice(names),
+            "trace": "%032x" % rng.getrandbits(128),
+            "span": "%016x" % rng.getrandbits(64),
+            "parent": "%016x" % rng.getrandbits(64),
+            "ts": 1700000000.0 + rng.uniform(0.0, 5.0),
+            "dur": rng.choice([0.0004, 0.003, rng.uniform(0.0, 2.0), 45.0, 90.0]),
+            "attrs": {"step": i, "job": "ns/j"} if i % 3 else {},
+            "pid": 4000 + i % 2,
+            "tid": ["MainThread", "adaptdl-torch-ckpt-writer", "fit"][i % 3],
+            "inc": i % 2,
+        }
+        if i % 5 == 4:
+            rec["kind"] = "event"
+            rec["dur"] = 0.0
+        records.append(rec)
+    return records
+
+
+def test_perfetto_and_waterfall_match_jax():
+    records = _records()
+    assert trace.to_perfetto(records) == jax_trace.to_perfetto(records)
+    assert json.dumps(trace.to_perfetto(records), sort_keys=True) == json.dumps(
+        jax_trace.to_perfetto(records), sort_keys=True
+    )
+    for width in (16, 32):
+        assert trace.render_waterfall(records, width) == jax_trace.render_waterfall(
+            records, width
+        )
+    assert trace.render_waterfall([]) == jax_trace.render_waterfall([]) == "(no spans)"
+
+
+def test_prometheus_lines_match_jax_and_conform():
+    from tests import promcheck
+
+    for rec in _records(seed=5, n=40):
+        for module in (trace, jax_trace):
+            if rec.get("kind") == "event":
+                module.event(rec["name"], **rec["attrs"])
+            else:
+                module.record_span(rec["name"], rec["dur"], **rec["attrs"])
+    # Worker spans the supervisor absorbs count too.
+    for module in (trace, jax_trace):
+        module.absorb(_records(seed=6, n=12) + [{"no": "name"}, "junk"])
+    text = trace.prometheus_lines()
+    assert text == jax_trace.prometheus_lines()
+    families = promcheck.validate_exposition(text)["families"]
+    assert families["adaptdl_trace_phase_seconds"]["type"] == "histogram"
+    assert families["adaptdl_trace_events_total"]["samples"]
+    # rpc phases take the finer buckets.
+    rpc_buckets = [
+        labels["le"] for name, labels, _ in families["adaptdl_trace_phase_seconds"]["samples"]
+        if labels.get("phase") == "rpc.request" and name.endswith("_bucket")
+    ]
+    assert rpc_buckets[0] == "0.0005" and rpc_buckets[-1] == "+Inf"
+    trace._reset_state()
+    assert "adaptdl_trace_phase_seconds_bucket" not in trace.prometheus_lines()
+
+
+@pytest.mark.parametrize(
+    "value",
+    ['plain', 'a"quote', "back\\slash", "new\nline", 'all\\"\n', "", 7, "ns/job"],
+)
+def test_label_escaping_matches_jax(value):
+    from tests import promcheck
+
+    assert trace.escape_label_value(value) == jax_trace.escape_label_value(value)
+    builders = (trace.PromBuilder(), jax_trace.PromBuilder())
+    for b in builders:
+        b.family("adaptdl_x", "gauge", "A gauge with one label.")
+        b.sample("adaptdl_x", {"job": value}, 1.5)
+        b.sample("adaptdl_x", {"job": "other", "kind": value}, 3)
+    text = builders[0].render()
+    assert text == builders[1].render()
+    parsed = promcheck.validate_exposition(text)["families"]["adaptdl_x"]["samples"]
+    assert parsed[0][1] == {"job": str(value)}
+
+
+def test_undeclared_family_is_refused():
+    b = trace.PromBuilder()
+    with pytest.raises(ValueError, match="undeclared family"):
+        b.sample("adaptdl_nowhere", {"job": "x"}, 1)
+    b.family("adaptdl_here", "counter", "Declared.")
+    b.sample("adaptdl_here", value=2)
+    assert b.render() == "# HELP adaptdl_here Declared.\n# TYPE adaptdl_here counter\nadaptdl_here 2\n"

@@ -19,7 +19,8 @@ package. Tasks (``kind``):
   ``steps`` steps at ``(atomic, accum)`` on this replica's block of each
   batch of ``DIR/<batches>.npz``; with ``ckpt_dir`` it restores from
   there first (``restored``, the step and parameters it found) and saves
-  after the steps.
+  after the steps. ``chunked`` > 0 trains on the chunked softmax
+  cross-entropy at that vocab chunk (``ops/chunked_xent.py``).
 - ``loader``: the first batch an ``AdaptiveDataLoader`` of ``batch`` rows
   yields this process at ``dp`` x ``sp``.
 """
@@ -81,10 +82,14 @@ def _rewrite_topology(dp, sp):
     os.environ["ADAPTDL_NUM_REPLICAS"] = str(dp)
 
 
-def build_trainer(seq_mode, sp, init_batch, weights, device="cpu", remat=True):
+def build_trainer(
+    seq_mode, sp, init_batch, weights, device="cpu", remat=True, chunked=0
+):
     """The LM trainer under SGD(0.05, momentum 0.9) + AdaScale; remat on,
-    so the backward re-runs the seq exchanges."""
+    so the backward re-runs the seq exchanges. ``chunked`` > 0 takes the
+    chunked head's loss at that vocab chunk."""
     from adaptdl_tpu_torch.models import TransformerConfig, TransformerLM, lm_pair_loss_fn
+    from adaptdl_tpu_torch.ops.chunked_xent import chunked_lm_pair_loss_fn
     from adaptdl_tpu_torch.optim import SGD
     from adaptdl_tpu_torch.scaling_rules import AdaScale
     from adaptdl_tpu_torch.trainer import ElasticTrainer
@@ -96,8 +101,9 @@ def build_trainer(seq_mode, sp, init_batch, weights, device="cpu", remat=True):
     model = TransformerLM(config)
     model.load_state_dict(weights)
     model.to(device)
+    loss_fn = chunked_lm_pair_loss_fn(chunked) if chunked else lm_pair_loss_fn
     return ElasticTrainer(
-        lm_pair_loss_fn, model, SGD(model.parameters(), lr=0.05, momentum=0.9),
+        loss_fn, model, SGD(model.parameters(), lr=0.05, momentum=0.9),
         init_batch_size=init_batch, scaling_rule=AdaScale(), device=device,
     )
 
@@ -115,7 +121,10 @@ def train(task, out_dir, rank):
     _rewrite_topology(dp, sp)
     checkpoint._reset_registry()
     weights = torch.load(os.path.join(out_dir, "lm.pt"))
-    trainer = build_trainer(task["seq_mode"], sp, task["init_batch"], weights)
+    trainer = build_trainer(
+        task["seq_mode"], sp, task["init_batch"], weights,
+        chunked=task.get("chunked", 0),
+    )
     holder = {"state": trainer.init_state()}
     result = {"mesh": dict(trainer.mesh.shape)}
     ckpt = None
