@@ -21,6 +21,13 @@ once installed)::
     adaptdl-tpu-torch cp DIR/checkpoint-3.0 ./out
     adaptdl-tpu-torch tensorboard --logdir DIR
     adaptdl-tpu-torch check
+    adaptdl-tpu-torch sim TRACE --slices 8 --seed 3 --compare-fixed
+    adaptdl-tpu-torch sim --generate 64 --duration 500 -o trace.jsonl
+    adaptdl-tpu-torch shardmap --supervisor http://ROUTER [--key ns/job]
+    adaptdl-tpu-torch reshard plan --supervisor http://ROUTER --retire 1 \\
+        --out plan.json
+    adaptdl-tpu-torch reshard apply --plan plan.json --map shardmap.json
+    adaptdl-tpu-torch reshard status --supervisor http://ROUTER
 
 ``submit`` takes one slot per visible card unless ``--chips`` says
 otherwise; with no card and no ``--chips`` it refuses rather than run on
@@ -46,9 +53,6 @@ NOT_PORTED = (
     ("cp namespace/job:path (cluster PVC)", "item 5, sched/k8s"),
     ("tensorboard create|attach|delete --backend k8s", "item 5, sched/k8s"),
     ("deploy", "item 5, sched/k8s"),
-    ("shardmap", "item 5, sched/shard"),
-    ("reshard", "item 5, sched/shard"),
-    ("sim", "item 4, sim"),
 )
 
 
@@ -403,6 +407,197 @@ def _render_explain(job: str, payload: dict) -> None:
         )
 
 
+def _cmd_shardmap(args) -> int:
+    """The sharded control plane's routing table: shard id → url from
+    the router's rendezvous map, and (with ``--key``) where
+    one ``namespace/name`` lands — the first question an operator
+    asks when a tenant's traffic misbehaves."""
+    payload = _get(args, "/shardmap", "cli/shardmap").json()
+    print(f"shard map version {payload['version']}")
+    rows = [("SHARD", "URL")]
+    for sid, url in sorted(
+        payload["shards"].items(), key=lambda kv: int(kv[0])
+    ):
+        rows.append((str(sid), url))
+    _print_table(rows)
+    if getattr(args, "key", None):
+        from adaptdl_tpu_torch.sched.shard import ShardMap
+
+        shard_map = ShardMap.from_payload(payload)
+        print(f"\n{args.key} -> shard {shard_map.assign(args.key)}")
+    return 0
+
+
+def _cmd_reshard(args) -> int:
+    """Live resharding from the command line. ``plan`` cuts a :class:`ReshardPlan`
+    (the tenant moves a shard-set change implies) from the router's
+    current map plus the merged inventory; ``apply`` executes a saved
+    plan move by move — each tenant migration streams, fences,
+    verifies, and flips its own map version with zero job restarts;
+    ``status`` shows every shard's migration state: per-tenant
+    watermark lag against the source journal head, fence remaining,
+    and post-flip moved markers."""
+    from adaptdl_tpu_torch import rpc
+    from adaptdl_tpu_torch.sched import shard as shard_mod
+
+    client = rpc.default_client()
+
+    if args.action == "apply":
+        if not args.plan or not args.map:
+            print(
+                "reshard apply requires --plan and --map",
+                file=sys.stderr,
+            )
+            return 2
+        shard_map = shard_mod.ShardMap.load(args.map)
+        plan = shard_mod.ReshardPlan.load(args.plan)
+        # A grow plan names shards the journaled map has never seen.
+        # Mirror ShardedCluster.grow: publish a widened map FIRST,
+        # with every moving tenant pinned to its current owner (and
+        # any drain targets marked retiring), so the publish itself
+        # changes no routing — the per-tenant flips do.
+        needed = {m["from"] for m in plan.moves} | {
+            m["to"] for m in plan.moves
+        }
+        urls = dict(shard_map.shards)
+        for sid, url in plan.shards.items():
+            urls.setdefault(sid, url)
+        missing = sorted(needed - set(urls))
+        if missing:
+            print(
+                f"reshard apply: plan names shard(s) {missing} absent "
+                "from both the map and the plan's shard set",
+                file=sys.stderr,
+            )
+            return 2
+        retiring = tuple(set(shard_map.retiring) | set(plan.retiring))
+        if urls != shard_map.shards or retiring != shard_map.retiring:
+            overrides = dict(shard_map.overrides)
+            for move in plan.moves:
+                overrides[move["tenant"]] = move["from"]
+            shard_map = shard_mod.ShardMap(
+                urls,
+                version=shard_map.version + 1,
+                overrides=overrides,
+                retiring=retiring,
+            )
+            shard_map.save(args.map)
+            print(
+                f"published widened map v{shard_map.version} "
+                f"({len(urls)} shard(s), routing unchanged)"
+            )
+        print(
+            f"applying {len(plan.moves)} move(s) "
+            f"from map v{shard_map.version}"
+        )
+        for move in plan.moves:
+            shard_map = shard_mod.migrate_tenant(
+                shard_map,
+                move["tenant"],
+                move["from"],
+                move["to"],
+                map_path=args.map,
+                client=client,
+                fence_s=args.fence_s,
+            )
+            print(
+                f"  {move['tenant']}: shard {move['from']} -> "
+                f"{move['to']} (map v{shard_map.version})"
+            )
+        print(f"done: map v{shard_map.version}")
+        return 0
+
+    if not args.supervisor:
+        print(
+            f"reshard {args.action} requires --supervisor",
+            file=sys.stderr,
+        )
+        return 2
+    payload = _get(args, "/shardmap", "cli/reshard").json()
+    shard_map = shard_mod.ShardMap.from_payload(payload)
+
+    if args.action == "plan":
+        new_shards = dict(shard_map.shards)
+        for spec in args.add or ():
+            sid, _, url = spec.partition("=")
+            new_shards[int(sid)] = url
+        plan = shard_mod.plan_reshard(
+            shard_map,
+            new_shards=new_shards,
+            retiring=tuple(args.retire or ()),
+            client=client,
+        )
+        print(
+            f"reshard plan: map v{plan.from_version} -> "
+            f"v{plan.version}, {len(plan.moves)} move(s)"
+        )
+        rows = [("TENANT", "FROM", "TO")]
+        for move in plan.moves:
+            rows.append(
+                (move["tenant"], str(move["from"]), str(move["to"]))
+            )
+        _print_table(rows)
+        if args.out:
+            plan.save(args.out)
+            print(f"\nwrote {args.out}")
+        return 0
+
+    # status: one fan-out over the map, then cross-shard watermark
+    # lag (the epoch names the source shard, whose journal head is
+    # the target the destination watermark chases).
+    infos: dict[int, dict] = {}
+    for sid in shard_map.shard_ids():
+        infos[sid] = client.get(
+            f"{shard_map.shards[sid]}/shard/reshard/status",
+            endpoint="cli/reshard",
+            timeout=10,
+            attempts=3,
+            deadline=30.0,
+        ).json()
+    print(f"shard map v{shard_map.version}")
+    rows = [("SHARD", "SEQ", "TENANT", "STATE", "WATERMARK", "LAG", "DETAIL")]
+    for sid in sorted(infos):
+        info = infos[sid]
+        seq = int(info.get("seq") or 0)
+        busy = False
+        for tenant, entry in sorted((info.get("pending") or {}).items()):
+            busy = True
+            epoch = str(entry.get("epoch") or "")
+            lag = "-"
+            # epoch format: "{tenant}:{from}->{to}@v{version}"
+            try:
+                src_sid = int(epoch.rsplit("@", 1)[0].rsplit(":", 1)[1].split("->")[0])
+                lag = str(
+                    max(int(infos[src_sid].get("seq") or 0)
+                        - int(entry.get("watermark") or 0), 0)
+                )
+            except (KeyError, IndexError, ValueError):
+                pass
+            rows.append(
+                (str(sid), str(seq), tenant, "pending",
+                 str(entry.get("watermark")), lag,
+                 f"jobs={entry.get('jobs')} "
+                 f"skipped={entry.get('skipped')} epoch={epoch}")
+            )
+        for tenant, remaining in sorted((info.get("fenced") or {}).items()):
+            busy = True
+            rows.append(
+                (str(sid), str(seq), tenant, "fenced", "-", "-",
+                 f"remaining={float(remaining):.3f}s")
+            )
+        for tenant, marker in sorted((info.get("moved") or {}).items()):
+            busy = True
+            rows.append(
+                (str(sid), str(seq), tenant, "moved", "-", "-",
+                 f"-> shard {marker.get('shard')} "
+                 f"@ map v{marker.get('version')}")
+            )
+        if not busy:
+            rows.append((str(sid), str(seq), "-", "idle", "-", "-", "-"))
+    _print_table(rows)
+    return 0
+
+
 def _cmd_explain(args) -> int:
     response = _get(args, f"/explain/{args.job}", "cli/explain")
     payload = response.json()
@@ -472,6 +667,91 @@ def _cmd_trace(args) -> int:
 
 def _cmd_hints(args) -> int:
     print(json.dumps(_get(args, f"/hints/{args.job}", "cli/hints").json(), indent=2))
+    return 0
+
+
+def _cmd_sim(args) -> int:
+    """Replay a JSONL job-arrival trace through the REAL
+    scheduler (PolluxPolicy + Allocator + ClusterState) under a
+    virtual clock and render the summary table — or generate a trace
+    (``--generate N``). A fixed ``--seed`` reproduces the summary
+    bit-for-bit; ``--compare-fixed`` also runs the fixed-allocation
+    baseline and prints the goodput-retention ratio."""
+    from adaptdl_tpu_torch.sim import (
+        generate_trace,
+        load_trace,
+        run_trace,
+        write_trace,
+    )
+
+    if args.generate is not None:
+        records = generate_trace(
+            args.generate, args.duration, seed=args.seed
+        )
+        if args.out:
+            write_trace(args.out, records)
+            print(
+                f"wrote {len(records)} arrivals to {args.out}",
+                file=sys.stderr,
+            )
+        else:
+            for record in records:
+                print(json.dumps(record, sort_keys=True))
+        return 0
+    if not args.trace:
+        print(
+            "sim: a TRACE file is required (or --generate N)",
+            file=sys.stderr,
+        )
+        return 2
+    records = load_trace(args.trace)
+    kwargs = dict(
+        slices=args.slices,
+        chips_per_slice=args.chips_per_slice,
+        seed=args.seed,
+        interval=args.interval,
+        spot_fraction=args.spot_fraction,
+        reclaims_per_slot_hour=args.reclaims_per_slot_hour,
+    )
+    report = run_trace(
+        records, fixed=args.fixed, dp_only=args.dp_only, **kwargs
+    )
+    print(report.render())
+    payload = {
+        "summary": report.summary(),
+        "latency": report.latency(),
+        # The watch store's deterministic per-tenant fairness and drift
+        # summary (tenant = workload category).
+        "watch": report.watch_summary(),
+    }
+    if args.compare_fixed and not args.fixed:
+        baseline = run_trace(records, fixed=True, **kwargs)
+        retention = report.summary()["avg_goodput_x_ideal"] / max(
+            baseline.summary()["avg_goodput_x_ideal"], 1e-9
+        )
+        payload["fixed_baseline"] = baseline.summary()
+        payload["goodput_retention_vs_fixed"] = round(retention, 4)
+        print(
+            f"\ngoodput retention vs fixed allocation: "
+            f"{retention:.4f} (>= 1.0 means the adaptive policy "
+            "wins)"
+        )
+    if args.compare_dp_only and not args.fixed and not args.dp_only:
+        baseline = run_trace(records, dp_only=True, **kwargs)
+        retention = report.summary()["avg_goodput_x_ideal"] / max(
+            baseline.summary()["avg_goodput_x_ideal"], 1e-9
+        )
+        payload["dp_only_baseline"] = baseline.summary()
+        payload["goodput_retention_vs_dp_only"] = round(retention, 4)
+        print(
+            f"\ngoodput retention vs the dp-only policy: "
+            f"{retention:.4f} (>= 1.0 means mesh-shape search wins "
+            "on this trace)"
+        )
+    if args.json:
+        with open(args.json, "w", encoding="utf-8") as f:
+            json.dump(payload, f, sort_keys=True, indent=2)
+        print(f"\nwrote report JSON to {args.json}", file=sys.stderr)
     return 0
 
 
@@ -656,6 +936,107 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--logdir", required=True)
     p.add_argument("--port", type=int, default=6006)
     p.set_defaults(fn=_cmd_tensorboard)
+
+    p = sub.add_parser(
+        "shardmap",
+        help="the sharded control plane's routing table: shard id -> url "
+        "from the router's rendezvous map",
+    )
+    p.add_argument(
+        "--supervisor", required=True,
+        help="router (or shard-map-serving supervisor) base URL",
+    )
+    p.add_argument(
+        "--key", help="a namespace/name job key to resolve to its shard",
+    )
+    p.set_defaults(fn=_cmd_shardmap)
+
+    p = sub.add_parser(
+        "reshard",
+        help="live resharding: plan tenant moves for a shard-set change, "
+        "apply them with zero job restarts, or show per-tenant migration "
+        "status (watermark lag, fences, moved markers)",
+    )
+    p.add_argument(
+        "action", choices=("plan", "apply", "status"),
+        help="plan: cut a ReshardPlan from the current map and the merged "
+        "inventory; apply: execute a saved plan (stream, fence, verify, "
+        "flip: one map bump per tenant); status: each shard's migration "
+        "state",
+    )
+    p.add_argument("--supervisor", help="router base URL (plan/status)")
+    p.add_argument(
+        "--retire", action="append", type=int, metavar="SHARD",
+        help="shard id to drain out of the rendezvous (plan; repeatable)",
+    )
+    p.add_argument(
+        "--add", action="append", metavar="SID=URL",
+        help="shard to add to the target set (plan; repeatable)",
+    )
+    p.add_argument("--out", help="write the computed plan here (plan)")
+    p.add_argument("--plan", help="plan file to execute (apply)")
+    p.add_argument(
+        "--map", help="shard-map path the flips are published to (apply)",
+    )
+    p.add_argument(
+        "--fence-s", type=float, default=None, dest="fence_s",
+        help="per-tenant write-fence budget in seconds (apply; default "
+        "ADAPTDL_RESHARD_FENCE_S)",
+    )
+    p.set_defaults(fn=_cmd_reshard)
+
+    p = sub.add_parser(
+        "sim",
+        help="replay a job-arrival trace through the real scheduler under "
+        "a virtual clock (or --generate a trace); a fixed seed gives a "
+        "bit-identical summary",
+    )
+    p.add_argument("trace", nargs="?", default=None, help="JSONL arrival trace")
+    p.add_argument("--slices", type=int, default=16)
+    p.add_argument("--chips-per-slice", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--interval", type=float, default=60.0,
+        help="virtual seconds between allocator cycles",
+    )
+    p.add_argument(
+        "--fixed", action="store_true",
+        help="score the fixed-allocation baseline instead of Pollux",
+    )
+    p.add_argument(
+        "--compare-fixed", action="store_true",
+        help="also run the fixed baseline and print the goodput-retention "
+        "ratio",
+    )
+    p.add_argument(
+        "--dp-only", action="store_true",
+        help="strip mesh-shape hints so the policy runs its replica-only "
+        "search",
+    )
+    p.add_argument(
+        "--compare-dp-only", action="store_true",
+        help="also run the dp-only policy and print the goodput-retention "
+        "ratio mesh-shape search buys on this trace",
+    )
+    p.add_argument(
+        "--spot-fraction", type=float, default=0.0,
+        help="fraction of slices that are preemptible",
+    )
+    p.add_argument(
+        "--reclaims-per-slot-hour", type=float, default=0.0,
+        help="Poisson reclaim-notice rate per spot slice (0 = off)",
+    )
+    p.add_argument(
+        "--generate", type=int, default=None, metavar="N",
+        help="generate an N-job trace instead of simulating",
+    )
+    p.add_argument(
+        "--duration", type=float, default=3600.0,
+        help="arrival span (virtual seconds) for --generate",
+    )
+    p.add_argument("-o", "--out", default=None, help="trace output file")
+    p.add_argument("--json", default=None, help="write summary+latency JSON here")
+    p.set_defaults(fn=_cmd_sim)
 
     p = sub.add_parser(
         "check",

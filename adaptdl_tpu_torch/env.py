@@ -518,3 +518,42 @@ def allocator_interval() -> float | None:
 def max_worker_failures() -> int | None:
     """Non-graceful worker failures tolerated before a job is Failed."""
     return _get_opt_int("ADAPTDL_MAX_FAILURES")
+
+
+# Sharded control plane: raw settings of the shard router and the
+# supervisor shards behind it.
+
+
+def shard_count() -> int | None:
+    """Number of supervisor shards behind the router (raw; 1 or unset
+    means the single-supervisor deployment)."""
+    return _get_opt_int("ADAPTDL_SHARD_COUNT")
+
+
+def shard_id() -> int | None:
+    """This supervisor process's shard id in [0, shard_count) (raw)."""
+    return _get_opt_int("ADAPTDL_SHARD_ID")
+
+
+def shard_map_path() -> str | None:
+    """Path the router keeps its rendezvous shard map at (raw)."""
+    return _get_str("ADAPTDL_SHARD_MAP_PATH")
+
+
+def router_port() -> int | None:
+    """Port the shard router's HTTP server binds (raw)."""
+    return _get_opt_int("ADAPTDL_ROUTER_PORT")
+
+
+def reshard_fence_s() -> float:
+    """Per-tenant write-fence budget of a live tenant migration: the
+    source shard 503s the tenant's mutations for at most this many
+    seconds while the destination drains the final journal tail; an
+    overrun rolls the migration back."""
+    return _get_float("ADAPTDL_RESHARD_FENCE_S", 5.0)
+
+
+def reshard_batch_records() -> int:
+    """Most journal records (or job snapshots) per reshard stream
+    batch: bounds each ``GET /shard/stream/{tenant}`` response."""
+    return max(_get_int("ADAPTDL_RESHARD_BATCH", 256), 1)

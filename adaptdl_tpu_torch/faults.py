@@ -85,6 +85,19 @@ INJECTION_POINTS = {
     "warmup.spawn": "before a warm successor is started",
     "warmup.cutover": "before the go verdict is written",
     "warmup.prefetch": "before the warm chunk prefetch",
+    # sharded control plane (sched/router.py, sched/shard.py; router and
+    # inventory faults become 500s, a shard.map.write fault aborts the
+    # atomic map rewrite so the previous map stays served)
+    "router.forward.pre": "router forwarding handler, before shard pick",
+    "sup.shard.inventory.pre": "per-shard inventory publication handler",
+    "shard.map.write": "before the shard map's atomic write and rename",
+    # live resharding (sched/shard.py migration; a fault before the flip
+    # rolls the migration back and keeps the source authoritative)
+    "sup.reshard.pre": "reshard handlers (stream/import/fence/commit/abort)",
+    "reshard.stream.batch": "source side, before a tenant stream batch",
+    "reshard.replay": "destination side, before an imported batch journals",
+    "reshard.fence": "coordinator, before the source write fence is raised",
+    "reshard.flip": "coordinator, before the bumped shard map is saved",
 }
 
 

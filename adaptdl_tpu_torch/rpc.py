@@ -75,12 +75,16 @@ class HTTPStatusError(RuntimeError):
 
 
 class Response:
-    """What one HTTP attempt returned: the status and the body."""
+    """What one HTTP attempt returned: the status, the body and the
+    headers."""
 
-    def __init__(self, status_code: int, content: bytes, url: str):
+    def __init__(
+        self, status_code: int, content: bytes, url: str, headers=None
+    ):
         self.status_code = status_code
         self.content = content
         self.url = url
+        self.headers = dict(headers or {})
 
     @property
     def text(self) -> str:
@@ -119,13 +123,14 @@ def _send(method, url, params, json, timeout, headers=None) -> Response:
     )
     try:
         with _OPENER.open(request, timeout=_timeout_seconds(timeout)) as r:
-            return Response(r.status, r.read(), url)
+            return Response(r.status, r.read(), url, r.headers.items())
     except urllib.error.HTTPError as exc:
         try:
             body = exc.read() if exc.fp is not None else b""
         finally:
             exc.close()
-        return Response(exc.code, body, url)
+        headers = exc.headers.items() if exc.headers is not None else ()
+        return Response(exc.code, body, url, headers)
 
 
 class _Circuit:

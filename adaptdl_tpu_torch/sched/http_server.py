@@ -37,12 +37,21 @@ class Request:
     key), ``match_info`` (the route's ``{name}`` segments, unquoted) and
     the raw body."""
 
-    def __init__(self, method: str, path: str, query: dict, body: bytes):
+    def __init__(
+        self,
+        method: str,
+        path: str,
+        query: dict,
+        body: bytes,
+        query_string: str = "",
+    ):
         self.method = method
         self.path = path
         self.query = query
         self.body = body
         self.match_info: dict[str, str] = {}
+        # The path with its raw query string (aiohttp's ``path_qs``).
+        self.path_qs = f"{path}?{query_string}" if query_string else path
 
     @property
     def can_read_body(self) -> bool:
@@ -103,6 +112,10 @@ class ThreadedHttpServer:
     """Serves :meth:`routes` from a daemon thread; ``start()`` returns
     the bound URL, ``stop()`` shuts the server and joins its thread."""
 
+    # The largest request body served (aiohttp's ``client_max_size``);
+    # a longer one is read and dropped, and answered 413.
+    client_max_size = 64 * 1024 * 1024
+
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
         self._host = host
         self._port = port
@@ -158,10 +171,25 @@ class ThreadedHttpServer:
                     ).items()
                 }
                 length = int(self.headers.get("Content-Length") or 0)
-                body = self.rfile.read(length) if length > 0 else b""
-                response = server.dispatch(
-                    Request(self.command, parsed.path, query, body)
-                )
+                if length > server.client_max_size:
+                    # Drained, not kept: a client still sending its body
+                    # would otherwise see a reset instead of the 413.
+                    while length > 0:
+                        chunk = self.rfile.read(min(length, 1 << 16))
+                        if not chunk:
+                            break
+                        length -= len(chunk)
+                    response = error_response(
+                        "request body too large", 413
+                    )
+                else:
+                    body = self.rfile.read(length) if length > 0 else b""
+                    response = server.dispatch(
+                        Request(
+                            self.command, parsed.path, query, body,
+                            parsed.query,
+                        )
+                    )
                 self.send_response(response.status)
                 for name, value in response.headers.items():
                     self.send_header(name, value)

@@ -31,18 +31,27 @@ per-cycle samples and explain records. In memory only, never journaled:
 a recovered state starts with empty series. The store's lock is never
 taken under ``_cond``.
 
-Not ported yet (ROADMAP Queue 1): the tenant migration half (the reshard
-``pending`` and ``moved`` tables and the op-log stream: the snapshot
-carries them empty).
+**Live resharding** (tenant migration between supervisor shards,
+``sched/shard.py``): every applied op is seq-stamped into an in-memory
+op-log ring (with or without a journal) that ``stream_tenant`` serves
+delta batches from; the destination journals ``reshard_import`` /
+``reshard_apply`` batches into a pending import, and a commit on each
+side flips ownership (the source keeps a durable moved marker behind the
+supervisor's 409 redirect). Per-tenant write fences are in memory only.
+The reshard records and the snapshot's ``reshard`` tables are the JAX
+package's, byte for byte.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 import math
 import threading
 import time
 from bisect import bisect_left
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -428,6 +437,23 @@ class ClusterState:
         # allocator re-places the job DURING the notice window instead
         # of waiting out its cycle interval.
         self._alloc_kick = 0  # guarded-by: _cond
+        # Live resharding: the in-memory tail of recently applied op
+        # records, seq-stamped and refilled by recovery's replay, that
+        # the tenant stream serves delta batches from (a from_seq older
+        # than the tail falls back to a full tenant export); the
+        # destination's pending imports (tenant -> {epoch, watermark,
+        # keys, skipped}) and the source's moved tenants (tenant ->
+        # {shard, version, epoch}, behind the 409 redirect), both
+        # durable through journaled reshard ops and the snapshot; and
+        # the per-tenant write fences (monotonic deadlines, deliberately
+        # not durable: a crashed source's fence dies with the process,
+        # and since the map never flipped the recovered shard resumes).
+        self._op_log: deque = deque(
+            maxlen=max(int(snapshot_every) * 4, 1024)
+        )  # guarded-by: _cond
+        self._reshard_pending: dict[str, dict] = {}  # guarded-by: _cond
+        self._moved: dict[str, dict] = {}  # guarded-by: _cond
+        self._fences: dict[str, float] = {}  # guarded-by: _cond
         # Durability / recovery bookkeeping. ``_replaying`` is true only
         # inside recovery's replay loop: replayed ops are history and
         # must not record trace events or spans again.
@@ -463,16 +489,20 @@ class ClusterState:
         """Durably journal one mutation BEFORE it is applied. Rotates
         snapshot and journal first when due: every earlier mutation is
         applied by then, so the snapshot is consistent and this op lands
-        in the fresh journal. A no-op without ``state_dir``."""
+        in the fresh journal. The seq-stamped record also lands in the
+        op-log ring the tenant stream serves (without ``state_dir`` the
+        seq is stamped here, so a journal-less shard still streams)."""
         if self._journal is None:
+            self._last_seq += 1
+            self._op_log.append(dict(op, seq=self._last_seq))
             return
         if self._journal.snapshot_due():
             self._journal.write_snapshot(self._snapshot_payload_locked())
         self._last_seq = self._journal.append(op)
+        self._op_log.append(dict(op, seq=self._last_seq))
 
     def _snapshot_payload_locked(self) -> dict:  # holds-lock: _cond
-        """The JAX package's snapshot, key for key (its reshard tables,
-        which the port does not carry, empty)."""
+        """The JAX package's snapshot, key for key."""
         return {
             "version": 1,
             "jobs": {
@@ -505,7 +535,21 @@ class ClusterState:
                     for data, slots in self._incident_data_slots.items()
                 },
             },
-            "reshard": {"pending": {}, "moved": {}},
+            "reshard": {
+                "pending": {
+                    tenant: {
+                        "epoch": entry["epoch"],
+                        "watermark": int(entry["watermark"]),
+                        "keys": list(entry["keys"]),
+                        "skipped": int(entry.get("skipped", 0)),
+                    }
+                    for tenant, entry in self._reshard_pending.items()
+                },
+                "moved": {
+                    tenant: dict(info)
+                    for tenant, info in self._moved.items()
+                },
+            },
         }
 
     def _load_snapshot_locked(self, snapshot: dict) -> None:  # holds-lock: _cond
@@ -558,11 +602,23 @@ class ClusterState:
             for data, slots in (incidents.get("data_slots") or {}).items()
         }
         reshard = snapshot.get("reshard") or {}
-        if reshard.get("pending") or reshard.get("moved"):
-            LOG.warning(
-                "the snapshot holds tenant-migration tables, which the "
-                "port does not carry; dropping them"
-            )
+        self._reshard_pending = {
+            tenant: {
+                "epoch": str(entry.get("epoch", "")),
+                "watermark": int(entry.get("watermark", 0)),
+                "keys": sorted(entry.get("keys") or []),
+                "skipped": int(entry.get("skipped", 0)),
+            }
+            for tenant, entry in (reshard.get("pending") or {}).items()
+        }
+        self._moved = {
+            tenant: {
+                "shard": int(info.get("shard", -1)),
+                "version": int(info.get("version", 0)),
+                "epoch": str(info.get("epoch", "")),
+            }
+            for tenant, info in (reshard.get("moved") or {}).items()
+        }
         for key, payload in (snapshot.get("jobs") or {}).items():
             self._jobs[key] = _job_from_dict(payload)
 
@@ -585,6 +641,11 @@ class ClusterState:
                         LOG.exception(
                             "skipping unreplayable journal record %r", op
                         )
+                    # Replayed records (already seq-stamped) refill the
+                    # migration stream's delta tail, so a source killed
+                    # mid-stream resumes from the destination's
+                    # watermark instead of a snapshot re-bootstrap.
+                    self._op_log.append(op)
             finally:
                 self._replaying = False
             self._torn_records = torn
@@ -621,11 +682,6 @@ class ClusterState:
                 self._apply_locked(op, now)
             self._last_recovery_s = self._clock.monotonic() - start
             self._cond.notify_all()
-
-    def last_journal_seq(self) -> int:
-        """The newest stamped journal seq (0 without a journal)."""
-        with self._cond:
-            return self._last_seq
 
     def close(self) -> None:
         """Sync and close the journal (a pending group commit included).
@@ -668,6 +724,14 @@ class ClusterState:
             return self._apply_handoff_locked(op, now)
         if kind == "candidate":
             return self._apply_candidate_locked(op, now)
+        if kind == "reshard_import":
+            return self._apply_reshard_import_locked(op, now)
+        if kind == "reshard_apply":
+            return self._apply_reshard_apply_locked(op, now)
+        if kind == "reshard_commit":
+            return self._apply_reshard_commit_locked(op, now)
+        if kind == "reshard_abort":
+            return self._apply_reshard_abort_locked(op, now)
         if kind == "recovered":
             self._recoveries += 1
             return None
@@ -2129,3 +2193,461 @@ class ClusterState:
         shutting down releases its long polls this way)."""
         with self._cond:
             self._cond.notify_all()
+
+    # -- live resharding (journal-streamed tenant migration) -----------
+
+    @staticmethod
+    def _stream_tenant_of(key: str) -> str:
+        """The migration partition key: the namespace half of
+        ``namespace/name`` — EXACTLY shard.py's ``shard_key`` (the
+        router routes by it), never the accounting-tenant override in
+        the spec (an explicit ``spec["tenant"]`` changes billing, not
+        placement, and a migration that moved by billing tenant would
+        strand jobs the router still sends to the source)."""
+        return key.split("/", 1)[0]
+
+    @staticmethod
+    def _payload_sha(body) -> str:
+        """Canonical content hash for a stream batch: sha256 over the
+        sorted-key JSON form, computed identically on both shards so
+        the destination proves it received (and, via the fence-time
+        export comparison, replayed) exactly the bytes the source
+        sent."""
+        return hashlib.sha256(
+            json.dumps(body, sort_keys=True).encode("utf-8")
+        ).hexdigest()
+
+    def last_journal_seq(self) -> int:
+        """The newest stamped journal seq (the migration stream's
+        head position)."""
+        with self._cond:
+            return self._last_seq
+
+    def _export_tenant_locked(self, tenant: str) -> dict:  # holds-lock: _cond
+        jobs = {
+            key: _job_to_dict(record)
+            for key, record in self._jobs.items()
+            if self._stream_tenant_of(key) == tenant
+        }
+        return {
+            "mode": "snapshot",
+            "jobs": jobs,
+            "seq": self._last_seq,
+            "sha": self._payload_sha(jobs),
+        }
+
+    def export_tenant(self, tenant: str) -> dict:
+        """Snapshot-mode stream bootstrap: the tenant's full durable
+        job table (exactly the projection `_job_to_dict` persists —
+        transient monotonic stamps never cross shards) plus the
+        journal seq it covers and a canonical sha. Also the fence-time
+        verification oracle: after catch-up, source and destination
+        exports must hash identically or the migration rolls back."""
+        with self._cond:
+            return self._export_tenant_locked(tenant)
+
+    def stream_tenant(
+        self, tenant: str, from_seq: int | None, limit: int | None = None
+    ) -> dict:
+        """One migration stream batch (``GET /shard/stream/{tenant}``).
+
+        ``from_seq`` None bootstraps with a snapshot-mode export;
+        otherwise a delta batch of the tenant's journal records with
+        seq > from_seq, in seq order, at most ``limit`` records
+        (``ADAPTDL_RESHARD_BATCH`` by default). The batch's ``seq`` is
+        the highest source seq the scan COVERED — other tenants'
+        interleaved records advance it too, so the destination's
+        watermark tracks the source head and an empty delta batch
+        under the write fence means fully caught up. A from_seq older
+        than the retained op-log tail (snapshot rotation truncated the
+        file; a restart emptied the ring beyond the journal) falls
+        back to a fresh snapshot export rather than serving a gap."""
+        faults.maybe_fail("reshard.stream.batch")
+        limit = (
+            env.reshard_batch_records()
+            if limit is None
+            else max(int(limit), 1)
+        )
+        with self._cond:
+            if from_seq is None:
+                return self._export_tenant_locked(tenant)
+            from_seq = max(int(from_seq), 0)
+            oldest = (
+                int(self._op_log[0].get("seq", 0))
+                if self._op_log
+                else self._last_seq + 1
+            )
+            if from_seq + 1 < oldest and self._last_seq > from_seq:
+                return self._export_tenant_locked(tenant)
+            records: list[dict] = []
+            covered = from_seq
+            for rec in self._op_log:
+                seq = int(rec.get("seq", 0))
+                if seq <= from_seq:
+                    continue
+                covered = seq
+                key = rec.get("key")
+                if key is not None and (
+                    self._stream_tenant_of(key) == tenant
+                ):
+                    records.append(rec)
+                    if len(records) >= limit:
+                        break
+            return {
+                "mode": "delta",
+                "records": records,
+                "seq": covered,
+                "sha": self._payload_sha(records),
+            }
+
+    def reshard_import_batch(
+        self, tenant: str, epoch: str, batch: dict
+    ) -> int:
+        """Journal + apply one migration stream batch on the
+        DESTINATION shard; returns the new durable watermark (the
+        from_seq of the next stream request). The sha is verified
+        BEFORE anything is journaled — a corrupt batch raises and the
+        coordinator rolls the migration back. Idempotent: a
+        re-delivered delta batch at or below the durable watermark
+        journals nothing, and a snapshot re-import for the same epoch
+        simply rebuilds the pending entry."""
+        mode = batch["mode"]
+        if mode == "snapshot":
+            body = batch["jobs"]
+        elif mode == "delta":
+            body = batch["records"]
+        else:
+            raise ValueError(f"unknown stream batch mode {mode!r}")
+        if self._payload_sha(body) != batch["sha"]:
+            raise ValueError(
+                f"reshard stream batch sha mismatch for {tenant!r}"
+            )
+        with self._cond:
+            faults.maybe_fail("reshard.replay")
+            entry = self._reshard_pending.get(tenant)
+            seq = int(batch["seq"])
+            if (
+                mode == "delta"
+                and entry is not None
+                and entry["epoch"] == epoch
+                and seq <= entry["watermark"]
+            ):
+                # Re-delivered batch (coordinator retry after a kill):
+                # already durable, nothing to journal.
+                return int(entry["watermark"])
+            if mode == "snapshot":
+                op = {
+                    "op": "reshard_import",
+                    "tenant": tenant,
+                    "epoch": epoch,
+                    "source_seq": seq,
+                    "jobs": body,
+                }
+            else:
+                if entry is None or entry["epoch"] != epoch:
+                    raise ValueError(
+                        f"no pending reshard import for {tenant!r} "
+                        f"epoch {epoch!r} (bootstrap first)"
+                    )
+                op = {
+                    "op": "reshard_apply",
+                    "tenant": tenant,
+                    "epoch": epoch,
+                    "source_seq": seq,
+                    "records": body,
+                }
+            self._journal_append(op)
+            watermark = self._apply_locked(op, self._clock.monotonic())
+            self._cond.notify_all()
+            return int(watermark)
+
+    def _apply_reshard_import_locked(  # holds-lock: _cond
+        self, op: dict, now: float
+    ) -> int:
+        """Snapshot-mode bootstrap of a migrating tenant on the
+        destination: replaces any previous pending epoch for the
+        tenant (its partially-imported jobs are discarded — an
+        abandoned attempt must not leak records), loads the exported
+        job table, and records the pending entry at the source
+        watermark. Imported leases get reconciliation-grace deadlines
+        and pending allocation epochs fresh commit deadlines — the
+        same re-arming recovery does, because the monotonic stamps in
+        the export belonged to another process."""
+        tenant = str(op.get("tenant") or "")
+        prior = self._reshard_pending.pop(tenant, None)
+        if prior is not None:
+            for key in prior.get("keys") or ():
+                self._jobs.pop(key, None)
+        grace = max(self._reconcile_window, 1.0)
+        keys = []
+        for key, payload in (op.get("jobs") or {}).items():
+            record = _job_from_dict(payload)
+            for rank in list(record.leases):
+                record.leases[rank] = now + grace
+            if record.alloc_state == "pending":
+                record.alloc_deadline = (
+                    now
+                    + max(self._commit_timeout, 0.0)
+                    + self._reconcile_window
+                )
+                record.alloc_fresh = set()
+            self._jobs[key] = record
+            keys.append(key)
+        # The tenant is coming (back) home: a prior outbound
+        # migration's moved marker must not 409 its traffic after
+        # this inbound one flips.
+        self._moved.pop(tenant, None)
+        watermark = int(op.get("source_seq") or 0)
+        self._reshard_pending[tenant] = {
+            "epoch": str(op.get("epoch") or ""),
+            "watermark": watermark,
+            "keys": sorted(keys),
+            "skipped": 0,
+        }
+        return watermark
+
+    def _apply_reshard_apply_locked(  # holds-lock: _cond
+        self, op: dict, now: float
+    ) -> int:
+        """Delta-mode batch on the destination: re-applies the
+        source's tenant-scoped journal records through the normal
+        apply dispatch, gated record-by-record on the durable
+        watermark so a re-delivered batch never double-applies. A
+        record that fails to apply is skipped and counted — the
+        fence-time export-sha comparison turns any divergence into a
+        rollback instead of a silently wrong flip."""
+        tenant = str(op.get("tenant") or "")
+        entry = self._reshard_pending.get(tenant)
+        if entry is None or entry.get("epoch") != op.get("epoch"):
+            # A stale epoch's batch (the migration was aborted or
+            # superseded): ignore it.
+            return 0 if entry is None else int(entry.get("watermark") or 0)
+        keys = set(entry.get("keys") or ())
+        watermark = int(entry.get("watermark") or 0)
+        for rec in op.get("records") or []:
+            seq = int(rec.get("seq", 0))
+            if seq <= watermark:
+                continue
+            try:
+                self._apply_locked(rec, now)
+            except Exception:  # noqa: BLE001 - sha verify catches divergence
+                entry["skipped"] = int(entry.get("skipped", 0)) + 1
+            else:
+                key = rec.get("key")
+                if rec.get("op") == "create_job" and key:
+                    keys.add(key)
+                elif rec.get("op") == "remove_job" and key:
+                    keys.discard(key)
+            watermark = seq
+        watermark = max(watermark, int(op.get("source_seq") or 0))
+        entry["watermark"] = watermark
+        entry["keys"] = sorted(keys)
+        return watermark
+
+    def _apply_reshard_commit_locked(  # holds-lock: _cond
+        self, op: dict, now: float
+    ) -> list[str]:
+        """Commit one side of a migration. Destination role: the
+        pending entry is dropped and the imported jobs become
+        ordinary records. Source role (post-flip): the tenant's jobs
+        leave this shard and the moved marker behind the 409 redirect
+        is planted. Returns the keys removed (source role)."""
+        tenant = str(op.get("tenant") or "")
+        if op.get("role") == "dest":
+            self._reshard_pending.pop(tenant, None)
+            return []
+        removed = [
+            key
+            for key in self._jobs
+            if self._stream_tenant_of(key) == tenant
+        ]
+        for key in removed:
+            del self._jobs[key]
+            # The departure frees capacity on this shard's allocator.
+            self._dirty.add(key)
+        self._moved[tenant] = {
+            "shard": int(op.get("to_shard", -1)),
+            "version": int(op.get("map_version", 0)),
+            "epoch": str(op.get("epoch") or ""),
+        }
+        return removed
+
+    def _apply_reshard_abort_locked(  # holds-lock: _cond
+        self, op: dict, now: float
+    ) -> None:
+        """Roll back a pending import on the destination: the epoch's
+        partially-imported jobs are discarded as unreferenced state
+        (the map never flipped, so nothing ever routed to them)."""
+        tenant = str(op.get("tenant") or "")
+        entry = self._reshard_pending.get(tenant)
+        if entry is None or entry.get("epoch") != op.get("epoch"):
+            return
+        for key in entry.get("keys") or ():
+            self._jobs.pop(key, None)
+        del self._reshard_pending[tenant]
+
+    def reshard_commit_dest(
+        self, tenant: str, epoch: str
+    ) -> bool:
+        """Commit a caught-up pending import on the destination.
+        Idempotent per epoch: a coordinator retry after a crash
+        journals nothing and returns False."""
+        with self._cond:
+            entry = self._reshard_pending.get(tenant)
+            if entry is None or entry["epoch"] != epoch:
+                return False
+            op = {
+                "op": "reshard_commit",
+                "tenant": tenant,
+                "epoch": epoch,
+                "role": "dest",
+            }
+            self._journal_append(op)
+            self._apply_locked(op, self._clock.monotonic())
+            self._cond.notify_all()
+            return True
+
+    def reshard_commit_source(
+        self, tenant: str, epoch: str, to_shard: int, map_version: int
+    ) -> list[str]:
+        """Post-flip source commit: drop the migrated tenant's jobs,
+        plant the durable moved marker (``{"shard", "version"}``)
+        behind the 409 redirect, and release the write fence.
+        Idempotent per epoch — re-running the plan after a crash
+        between the map save and this commit completes it without
+        journaling twice."""
+        with self._cond:
+            moved = self._moved.get(tenant)
+            if moved is not None and moved.get("epoch") == epoch:
+                self._fences.pop(tenant, None)
+                return []
+            op = {
+                "op": "reshard_commit",
+                "tenant": tenant,
+                "epoch": epoch,
+                "role": "source",
+                "to_shard": int(to_shard),
+                "map_version": int(map_version),
+            }
+            self._journal_append(op)
+            removed = self._apply_locked(op, self._clock.monotonic())
+            self._fences.pop(tenant, None)
+            self._cond.notify_all()
+        for key in removed:
+            # Live path only (replay rebuilds an empty watch store
+            # anyway): the tenant's series now live on the new owner.
+            self.watch.forget_job(key)
+        return removed
+
+    def reshard_abort(
+        self, tenant: str, epoch: str
+    ) -> bool:
+        """Discard the epoch's pending import on the destination
+        (rollback). Idempotent; an unknown tenant/epoch journals
+        nothing."""
+        with self._cond:
+            entry = self._reshard_pending.get(tenant)
+            if entry is None or entry["epoch"] != epoch:
+                return False
+            keys = list(entry["keys"])
+            op = {
+                "op": "reshard_abort",
+                "tenant": tenant,
+                "epoch": epoch,
+            }
+            self._journal_append(op)
+            self._apply_locked(op, self._clock.monotonic())
+            self._cond.notify_all()
+        for key in keys:
+            self.watch.forget_job(key)
+        return True
+
+    def reshard_watermark(self, tenant: str, epoch: str) -> int | None:
+        """The destination's durable catch-up watermark for the
+        epoch's pending import (None when no matching import exists):
+        where the coordinator resumes the stream after either side is
+        killed mid-migration."""
+        with self._cond:
+            entry = self._reshard_pending.get(tenant)
+            if entry is None or entry["epoch"] != epoch:
+                return None
+            return int(entry["watermark"])
+
+    def fence_tenant(
+        self, tenant: str, timeout_s: float | None = None
+    ) -> float:
+        """Raise the tenant's write fence: the supervisor 503s the
+        tenant's mutations (reads keep flowing) for at most
+        ``timeout_s`` seconds (``ADAPTDL_RESHARD_FENCE_S`` default)
+        while the destination drains the final journal tail.
+        In-memory by design — a source crash drops the fence with the
+        process, which is safe: the map never flipped, so the
+        recovered shard resumes serving the tenant. Returns the
+        monotonic fence deadline."""
+        timeout_s = (
+            env.reshard_fence_s()
+            if timeout_s is None
+            else float(timeout_s)
+        )
+        with self._cond:
+            deadline = self._clock.monotonic() + max(timeout_s, 0.0)
+            self._fences[tenant] = deadline
+            return deadline
+
+    def unfence_tenant(self, tenant: str) -> None:
+        with self._cond:
+            self._fences.pop(tenant, None)
+
+    def fence_remaining(self, tenant: str) -> float:
+        """Seconds left on the tenant's write fence (0 = not fenced,
+        or the budget lapsed). A lapsed fence fails OPEN — blocking
+        writes past the bounded budget would turn a stuck migration
+        into the very outage it exists to remove; the coordinator's
+        overrun check rolls the migration back instead."""
+        with self._cond:
+            deadline = self._fences.get(tenant)
+            if deadline is None:
+                return 0.0
+            remaining = deadline - self._clock.monotonic()
+            if remaining <= 0:
+                del self._fences[tenant]
+                return 0.0
+            return remaining
+
+    def moved_owner(self, tenant: str) -> dict | None:
+        """The tenant's post-flip forwarding marker (None while this
+        shard still owns it): ``{"shard", "version", "epoch"}`` — the
+        payload of the 409 a stale-map worker's request earns, so the
+        router re-forwards exactly once to the new owner."""
+        with self._cond:
+            info = self._moved.get(tenant)
+            return None if info is None else dict(info)
+
+    def reshard_info(self) -> dict:
+        """Migration observability (``GET /shard/reshard/status``):
+        the journal head seq, pending imports with their watermarks,
+        moved-tenant markers, and active fences with remaining
+        budget."""
+        with self._cond:
+            now = self._clock.monotonic()
+            return {
+                "seq": self._last_seq,
+                "pending": {
+                    tenant: {
+                        "epoch": entry["epoch"],
+                        "watermark": int(entry["watermark"]),
+                        "jobs": len(entry["keys"]),
+                        "skipped": int(entry.get("skipped", 0)),
+                    }
+                    for tenant, entry in self._reshard_pending.items()
+                },
+                "moved": {
+                    tenant: dict(info)
+                    for tenant, info in self._moved.items()
+                },
+                "fenced": {
+                    tenant: max(deadline - now, 0.0)
+                    for tenant, deadline in self._fences.items()
+                    if deadline > now
+                },
+            }

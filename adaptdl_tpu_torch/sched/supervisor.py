@@ -47,8 +47,19 @@ allocation withdrawn for re-placement) and rolls back allocation epochs
 that missed their commit deadline. Handlers are fault-injection points
 (``sup.*.pre``) whose injected faults become 500s.
 
-Not ported yet (ROADMAP Queue 1): the ``/shard/*`` routes and their
-reshard gate.
+Sharding (``sched/shard.py``, ``sched/router.py``): ``shard_id`` and
+``slices_fn`` say which shard this supervisor is and which slices it
+owns. ``GET /shard/inventory`` publishes its jobs, dirty jobs and slices
+for the merged inventory view; ``GET /shard/stream/{tenant}``,
+``POST /shard/reshard/{import,fence,commit,abort}/{tenant}`` and
+``GET /shard/reshard/status`` carry a live tenant migration. A reshard
+gate runs before every route whose pattern carries ``{namespace}``
+(long polls included; the ``/shard/*`` routes stay outside it): a
+migrated tenant gets 409 ``{"error": "moved", "tenant", "shard",
+"version"}`` on any method, and a mutation inside the tenant's write
+fence gets 503 with ``Retry-After`` while reads keep flowing. A request
+body may be up to 64 MiB, room for a snapshot-mode import of a
+real-sized tenant.
 """
 
 from __future__ import annotations
@@ -59,7 +70,7 @@ import threading
 import time
 from collections import deque
 
-from adaptdl_tpu_torch import env, sched_hints, trace
+from adaptdl_tpu_torch import env, faults, sched_hints, trace
 from adaptdl_tpu_torch.sched.http_server import (
     Request,
     Response,
@@ -204,9 +215,19 @@ class Supervisor(ThreadedHttpServer):
         port=0,
         lease_ttl: float | None = None,
         sweep_interval: float | None = None,
+        shard_id: int | None = None,
+        slices_fn=None,
     ):
         super().__init__(host=host, port=port)
         self._state = state
+        # Sharded control plane: which shard this supervisor is, and a
+        # callable yielding the slice names it owns (published over
+        # GET /shard/inventory for the merged inventory view). Both stay
+        # inert unsharded (shard 0, no slices published).
+        self._shard_id = (
+            shard_id if shard_id is not None else (env.shard_id() or 0)
+        )
+        self._slices_fn = slices_fn
         self._lease_ttl = env.lease_ttl() if lease_ttl is None else lease_ttl
         # Per-job store of worker-posted trace spans, bounded.
         self._trace_lock = threading.Lock()
@@ -503,6 +524,189 @@ class Supervisor(ThreadedHttpServer):
                 404,
             )
         return json_response(payload)
+
+    # -- sharding: the inventory view and live resharding --------------------
+
+    @_faultable("sup.shard.inventory.pre")
+    def _shard_inventory(self, request: Request) -> Response:
+        """This shard's part of the merged inventory view: the jobs it
+        owns, the dirty subset awaiting an allocator cycle (a peek that
+        does not consume it) and the slice names partitioned to it."""
+        return json_response(
+            {
+                "shard": self._shard_id,
+                "jobs": sorted(self._state.jobs()),
+                "dirtyJobs": self._state.dirty_jobs(),
+                "slices": (
+                    sorted(self._slices_fn())
+                    if self._slices_fn is not None
+                    else []
+                ),
+            }
+        )
+
+    @_faultable("sup.reshard.pre")
+    def _reshard_stream(self, request: Request) -> Response:
+        """One migration stream batch (source side): a snapshot-mode
+        export without ``from_seq``, else the seq-ordered delta tail
+        above it, both sha-stamped. An injected fault is a 500."""
+        tenant = request.match_info["tenant"]
+        raw = request.query.get("from_seq")
+        from_seq = int(raw) if raw not in (None, "") else None
+        raw_limit = request.query.get("limit")
+        limit = int(raw_limit) if raw_limit not in (None, "") else None
+        try:
+            batch = self._state.stream_tenant(tenant, from_seq, limit)
+        except faults.InjectedFault as exc:
+            return error_response(f"injected fault: {exc}", 500)
+        return json_response(batch)
+
+    @staticmethod
+    def _epoch_body(request: Request):
+        """``(body, epoch, None)``, or ``(None, None, response)`` with
+        the 400 a body without JSON or without an epoch earns."""
+        try:
+            body = request.json()
+        except ValueError:
+            return None, None, error_response("body must be JSON", 400)
+        if not isinstance(body, dict) or not body.get("epoch"):
+            return None, None, error_response(
+                "body must carry the migration epoch", 400
+            )
+        return body, str(body.get("epoch")), None
+
+    @_faultable("sup.reshard.pre")
+    def _reshard_import(self, request: Request) -> Response:
+        """Destination-side batch intake: journals and applies one stream
+        batch (the body is the batch plus the migration ``epoch``) and
+        acks the new durable watermark; a re-delivered batch journals
+        nothing. A sha mismatch is a 400."""
+        tenant = request.match_info["tenant"]
+        body, epoch, refusal = self._epoch_body(request)
+        if refusal is not None:
+            return refusal
+        try:
+            watermark = self._state.reshard_import_batch(tenant, epoch, body)
+        except faults.InjectedFault as exc:
+            return error_response(f"injected fault: {exc}", 500)
+        except (KeyError, TypeError, ValueError) as exc:
+            return error_response(str(exc), 400)
+        return json_response(
+            {"tenant": tenant, "epoch": epoch, "watermark": int(watermark)}
+        )
+
+    @_faultable("sup.reshard.pre")
+    def _reshard_fence(self, request: Request) -> Response:
+        """Raise (or, with ``{"release": true}``, release) the tenant's
+        write fence on the source. The answer carries the budget left
+        and the source journal head the destination must reach."""
+        tenant = request.match_info["tenant"]
+        body = _body_dict(request) if request.can_read_body else {}
+        try:
+            if body.get("release"):
+                self._state.unfence_tenant(tenant)
+                return json_response(
+                    {
+                        "tenant": tenant,
+                        "fenced": False,
+                        "seq": self._state.last_journal_seq(),
+                    }
+                )
+            raw = body.get("deadlineS")
+            self._state.fence_tenant(
+                tenant, None if raw is None else float(raw)
+            )
+        except (TypeError, ValueError) as exc:
+            return error_response(str(exc), 400)
+        return json_response(
+            {
+                "tenant": tenant,
+                "fenced": True,
+                "deadlineS": self._state.fence_remaining(tenant),
+                "seq": self._state.last_journal_seq(),
+            }
+        )
+
+    @_faultable("sup.reshard.pre")
+    def _reshard_commit(self, request: Request) -> Response:
+        """Commit one side of a migration epoch: ``role: "dest"``
+        promotes the caught-up import, ``role: "source"`` (after the
+        flip) drops the tenant's jobs, plants the moved marker and
+        releases the fence. Both idempotent per epoch."""
+        tenant = request.match_info["tenant"]
+        body, epoch, refusal = self._epoch_body(request)
+        if refusal is not None:
+            return refusal
+        try:
+            if body.get("role") == "dest":
+                fresh = self._state.reshard_commit_dest(tenant, epoch)
+                return json_response(
+                    {
+                        "tenant": tenant,
+                        "epoch": epoch,
+                        "role": "dest",
+                        "committed": bool(fresh),
+                    }
+                )
+            removed = self._state.reshard_commit_source(
+                tenant,
+                epoch,
+                int(body.get("toShard", -1)),
+                int(body.get("mapVersion", 0)),
+            )
+        except faults.InjectedFault as exc:
+            return error_response(f"injected fault: {exc}", 500)
+        except (TypeError, ValueError) as exc:
+            return error_response(str(exc), 400)
+        return json_response(
+            {
+                "tenant": tenant,
+                "epoch": epoch,
+                "role": "source",
+                "committed": True,
+                "moved": len(removed),
+            }
+        )
+
+    @_faultable("sup.reshard.pre")
+    def _reshard_abort(self, request: Request) -> Response:
+        """Roll the epoch back: the destination discards its partial
+        import (journaled); the source (``role: "source"``) releases the
+        fence. Idempotent."""
+        tenant = request.match_info["tenant"]
+        body, epoch, refusal = self._epoch_body(request)
+        if refusal is not None:
+            return refusal
+        try:
+            if body.get("role") == "source":
+                self._state.unfence_tenant(tenant)
+                return json_response(
+                    {
+                        "tenant": tenant,
+                        "epoch": epoch,
+                        "role": "source",
+                        "aborted": True,
+                    }
+                )
+            dropped = self._state.reshard_abort(tenant, epoch)
+        except faults.InjectedFault as exc:
+            return error_response(f"injected fault: {exc}", 500)
+        return json_response(
+            {
+                "tenant": tenant,
+                "epoch": epoch,
+                "role": "dest",
+                "aborted": bool(dropped),
+            }
+        )
+
+    @_faultable("sup.reshard.pre")
+    def _reshard_status(self, request: Request) -> Response:
+        """This shard's migration view: journal head, pending imports
+        with watermarks, moved tenants and active fences."""
+        info = self._state.reshard_info()
+        info["shard"] = self._shard_id
+        return json_response(info)
 
     # -- worker span intake and the stitched per-job timeline ----------------
 
@@ -899,6 +1103,38 @@ class Supervisor(ThreadedHttpServer):
 
         return run
 
+    def _gated(self, handler):
+        """The reshard gate before a ``{namespace}`` route: 409 "moved"
+        for a migrated tenant on any method, 503 with ``Retry-After``
+        for a mutation inside the tenant's write fence."""
+
+        def run(request: Request) -> Response:
+            tenant = request.match_info.get("namespace")
+            moved = self._state.moved_owner(tenant)
+            if moved is not None:
+                return json_response(
+                    {
+                        "error": "moved",
+                        "tenant": tenant,
+                        "shard": int(moved["shard"]),
+                        "version": int(moved["version"]),
+                    },
+                    status=409,
+                )
+            if request.method != "GET":
+                remaining = self._state.fence_remaining(tenant)
+                if remaining > 0:
+                    return json_response(
+                        {"error": "fenced", "tenant": tenant},
+                        status=503,
+                        headers={
+                            "Retry-After": f"{max(remaining, 0.05):.3f}"
+                        },
+                    )
+            return handler(request)
+
+        return run
+
     def routes(self):
         table = [
             ("GET", "/discover/{namespace}/{name}/{group}", self._discover),
@@ -917,7 +1153,23 @@ class Supervisor(ThreadedHttpServer):
             ("GET", "/healthz", self._healthz),
             ("GET", "/status", self._status),
             ("GET", "/watch", self._watch),
+            ("GET", "/shard/inventory", self._shard_inventory),
+            ("GET", "/shard/stream/{tenant}", self._reshard_stream),
+            ("POST", "/shard/reshard/import/{tenant}", self._reshard_import),
+            ("POST", "/shard/reshard/fence/{tenant}", self._reshard_fence),
+            ("POST", "/shard/reshard/commit/{tenant}", self._reshard_commit),
+            ("POST", "/shard/reshard/abort/{tenant}", self._reshard_abort),
+            ("GET", "/shard/reshard/status", self._reshard_status),
             ("GET", "/explain/{namespace}/{name}", self._explain),
             ("GET", "/metrics", self._metrics),
         ]
-        return [(m, p, self._timed(h)) for m, p, h in table]
+        return [
+            (
+                m,
+                p,
+                self._timed(
+                    self._gated(h) if "{namespace}" in p else h
+                ),
+            )
+            for m, p, h in table
+        ]

@@ -366,7 +366,43 @@ Phases (any failure exits non-zero before the result line):
    worker processes, started once phase 13 has timed its kernel in this
    process (neither reads the other's results). Every phase
    prints its seconds, then the whole run's.
-15. result: the kernels line, the card line, then the device line. Each
+15. scale: the control plane at a thousand jobs, host work in two
+   processes of their own at nice 10 (no device work; OMP_NUM_THREADS 1),
+   started
+   beside phases 7-9 where the host has 8 cores or more (the phase prints
+   the count), else run alone after phase 14:
+   a. the simulator: traces/pollux-1k.jsonl through the port's run_trace
+      at the simgate's settings (1,250 slices x 8 chips, seed 42,
+      interval 60), adaptive and fixed: all 1,000 jobs complete in both,
+      goodput retention (avg_goodput_x_ideal, adaptive over fixed) >= 1.0;
+      two replays of traces/smoke-32.jsonl (8 slices, seed 3, interval
+      30) give byte-identical summaries, and `python -m
+      adaptdl_tpu_torch.cli sim ... --compare-dp-only` on it gives the
+      same summary with mesh_shaped_jobs >= 1 (0 in the dp-only arm).
+      Prints each arm's wall seconds, decisions (full, incremental),
+      decide p50/p99, restarts and the 1k summary's sha256.
+   b. the sharded control plane under traffic (bench_sched.py's
+      bench_reshard shape): 2 durable shards (their journals under the
+      phase's temp root) behind the port's Router, 20 jobs over 5
+      tenants (one on shard 1), SCALE_WORKERS worker processes (forked
+      by 15b before its servers start) posting
+      heartbeats, hints and config reads through the router with the
+      port's rpc client (a non-200 retried up to 30 s) for at least
+      SCALE_SECONDS per arm: baseline; the shard-1 tenant live-migrated
+      by `cli reshard plan --retire 1` and `apply` as subprocesses; shard
+      1 hard-killed, held down SCALE_OUTAGE_S and restarted on its
+      journal. Checked in every arm: no request lost, no job restarted
+      (group, restarts, allocation, status unchanged); in the kill arm
+      every request to the sibling shard answers 200 first time and the
+      journal at the kill is a byte-prefix of the journal after recovery;
+      in the migrate arm the plan moves that one tenant, its jobs are on
+      the destination, the source answers 409 "moved", the source's write
+      fence (polled from its status route) stayed within
+      ADAPTDL_RESHARD_FENCE_S and `cli shardmap` exits 0 showing the new
+      version. Prints per-endpoint p50/p99 through the router per arm,
+      the fence's and the migration's seconds, and the recovery's ms
+      with the records replayed.
+16. result: the kernels line, the card line, then the device line. Each
    kernel row's "launches" is its count in the main path's steps (0 for
    the f32 kernel, which the bf16 path does not run); "check_launches"
    is its count in the flash-vs-dense model check; "multi_replica_
@@ -2518,12 +2554,17 @@ def _reap(pid, what, timeout=60.0):
     check(False, f"{what} {pid} still runs after {timeout} s")
 
 
+# Processes of a phase that runs beside others (phase 15's): never another
+# phase's leftovers.
+_BESIDE_PIDS = set()
+
+
 def _children():
     pids = []
     for tid in os.listdir("/proc/self/task"):
         with open(f"/proc/self/task/{tid}/children") as f:
             pids += [int(p) for p in f.read().split()]
-    return pids
+    return [pid for pid in pids if pid not in _BESIDE_PIDS]
 
 
 def phase_rescale(kernel_rows, recorder):
@@ -5952,6 +5993,512 @@ def phase_pipeline(kernel_rows):
     print(f"pipeline: phase {time.perf_counter() - start:.1f} s")
 
 
+# -- phase 15: the control plane at a thousand jobs ---------------------------
+
+# 15a: the simgate's trace and settings, and the small trace's.
+SCALE_TRACE = os.path.join("traces", "pollux-1k.jsonl")
+SCALE_GATE = dict(slices=1250, chips_per_slice=8, seed=42, interval=60.0)
+SCALE_SMOKE_TRACE = os.path.join("traces", "smoke-32.jsonl")
+SCALE_SMOKE_ARGS = ["--slices", "8", "--seed", "3", "--interval", "30"]
+# 15b: bench_reshard's shape: 2 durable shards, 20 jobs over 5 tenants (one
+# on shard 1, the tenant that migrates and whose shard is killed), 4 worker
+# processes, at least SCALE_SECONDS of traffic per arm.
+SCALE_TENANT_JOBS = 4
+SCALE_WORKERS = 4
+SCALE_SECONDS = 4.0
+SCALE_OUTAGE_S = 1.0
+SCALE_ARMS = ("baseline", "migrate", "kill")
+# A phase-15 child or client taking longer than this has hung.
+SCALE_TIMEOUT_S = 600.0
+
+
+def _repo_path(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *parts)
+
+
+def _port_cli(*args, timeout=120.0):
+    """``python -m adaptdl_tpu_torch.cli ARGS`` from the checkout: (rc,
+    stdout, stderr, wall seconds)."""
+    env = dict(os.environ, PYTHONPATH=_repo_path())
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "adaptdl_tpu_torch.cli", *args], env=env,
+        cwd=_repo_path(), capture_output=True, text=True, timeout=timeout,
+    )
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - start
+
+
+def scale_sim(root):
+    """15a, in a process of its own: the 1k-job trace through the port's
+    ``run_trace`` (adaptive and fixed), two in-process replays of the small
+    trace and the ``sim`` verb's ``--compare-dp-only`` on it."""
+    import hashlib
+
+    from adaptdl_tpu_torch import sim
+
+    began = time.perf_counter()
+    os.nice(10)
+    out = {}
+    records = sim.load_trace(_repo_path(SCALE_TRACE))
+    for arm, fixed in (("adaptive", False), ("fixed", True)):
+        start = time.perf_counter()
+        report = sim.run_trace(records, fixed=fixed, **SCALE_GATE)
+        wall = time.perf_counter() - start
+        out[arm] = {
+            "wall_s": wall, "summary": report.summary(),
+            "latency": report.latency(),
+            "sha256": hashlib.sha256(report.summary_json().encode()).hexdigest(),
+        }
+    small = sim.load_trace(_repo_path(SCALE_SMOKE_TRACE))
+    kwargs = dict(slices=8, seed=3, interval=30.0)
+    out["small_replays"] = [
+        sim.run_trace(small, **kwargs).summary_json() for _ in range(2)
+    ]
+    report = os.path.join(root, "sim-dp-only.json")
+    rc, stdout, stderr, wall = _port_cli(
+        "sim", _repo_path(SCALE_SMOKE_TRACE), *SCALE_SMOKE_ARGS,
+        "--compare-dp-only", "--json", report,
+    )
+    out["verb"] = {"rc": rc, "wall_s": wall, "stderr": stderr[-2000:],
+                   "stdout_tail": stdout[-400:]}
+    if rc == 0:
+        with open(report) as f:
+            out["verb"]["report"] = json.load(f)
+    out["seconds"] = time.perf_counter() - began
+    _publish_json(os.path.join(root, "15a.json"), out)
+
+
+def scale_client(root, w):
+    """A 15b worker, forked by the 15b process before any of its servers
+    starts. For each arm it waits for its arguments, then posts
+    heartbeats and hints and reads the config of its jobs through the
+    router with the port's rpc client until the arm's stop file appears.
+    A request that does not answer 200 is retried (as a worker's client
+    rides out a 503) for up to 30 s; one that never does is lost. Writes
+    each request's endpoint, owner shard, first status, final status and
+    seconds."""
+    from adaptdl_tpu_torch import rpc
+
+    client = rpc.RpcClient()
+    hints = {"perfParams": None, "gradParams": None, "initBatchSize": 128}
+    requests = (
+        ("heartbeat", "PUT", "/heartbeat/{key}/0?group=0", None),
+        ("hints", "PUT", "/hints/{key}", hints),
+        ("config", "GET", "/config/{key}", None),
+    )
+    for arm in SCALE_ARMS:
+        with open(_wait_file(os.path.join(root, arm, f"args-{w}.json"),
+                             "15b client", timeout=SCALE_TIMEOUT_S)) as f:
+            args = json.load(f)
+        url, jobs, stop = args["url"], args["jobs"], args["stop"]
+        log = []
+        _publish_json(args["ready"], {"pid": os.getpid()})
+        i = 0
+        while not os.path.exists(stop):
+            key, owner = jobs[i % len(jobs)]
+            i += 1
+            for name, method, path, body in requests:
+                start = time.perf_counter()
+                first = None
+                deadline = start + 30.0
+                while True:
+                    try:
+                        status = client.request(
+                            method, url + path.format(key=key), json=body,
+                            endpoint=f"smoke/{name}", attempts=1,
+                            use_circuit=False, retry_statuses=(),
+                            timeout=(2, 10), traced=False,
+                        ).status_code
+                    except rpc.RpcError:
+                        status = 0
+                    first = status if first is None else first
+                    if status == 200 or time.perf_counter() > deadline:
+                        break
+                    time.sleep(0.05)
+                log.append((name, owner, first, status,
+                            time.perf_counter() - start))
+        _publish_json(args["out"], log)
+
+
+def _scale_tenants():
+    """Five tenants, four on shard 0 and one on shard 1 by the port's
+    rendezvous over {0, 1}."""
+    from adaptdl_tpu_torch.sched.shard import rendezvous_shard
+
+    picked = {0: [], 1: []}
+    i = 0
+    while len(picked[0]) < 4 or len(picked[1]) < 1:
+        tenant = f"tenant-{i}"
+        i += 1
+        sid = rendezvous_shard(tenant, [0, 1])
+        if len(picked[sid]) < (4 if sid == 0 else 1):
+            picked[sid].append(tenant)
+    return picked[0], picked[1][0]
+
+
+def scale_control(root):
+    """15b, in a process of its own: three arms of router traffic over two
+    durable shards (baseline; one tenant migrated by ``cli reshard plan``
+    and ``apply``; shard 1 killed and restarted), each in a fresh cluster
+    under ``root``."""
+    from adaptdl_tpu_torch import env, rpc
+    from adaptdl_tpu_torch.sched.router import Router
+    from adaptdl_tpu_torch.sched.shard import ShardedCluster
+
+    import multiprocessing
+
+    began_phase = time.perf_counter()
+    os.nice(10)
+    siblings, mover = _scale_tenants()
+    tenants = siblings + [mover]
+    keys = [f"{t}/job-{j}" for t in tenants for j in range(SCALE_TENANT_JOBS)]
+    client = rpc.RpcClient()
+    out = {"tenants": tenants, "mover": mover, "fence_budget_s": env.reshard_fence_s()}
+    for arm in SCALE_ARMS:
+        os.makedirs(os.path.join(root, arm))
+    # Forked now, before any server thread exists: a fresh interpreter
+    # would import torch (this script's) for a loop of HTTP requests.
+    fork = multiprocessing.get_context("fork")
+    workers = [fork.Process(target=scale_client, args=(root, w))
+               for w in range(SCALE_WORKERS)]
+    for proc in workers:
+        proc.start()
+    try:
+        for arm in SCALE_ARMS:
+            out[arm] = _scale_arm(root, arm, keys, mover, client)
+    finally:
+        for proc in workers:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    out["client_exitcodes"] = [proc.exitcode for proc in workers]
+    out["seconds"] = time.perf_counter() - began_phase
+    _publish_json(os.path.join(root, "15b.json"), out)
+
+
+def _scale_arm(root, arm, keys, mover, client):
+    """One 15b arm in a fresh two-shard cluster under ``root/arm``, its
+    traffic from the forked clients."""
+    from adaptdl_tpu_torch.sched.router import Router
+    from adaptdl_tpu_torch.sched.shard import ShardedCluster
+
+    arm_root = os.path.join(root, arm)
+    map_path = os.path.join(arm_root, "shardmap.json")
+    # snapshot_every keeps each journal one file for the arm, so the
+    # journal at the kill is a prefix of the journal after recovery.
+    cluster = ShardedCluster(
+        2, state_root=arm_root, lease_ttl=60.0, sweep_interval=3600.0,
+        state_kwargs={"alloc_commit_timeout": 0.0, "snapshot_every": 1_000_000},
+        map_path=map_path,
+    )
+    shard_map = cluster.start()
+    router = Router(shard_map, map_path=map_path)
+    url = router.start()
+    record = {}
+    stop = os.path.join(arm_root, "stop")
+    try:
+        owners = {}
+        for key in keys:
+            shard = cluster.shard_for(key)
+            owners[key] = shard.shard_id
+            shard.state.create_job(key, spec={"max_replicas": 4})
+            shard.state.update(key, status="Running", allocation=["local"])
+            shard.state.register_worker(key, 0, 0, "127.0.0.1:0")
+        check(sorted(set(owners.values())) == [0, 1], "15b: both shards own jobs")
+        outs = []
+        for w in range(SCALE_WORKERS):
+            args = {
+                "url": url, "stop": stop,
+                "jobs": [[k, owners[k]] for k in keys[w::SCALE_WORKERS]],
+                "ready": os.path.join(arm_root, f"ready-{w}"),
+                "out": os.path.join(arm_root, f"client-{w}.json"),
+            }
+            _publish_json(os.path.join(arm_root, f"args-{w}.json"), args)
+            outs.append(args["out"])
+        for w in range(SCALE_WORKERS):
+            _wait_file(os.path.join(arm_root, f"ready-{w}"), "15b client",
+                       timeout=120.0)
+        began = time.perf_counter()
+        time.sleep(SCALE_SECONDS * 0.25)
+        if arm == "migrate":
+            record.update(_scale_migrate(cluster, url, map_path, mover, client))
+        elif arm == "kill":
+            record.update(_scale_kill(cluster, arm_root))
+        time.sleep(max(SCALE_SECONDS - (time.perf_counter() - began), 1.0))
+        record["traffic_s"] = time.perf_counter() - began
+        if arm == "migrate":
+            rc, stdout, _, _ = _port_cli("shardmap", "--supervisor", url)
+            record["shardmap_rc"] = rc
+            record["shardmap_out"] = stdout
+        _publish_json(stop, {})
+        log = []
+        for path in outs:
+            with open(_wait_file(path, "15b client", timeout=90.0)) as f:
+                log.extend(json.load(f))
+        record["requests"] = log
+        final = router.current_map()
+        record["restarted_jobs"] = sorted(
+            key for key in keys
+            if _scale_restarted(cluster.shards[final.assign(key)].state.get_job(key))
+        )
+    finally:
+        _publish_json(stop, {})
+        router.stop()
+        cluster.stop()
+    return record
+
+
+def _scale_restarted(job):
+    """True for a job that lost its allocation or restarted its group."""
+    return (job is None or job.group != 0 or job.restarts != 0 or job.degraded
+            or job.allocation != ["local"] or job.status != "Running")
+
+
+def _scale_migrate(cluster, url, map_path, mover, client):
+    """Migrate the tenant on shard 1 with ``cli reshard plan --retire 1`` and
+    ``apply``, timing the source's write fence from its status route."""
+    src_url = cluster.shards[1].url
+    plan_path = map_path + ".plan.json"
+    rec = {}
+    rc, stdout, stderr, wall = _port_cli(
+        "reshard", "plan", "--supervisor", url, "--retire", "1", "--out", plan_path
+    )
+    check(rc == 0, f"15b: reshard plan exited {rc}: {stderr[-400:]}")
+    rec["plan_s"] = wall
+    with open(plan_path) as f:
+        rec["plan"] = json.load(f)
+    fenced, done = [], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            try:
+                info = client.get(f"{src_url}/shard/reshard/status",
+                                  endpoint="smoke/reshard-status", attempts=1,
+                                  use_circuit=False, traced=False).json()
+                if mover in info.get("fenced", {}):
+                    fenced.append(time.perf_counter())
+            except Exception:  # noqa: BLE001 - a missed poll is a gap
+                pass
+            time.sleep(0.002)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        rc, stdout, stderr, wall = _port_cli(
+            "reshard", "apply", "--plan", plan_path, "--map", map_path
+        )
+    finally:
+        done.set()
+        poller.join(timeout=10)
+    check(rc == 0, f"15b: reshard apply exited {rc}: {stderr[-400:]}")
+    rec["apply_s"] = wall
+    rec["apply_out"] = stdout
+    rec["fence_s"] = (fenced[-1] - fenced[0]) if fenced else 0.0
+    rec["fence_polls"] = len(fenced)
+    moved = client.get(f"{src_url}/config/{mover}/job-0", endpoint="smoke/moved",
+                       attempts=1, use_circuit=False, retry_statuses=(),
+                       traced=False)
+    rec["source_status"] = moved.status_code
+    rec["source_body"] = moved.json()
+    rec["dest_jobs"] = sorted(k for k in cluster.shards[0].state.jobs()
+                              if k.startswith(f"{mover}/"))
+    rec["source_jobs"] = sorted(k for k in cluster.shards[1].state.jobs()
+                                if k.startswith(f"{mover}/"))
+    return rec
+
+
+def _scale_kill(cluster, arm_root):
+    """Hard-kill shard 1 mid-traffic, hold it down SCALE_OUTAGE_S, restart
+    it on its journal: the journal's bytes at the kill, the recovery's
+    seconds and records, and the journal after."""
+    journal = os.path.join(arm_root, "shard-1", "journal.jsonl")
+    cluster.kill_shard(1)
+    with open(journal, "rb") as f:
+        before = f.read()
+    time.sleep(SCALE_OUTAGE_S)
+    start = time.perf_counter()
+    cluster.restart_shard(1)
+    restart_s = time.perf_counter() - start
+    state = cluster.shards[1].state
+    with open(journal, "rb") as f:
+        after = f.read()
+    return {
+        "restart_s": restart_s,
+        "recovery_s": state.recovery_info()["lastRecoveryS"],
+        "records_replayed": before.count(b"\n"),
+        "journal_bytes": len(before),
+        "prefix": after.startswith(before) and len(after) > len(before),
+    }
+
+
+def _scale_pcts(requests):
+    """Per-endpoint p50/p99 (ms) and counts of one arm's requests."""
+    out = {}
+    for name in ("heartbeat", "hints", "config"):
+        lat = sorted(r[4] for r in requests if r[0] == name)
+        if not lat:
+            continue
+        pick = lambda q: lat[min(int(round(q * (len(lat) - 1))), len(lat) - 1)]  # noqa: E731
+        out[name] = {"n": len(lat), "p50_ms": pick(0.5) * 1e3, "p99_ms": pick(0.99) * 1e3}
+    return out
+
+
+class ScalePhase:
+    """Phase 15 in two processes of its own (15a, 15b), started beside
+    other phases where the host has the cores; ``finish`` waits for both,
+    checks and prints."""
+
+    def __init__(self):
+        self.cores = len(os.sched_getaffinity(0))
+        self.beside = self.cores >= 8
+        self.root = None
+        self.procs = {}
+
+    def start(self):
+        self.root = tempfile.mkdtemp(prefix="adaptdl-torch-smoke-scale-")
+        self.started = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=_repo_path(), OMP_NUM_THREADS="1")
+        for name, flag in (("15a", "--scale-sim"), ("15b", "--scale-control")):
+            log = open(os.path.join(self.root, f"{name}.log"), "w")
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, self.root],
+                cwd=_repo_path(), env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True,
+            )
+            log.close()
+            _BESIDE_PIDS.add(self.procs[name].pid)
+
+    def kill(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            _BESIDE_PIDS.discard(proc.pid)
+        if self.root:
+            shutil.rmtree(self.root, ignore_errors=True)
+
+    def finish(self):
+        try:
+            for name, proc in self.procs.items():
+                try:
+                    rc = proc.wait(timeout=SCALE_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    rc = "timeout"
+                with open(os.path.join(self.root, f"{name}.log")) as f:
+                    tail = f.read()[-3000:]
+                check(rc == 0, f"{name} exited {rc}:\n{tail}")
+            with open(os.path.join(self.root, "15a.json")) as f:
+                sim = json.load(f)
+            with open(os.path.join(self.root, "15b.json")) as f:
+                control = json.load(f)
+            print(f"scale: {self.cores} cores, phase 15 "
+                  f"{'beside phases 7-9' if self.beside else 'alone'} at nice 10: "
+                  f"15a {sim['seconds']:.1f} s, 15b {control['seconds']:.1f} s "
+                  f"of their own; finished "
+                  f"{time.perf_counter() - self.started:.1f} s after their start")
+            self._check_sim(sim)
+            self._check_control(control)
+        finally:
+            self.kill()
+
+    def _check_sim(self, sim):
+        summaries = {}
+        for arm in ("adaptive", "fixed"):
+            entry = sim[arm]
+            summary, latency = entry["summary"], entry["latency"]
+            summaries[arm] = summary
+            check(summary["completed"] == summary["jobs"] == 1000,
+                  f"15a {arm}: {summary['completed']} of {summary['jobs']} completed")
+            modes = latency["alloc_cycles_by_mode"]
+            print(f"scale 15a {arm}: {entry['wall_s']:.3f} s wall, "
+                  f"{latency['alloc_decisions']} decisions "
+                  f"(full {modes.get('full', 0)}, incremental "
+                  f"{modes.get('incremental', 0)}), decide p50 "
+                  f"{latency['alloc_decide_p50_s']:.6f} s p99 "
+                  f"{latency['alloc_decide_p99_s']:.6f} s, restarts "
+                  f"{summary['restarts_total']}, avg_goodput_x_ideal "
+                  f"{summary['avg_goodput_x_ideal']}, makespan "
+                  f"{summary['makespan_s']} s, summary sha256 {entry['sha256']}")
+        retention = summaries["adaptive"]["avg_goodput_x_ideal"] / max(
+            summaries["fixed"]["avg_goodput_x_ideal"], 1e-9)
+        print(f"scale 15a: goodput retention vs fixed {retention:.4f}")
+        check(retention >= 1.0, f"15a: retention {retention:.4f} < 1.0")
+        first, second = sim["small_replays"]
+        check(first == second, "15a: two replays of smoke-32 differ")
+        verb = sim["verb"]
+        check(verb["rc"] == 0, f"15a: sim verb exited {verb['rc']}: {verb['stderr']}")
+        report = verb["report"]
+        check(json.dumps(report["summary"], sort_keys=True) == first,
+              "15a: the sim verb's summary differs from the in-process replays")
+        shaped = report["summary"]["mesh_shaped_jobs"]
+        dp_shaped = report["dp_only_baseline"]["mesh_shaped_jobs"]
+        check(shaped >= 1 and dp_shaped == 0,
+              f"15a: mesh_shaped_jobs {shaped} (dp-only {dp_shaped})")
+        print(f"scale 15a smoke-32: two replays byte-identical, the verb's "
+              f"--compare-dp-only in {verb['wall_s']:.2f} s: mesh_shaped_jobs "
+              f"{shaped} (dp-only {dp_shaped}), retention vs dp-only "
+              f"{report['goodput_retention_vs_dp_only']}")
+
+    def _check_control(self, ctl):
+        mover = ctl["mover"]
+        budget = ctl["fence_budget_s"]
+        check(ctl["client_exitcodes"] == [0] * SCALE_WORKERS,
+              f"15b: clients exited {ctl['client_exitcodes']}")
+        for arm in SCALE_ARMS:
+            rec = ctl[arm]
+            reqs = rec["requests"]
+            check(reqs, f"15b {arm}: no requests")
+            lost = [r for r in reqs if r[3] != 200]
+            check(not lost, f"15b {arm}: {len(lost)} requests lost, e.g. {lost[:3]}")
+            check(not rec["restarted_jobs"],
+                  f"15b {arm}: jobs restarted {rec['restarted_jobs']}")
+            retried = sum(1 for r in reqs if r[2] != 200)
+            pcts = _scale_pcts(reqs)
+            print(f"scale 15b {arm}: {len(reqs)} requests in "
+                  f"{rec['traffic_s']:.2f} s, 0 lost, {retried} answered 200 only "
+                  f"on a retry, 0 job restarts; through the router "
+                  + ", ".join(f"{n} p50 {v['p50_ms']:.2f} ms p99 {v['p99_ms']:.2f} ms"
+                              for n, v in pcts.items()))
+            if arm == "kill":
+                sibling_bad = [r for r in reqs if r[1] == 0 and r[2] != 200]
+                check(not sibling_bad,
+                      f"15b kill: {len(sibling_bad)} sibling requests failed")
+                check(rec["prefix"], "15b kill: the journal at the kill is not a "
+                      "prefix of the journal after recovery")
+                print(f"scale 15b kill: shard 1 down {SCALE_OUTAGE_S:.1f} s; "
+                      f"recovery {rec['recovery_s'] * 1e3:.2f} ms "
+                      f"({rec['records_replayed']} records, {rec['journal_bytes']} B; "
+                      f"restart {rec['restart_s'] * 1e3:.2f} ms); every sibling "
+                      f"request answered 200 first time; journal prefix held")
+            if arm == "migrate":
+                moves = rec["plan"]["moves"]
+                check([m["tenant"] for m in moves] == [mover],
+                      f"15b migrate: the plan moves {moves}")
+                check(rec["dest_jobs"] == [f"{mover}/job-{j}"
+                                           for j in range(SCALE_TENANT_JOBS)]
+                      and not rec["source_jobs"],
+                      f"15b migrate: dest {rec['dest_jobs']} source {rec['source_jobs']}")
+                body = rec["source_body"]
+                check(rec["source_status"] == 409 and body.get("error") == "moved"
+                      and body.get("shard") == 0,
+                      f"15b migrate: the source answered {rec['source_status']} {body}")
+                check(0 < rec["fence_s"] <= budget,
+                      f"15b migrate: fence {rec['fence_s']:.3f} s (budget {budget} s)")
+                version = rec["plan"]["version"] + 1
+                check(rec["shardmap_rc"] == 0
+                      and f"shard map version {version}" in rec["shardmap_out"],
+                      f"15b migrate: cli shardmap rc {rec['shardmap_rc']}: "
+                      f"{rec['shardmap_out']!r} (want v{version})")
+                print(f"scale 15b migrate: {mover} 1 -> 0 by `cli reshard plan` "
+                      f"({rec['plan_s']:.2f} s) and `apply` ({rec['apply_s']:.2f} s, "
+                      f"an interpreter start included); fence {rec['fence_s']:.3f} s "
+                      f"({rec['fence_polls']} polls) of {budget} s; the source "
+                      f"answers 409 moved; `cli shardmap` shows v{version}")
+        print(json.dumps({"scale": {
+            arm: _scale_pcts(ctl[arm]["requests"]) for arm in SCALE_ARMS}}))
+
+
 def main():
     if sys.argv[1:2] == ["--replica-worker"]:
         mode, root = sys.argv[2:4]
@@ -5974,6 +6521,12 @@ def main():
         return
     if sys.argv[1:2] == ["--pipe-worker"]:
         pipe_worker(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--scale-sim"]:
+        scale_sim(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--scale-control"]:
+        scale_control(sys.argv[2])
         return
     # The kernel cache lives on the share path (ops/_build.py): phase 2
     # builds into it, and every later process (phase 5's ranks, phase 8's
@@ -6032,14 +6585,26 @@ def smoke():
         RESCALE_JOB: ["slot-0"],
     })
     recorder.start()
+    # Phase 15 is host work in processes of its own (no device work): with
+    # the cores for it, it runs beside phases 7-9, else alone at the end.
+    scale = ScalePhase()
     try:
-        timed("5 multi replica", phase_multi_replica, kernel_rows, recorder)
-        timed("6 supervised", phase_supervised, kernel_rows, recorder, main_step_s)
-        timed("7 zoo", phase_zoo, kernel_rows)
-        timed("8 rescale", phase_rescale, kernel_rows, recorder)
-    finally:
-        recorder.stop()
-    timed("9 options", phase_options, kernel_rows)
+        try:
+            timed("5 multi replica", phase_multi_replica, kernel_rows, recorder)
+            timed("6 supervised", phase_supervised, kernel_rows, recorder, main_step_s)
+            print(f"scale: the host has {scale.cores} cores", flush=True)
+            if scale.beside:
+                scale.start()
+            timed("7 zoo", phase_zoo, kernel_rows)
+            timed("8 rescale", phase_rescale, kernel_rows, recorder)
+        finally:
+            recorder.stop()
+        timed("9 options", phase_options, kernel_rows)
+    except BaseException:
+        scale.kill()
+        raise
+    if scale.beside:
+        timed("15 scale (finish)", scale.finish)
     timed("10 control", phase_control, kernel_rows)
     # Phase 11 runs beside phase 12's worker processes and phase 14 beside
     # phase 13's, each started once the other phase has timed its kernel
@@ -6055,6 +6620,9 @@ def smoke():
         timed("13 axes", phase_axes, kernel_rows, start_pipe)
     finally:
         finish_pipe()
+    if not scale.beside:
+        scale.start()
+        timed("15 scale", scale.finish)
     print(f"smoke: whole run {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

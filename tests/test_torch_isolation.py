@@ -30,8 +30,14 @@ SCHED_MODULES = tuple(
         "policy.utils", "policy.nsga2", "policy.speedup", "policy.pollux",
         "validator", "config", "state", "http_server", "supervisor",
         "allocator", "local_runner", "multi_runner", "journal", "warmup",
+        "shard", "router",
     )
 ) + ("adaptdl_tpu_torch.sched.policy",)
+# The cluster simulator: like the JAX package's copy, no framework.
+SIM_MODULES = tuple(
+    f"adaptdl_tpu_torch.sim.{name}"
+    for name in ("clock", "events", "workload", "engine")
+) + ("adaptdl_tpu_torch.sim",)
 # The operator's surface: the watch store, the CLI, the tuner and its
 # trial script. Like the JAX package's copies they need no framework:
 # the control plane, the CLI and the tuner's scheduler import no torch.
@@ -46,7 +52,7 @@ NEW_MODULES = (
     "adaptdl_tpu_torch.iterator", "adaptdl_tpu_torch.flops",
 ) + OPERATOR_MODULES + tuple(
     f"adaptdl_tpu_torch.tutorial.mnist_step_{i}" for i in range(1, 6)
-) + SCHED_MODULES
+) + SCHED_MODULES + SIM_MODULES
 
 
 def _port_sources():
@@ -147,6 +153,44 @@ def test_the_operator_surface_loads_no_torch():
         "    assert urllib.request.urlopen(url + route).status == 200\n"
         "assert cli.main(['top', '--supervisor', url]) == 0\n"
         "sup.stop()\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN | {'torch'}!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_simulator_and_the_shards_load_no_torch():
+    """The simulator replays a trace through the port's Pollux, and a
+    two-shard cluster serves a tenant through the router and migrates it:
+    neither torch nor anything in FORBIDDEN loads."""
+    code = (
+        "import importlib, json, sys, urllib.request\n"
+        f"for name in {SIM_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from adaptdl_tpu_torch import sim\n"
+        "from adaptdl_tpu_torch.sched.router import Router\n"
+        "from adaptdl_tpu_torch.sched.shard import ShardedCluster, migrate_tenant\n"
+        "report = sim.run_trace(sim.generate_trace(6, 60.0, seed=1), slices=4)\n"
+        "assert report.summary()['completed'] == 6\n"
+        "cluster = ShardedCluster(2, lease_ttl=30.0, sweep_interval=3600.0)\n"
+        "shard_map = cluster.start()\n"
+        "router = Router(shard_map)\n"
+        "url = router.start()\n"
+        "cluster.create_job('ns/job', {})\n"
+        "req = urllib.request.Request(url + '/register/ns/job/0/0', "
+        "data=json.dumps({'address': 'h:1'}).encode(), method='PUT')\n"
+        "assert json.load(urllib.request.urlopen(req)) == {'ok': True}\n"
+        "owner = shard_map.assign('ns/job')\n"
+        "flipped = migrate_tenant(shard_map, 'ns', owner, 1 - owner)\n"
+        "assert cluster.shards[1 - owner].state.get_job('ns/job') is not None\n"
+        "router.stop()\n"
+        "cluster.stop()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN | {'torch'}!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
